@@ -2,25 +2,43 @@
 
     python3 chip_smoke.py
 
-Builds the hand-written kernels from ``tfqmrgpu_tpu_torch/csrc`` and runs
-these phases in order, printing a line or two for each:
+Builds the hand-written kernels from ``tfqmrgpu_tpu_torch/csrc`` (one nvcc
+per source, in parallel) and runs these phases in order, printing a line or
+two for each:
 
 1. the device: the card's name and power limit, the CUDA version, the
    kernel build time;
-2. the pair-plan kernel against its plain PyTorch version on the card, at
-   all 15 allowed block sizes in 'z' and 'c' and on the golden-class plan
-   (maxdev <= 1e-12 for 'z', <= 1e-4 for 'c', relative to the largest
-   entry), and both versions' times per multiply at the golden-class and
-   the FD shape;
+2. the pair-plan kernel K1 against its plain PyTorch version on the card,
+   at all 15 allowed block sizes in 'z' and 'c' and on the golden-class
+   plan (maxdev <= 1e-12 for 'z', <= 1e-4 for 'c', relative to the largest
+   entry), K1's and the plain version's times per multiply at the
+   golden-class and the FD shape, and the library yardstick (a complex128
+   BSR ``torch.sparse.mm``);
 3. the FD rtb=12.75 'z' solve through ``bsrsv_z`` on the card, twice: it
    must converge to 1e-9, match the generator's dense reference to 1e-5,
-   send every multiply through the kernel and repeat its iteration count;
+   send every multiply through K1 and repeat its iteration count;
 4. the golden-class 'z' solve through ``Solver(engine='auto')``, checked by
    an independent residual |A X - B| / |B| < 1e-8, and its time per
-   iteration over 20 fixed iterations.
+   iteration over 20 fixed iterations;
+5. the row-tile kernel K3 against its plain version at all 15 block sizes
+   with r_tile 1 and 4, and on the golden-class plan with cos/sin data
+   (maxdev <= 1e-4), the same bits on a repeated launch, and K3's, the
+   plain version's and the library call's (complex64 BSR) times;
+6. the golden-class 'c' solve through ``Solver(engine='auto')``, which
+   must take the row-tile engine (r_tile 2, ku 12), converge to 1e-5 with
+   every multiply through K3, and pass an independent float64 residual
+   |A X - B| / |B| < 1e-4 over X's pattern; its time per iteration over 10
+   fixed iterations;
+7. the dense engine: FD rtb=6.75 'z' through ``bsrsv_z``, which 'auto'
+   sends to 'dense': converged to 1e-9 and within 1e-5 of the generator's
+   dense reference;
+8. the stream probe K4 (``tfqmrgpu_tpu_torch.dma_probe.sweep``) over stage
+   sizes and operand counts, each held against its plain version, with
+   the ``copy_`` yardstick.
 
-Then one JSON line on the kernels and, last, one JSON line on the device.
-Any failed check raises, and the script exits non-zero.  It needs CUDA and
+Then one JSON line on the kernels (time, launches on their path, bound,
+plain and library times) and, last, one JSON line on the device.  Any
+failed check raises, and the script exits non-zero.  It needs CUDA and
 runs nothing on the CPU in its place.
 """
 
@@ -35,9 +53,22 @@ import numpy as np
 import torch
 
 
+PEAK_FLOPS = 67e12             # FP64 tensor core and FP32 non-tensor rates
+
+
 def require(ok: bool, what: str):
     if not ok:
         raise RuntimeError(f"check failed: {what}")
+
+
+def bound(nbytes: float, flops: float) -> tuple[float, str]:
+    """The least time (ms) the card could take: the larger of the bytes over
+    the device-memory rate and the operations over the peak rate."""
+    from tfqmrgpu_tpu_torch.dma_probe import HBM_BYTES_PER_S
+
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                      else "operations")
 
 
 # ------------------------------------------------------------- problems
@@ -97,6 +128,47 @@ def cos_sin(nnzb: int, d1: int, d2: int) -> np.ndarray:
 def planes(c: np.ndarray, dtype, device) -> tuple:
     return (torch.from_numpy(np.ascontiguousarray(c.real)).to(device, dtype),
             torch.from_numpy(np.ascontiguousarray(c.imag)).to(device, dtype))
+
+
+def x_panel(plan, lm: int, ln: int, blocks: np.ndarray, dtype, device):
+    """X-shaped complex blocks as (re, im) [mb*LM, ncc, LN] panels."""
+    from tfqmrgpu_tpu_torch.ops.panel import PanelLayout
+
+    plan.lm, plan.ln = lm, ln
+    lay = PanelLayout.from_plan(plan)
+    return tuple(torch.from_numpy(lay.pack_x(np.ascontiguousarray(p))).to(
+        device, dtype) for p in (blocks.real, blocks.imag)), lay
+
+
+def library_product(plan, a_blocks: np.ndarray, xp: tuple, cdtype,
+                    want: tuple, gate: float):
+    """One PyTorch call computing the unmasked panel product: A as a
+    ``torch.sparse_bsr_tensor`` times the dense X panel [nr, c], checked
+    against ``want`` (the kernel's plain version, as panels; X is full on
+    the golden-class plan, so the mask changes nothing).  Returns (call,
+    None), or (None, why) where PyTorch refuses it on the card.  Timed as a
+    yardstick; the port never calls it."""
+    dev = xp[0].device
+    lm = a_blocks.shape[1]
+    nr = plan.nrows * lm
+    # BSR wants the columns of a row ascending (banded rows wrap around);
+    # the invariants are checked on the host, where a failure raises
+    rows = np.repeat(np.arange(plan.nrows), np.diff(plan.rowptr_a))
+    order = np.lexsort((plan.colind_a, rows))
+    try:
+        a = torch.sparse_bsr_tensor(
+            torch.from_numpy(plan.rowptr_a),
+            torch.from_numpy(plan.colind_a[order]),
+            torch.from_numpy(a_blocks[order]).to(cdtype), size=(nr, nr),
+            check_invariants=True).to(dev)
+        x = torch.complex(xp[0], xp[1]).reshape(nr, -1)
+        y = torch.sparse.mm(a, x)
+        torch.cuda.synchronize()
+    except (RuntimeError, NotImplementedError, TypeError) as e:
+        return None, f"{type(e).__name__}: {str(e).splitlines()[0][:160]}"
+    rel, _ = _maxdev((y.real, y.imag), tuple(w.reshape(nr, -1) for w in want))
+    require(rel <= gate, f"library product maxdev {rel:.3e} > {gate}")
+    return (lambda: torch.sparse.mm(a, x)), None
 
 
 # --------------------------------------------------------------- phases
@@ -176,6 +248,15 @@ def phase_kernel(dev, fd):
 
     _, abs_err, mult, xp = golden["z"]
     ms, plain_ms = _time_ms(lambda: mult(xp)), _time_ms(lambda: mult.plain(xp))
+    xpan, lay = x_panel(plan, 32, 32, xv, torch.float64, dev)
+    want = tuple(torch.from_numpy(lay.pack_x(y.cpu().numpy())).to(dev)
+                 for y in mult.plain(xp))
+    lib, why = library_product(plan, av, xpan, torch.complex128, want, 1e-12)
+    library_ms = _time_ms(lib) if lib else None
+    bound_ms, bound_by = bound(
+        16 * (plan.nnzb_a * 32 * 32 + 2 * plan.nnzb_x * 32 * 32)
+        + 4 * (plan.nnzb_x + 1 + 2 * plan.n_pairs),
+        plan.n_pairs * 8.0 * 32 ** 3)
     fplan = create_plan(fd.a, fd.x, fd.b, device=dev)
     fa = fd.a_with_data().data
     fmult = PairPlanMultiply(fplan, *planes(fa, torch.float64, dev), 8)
@@ -189,8 +270,13 @@ def phase_kernel(dev, fd):
           f"{ms:.4f} ms, plain {plain_ms:.4f} ms; FD rtb=12.75 "
           f"({fplan.n_pairs} pairs) kernel {fd_ms:.4f} ms, plain "
           f"{fd_plain_ms:.4f} ms", flush=True)
-    return dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms, fd_ms=fd_ms,
-                fd_plain_ms=fd_plain_ms)
+    print(f"phase 2 golden-class 'z' library call (complex128 BSR "
+          f"torch.sparse.mm): "
+          + (f"{library_ms:.4f} ms" if lib else f"refused: {why}")
+          + f"; K1 bound {bound_ms:.4f} ms ({bound_by})", flush=True)
+    return dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
+                library_refused=why, fd_ms=fd_ms, fd_plain_ms=fd_plain_ms)
 
 
 def phase_fd(dev, fd):
@@ -266,6 +352,184 @@ def phase_golden(dev, mb: int = 281, ncols: int = 16, deg: int = 11,
           f"{timed_iterations} iterations", flush=True)
 
 
+def _rowtile_multiply(plan, lm, ln, av, xv, dev, r_tile=None):
+    """RowTileMultiply on ``dev`` over the plan's pack (the solver's choice,
+    or ``r_tile``), and the X panel of ``xv``."""
+    from tfqmrgpu_tpu_torch.ops.pallas_spmm import (
+        RowTileMultiply, build_a_panels_device, choose_row_tile,
+        pack_row_tiles)
+
+    xp, lay = x_panel(plan, lm, ln, xv, torch.float32, dev)
+    pack = (choose_row_tile(plan, lm) if r_tile is None else
+            pack_row_tiles(plan.rowptr_a, plan.colind_a, plan.nrows, lm,
+                           r_tile))
+    a_re, a_im = planes(av, torch.float32, dev)
+    mult = RowTileMultiply(pack, build_a_panels_device(pack, a_re),
+                           build_a_panels_device(pack, a_im), lay.mask, ln)
+    return mult, xp, pack
+
+
+def phase_rowtile(dev):
+    from tfqmrgpu_tpu_torch import ALLOWED_BLOCK_SIZES, create_plan
+
+    gate = 1e-4
+    rng = np.random.default_rng(2025)
+    worst = 0.0
+    for lm, ln in ALLOWED_BLOCK_SIZES:
+        a, x, b = random_problem(rng, mb=24, lm=lm, ln=ln, ncols=5)
+        plan = create_plan(a, x, b, device=dev)
+        av = rng.standard_normal((plan.nnzb_a, lm, lm, 2)) @ [1, 1j]
+        xv = rng.standard_normal((plan.nnzb_x, lm, ln, 2)) @ [1, 1j]
+        for r_tile in (1, 4):
+            mult, xp, _ = _rowtile_multiply(plan, lm, ln, av, xv, dev, r_tile)
+            got = mult(xp)
+            rel, _ = _maxdev(got, mult.plain(xp))
+            again = mult(xp)
+            torch.cuda.synchronize()
+            require(rel <= gate, f"K3 ({lm},{ln}) r_tile {r_tile} maxdev "
+                    f"{rel:.3e} > {gate}")
+            require(all(torch.equal(p, q) for p, q in zip(got, again)),
+                    f"K3 ({lm},{ln}) r_tile {r_tile}: repeated launch differs")
+            worst = max(worst, rel)
+
+    plan = create_plan(*golden_class_patterns(), device=dev)
+    av, xv = cos_sin(plan.nnzb_a, 32, 32), cos_sin(plan.nnzb_x, 32, 32)
+    mult, xp, pack = _rowtile_multiply(plan, 32, 32, av, xv, dev)
+    got = mult(xp)
+    rel, abs_err = _maxdev(got, mult.plain(xp))
+    again = mult(xp)
+    torch.cuda.synchronize()
+    require(rel <= gate, f"K3 golden maxdev {rel:.3e} > {gate}")
+    require(all(torch.equal(p, q) for p, q in zip(got, again)),
+            "K3 golden: repeated launch differs")
+    print(f"phase 5 K3 vs plain: 15 block sizes x r_tile (1, 4), worst maxdev "
+          f"{worst:.3e}; golden-class (r_tile {pack.r_tile}, ku {pack.ku}, "
+          f"{pack.ntiles} tiles) {rel:.3e}; repeated launches bit-identical",
+          flush=True)
+    ms, plain_ms = _time_ms(lambda: mult(xp)), _time_ms(lambda: mult.plain(xp))
+    lib, why = library_product(plan, av, xp, torch.complex64, mult.plain(xp),
+                               gate)
+    library_ms = _time_ms(lib) if lib else None
+    nr, c = plan.nrows * 32, plan.ncols * 32
+    # the work this plan needs: every A block once against all c columns
+    flops = plan.nnzb_a * 8.0 * 32 * 32 * c
+    bound_ms, bound_by = bound(
+        8 * (plan.nnzb_a * 32 * 32 + 2 * nr * c)
+        + 4 * pack.xcols.size + plan.nrows * plan.ncols, flops)
+    print(f"phase 5 timing ('c', golden-class, median of 20): K3 {ms:.4f} ms "
+          f"({flops / ms / 1e9:.2f} TFlop/s), plain {plain_ms:.4f} ms, "
+          f"library (complex64 BSR torch.sparse.mm) "
+          + (f"{library_ms:.4f} ms" if lib else f"refused: {why}")
+          + f"; bound {bound_ms:.4f} ms ({bound_by})", flush=True)
+    return dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
+                library_refused=why)
+
+
+def phase_golden_c(dev, mb: int = 281, ncols: int = 16, deg: int = 11,
+                   lm: int = 32, timed_iterations: int = 10):
+    from tfqmrgpu_tpu_torch import Solver
+    from tfqmrgpu_tpu_torch.ops import linalg
+    from tfqmrgpu_tpu_torch.ops.blocksparse import spmm_pairs
+    from tfqmrgpu_tpu_torch.ops.pallas_spmm import RowTileMultiply
+
+    rng = np.random.default_rng(282)
+    a, x, b = golden_class_patterns(mb, deg, ncols)
+    a = a.with_data(dominant_fill(rng, a.nnzb, deg, lm).astype(np.complex64))
+    b = b.with_data((rng.standard_normal((b.nnzb, lm, lm, 2)) @ [1, 1j])
+                    .astype(np.complex64))
+    s = Solver(a, x, b, precision="c", engine="auto", device=dev)
+    require(s.engine == "pallas", f"auto picked {s.engine}")
+    require((s._pack.r_tile, s._pack.ku) == (2, 12),
+            f"pack r_tile {s._pack.r_tile}, ku {s._pack.ku}")
+    RowTileMultiply.launches = 0
+    t0 = time.perf_counter()
+    info = s.solve(tolerance=1e-5, max_iterations=500)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    launches = RowTileMultiply.launches
+    require(info.return_status == 0,
+            f"golden 'c' solve status {info.return_status}")
+    require(launches == 2 * info.iterations_needed + info.n_probes,
+            f"{launches} K3 launches for {info.iterations_needed} iterations "
+            f"and {info.n_probes} probes")
+    p = s.plan
+    xp = planes(s.get_matrix("X"), torch.float64, dev)
+    ax = spmm_pairs(planes(a.data, torch.float64, dev), xp, p.pairs[:, 0],
+                    p.pairs[:, 1], p.pair_y(), p.nnzb_x)
+    z = torch.zeros_like(xp[0])
+    bx = linalg.add_rhs((z, z), planes(b.data, torch.float64, dev), 1.0,
+                        p.subset)
+    res = float(torch.sqrt(((ax[0] - bx[0]) ** 2 + (ax[1] - bx[1]) ** 2).sum()
+                           / (bx[0] ** 2 + bx[1] ** 2).sum()))
+    require(res < 1e-4, f"golden 'c' |AX-B|/|B| = {res:.3e}")
+    # a fixed number of iterations, as in phase 4; in float32 every column
+    # of this well-conditioned system stops by itself (the reference's
+    # breakdown flags) after 12 iterations, so 10 are timed
+    t0 = time.perf_counter()
+    timed = s.solve(tolerance=0.0, max_iterations=timed_iterations)
+    torch.cuda.synchronize()
+    per_it = (time.perf_counter() - t0) * 1e3 / timed_iterations
+    require(timed.return_status == 9 and timed.n_probes == 1,
+            f"timed run status {timed.return_status}, {timed.n_probes} probes")
+    print(f"phase 6 golden-class 'c' Solver(engine='auto') -> {s.engine} "
+          f"(r_tile {s._pack.r_tile}, ku {s._pack.ku}): "
+          f"{info.iterations_needed} iterations, {info.n_probes} probes, "
+          f"|AX-B|/|B| {res:.3e}, K3 launches {launches}, wall "
+          f"{wall_ms:.1f} ms; {per_it:.3f} ms per iteration over "
+          f"{timed_iterations} iterations", flush=True)
+    return launches
+
+
+def phase_dense(dev):
+    import tfqmrgpu_tpu_torch as tt
+    from tfqmrgpu_tpu_torch.generator import generate_fd_problem
+
+    fd = generate_fd_problem(rtb=6.75, reference=True)
+    ref = fd.x_reference.astype(np.float64)
+    t0 = time.perf_counter()
+    xs, info = tt.bsrsv_z(fd.a_with_data(), fd.x, fd.b_with_data(),
+                          tolerance=1e-9, max_iterations=2000, device=dev)
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    maxdev = float(np.max(np.abs(xs.data - ref)) / np.max(np.abs(ref)))
+    require(info.engine == "dense", f"auto picked {info.engine}")
+    require(info.return_status == 0,
+            f"FD rtb=6.75 status {info.return_status}")
+    require(maxdev < 1e-5, f"FD rtb=6.75 maxdev {maxdev:.3e} >= 1e-5")
+    print(f"phase 7 FD rtb=6.75 bsrsv_z -> {info.engine}: "
+          f"{info.iterations_needed} iterations, {info.n_probes} probes, "
+          f"residuum {info.residuum_reached:.3e}, maxdev {maxdev:.3e}, wall "
+          f"{wall_ms:.1f} ms (set-up included)", flush=True)
+
+
+def phase_probe(dev):
+    from tfqmrgpu_tpu_torch import dma_probe
+
+    dma_probe.StreamProbe.launches = 0
+    res = dma_probe.sweep(dev)
+    launches = dma_probe.StreamProbe.launches
+    require(launches > 0, "the probe sweep launched no kernel")
+    for r in res["variants"]:
+        print(f"phase 8 K4 stage {r['stage_kb']:3d} KiB n_ops {r['n_ops']}: "
+              f"{r['gbps']:.1f} GB/s ({100 * r['share']:.1f}% of 3.35 TB/s), "
+              f"{r['ms']:.4f} ms, maxdev {r['maxdev']:.2e}", flush=True)
+    for y in res["yardsticks"]:
+        print(f"phase 8 n_ops {y['n_ops']}: copy_ {y['copy_gbps']:.1f} GB/s "
+              f"read+write ({100 * y['copy_share']:.1f}%), plain "
+              f"{y['plain_ms']:.4f} ms", flush=True)
+    best = max(res["variants"], key=lambda r: r["gbps"])
+    yard = next(y for y in res["yardsticks"] if y["n_ops"] == best["n_ops"])
+    rows, cols = dma_probe.ROWS, dma_probe.COLS
+    adds = best["bytes"] / 4 / cols * dma_probe.SLICE
+    bound_ms, bound_by = bound(best["bytes"] + rows * dma_probe.SLICE * 4,
+                               adds)
+    return dict(launches=launches, max_abs_err=best["max_abs_err"],
+                ms=best["ms"], plain_ms=yard["plain_ms"], bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=yard["copy_ms"],
+                variant=f"stage {best['stage_kb']} KiB, n_ops {best['n_ops']}",
+                gbps=best["gbps"])
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device; none is available")
@@ -280,11 +544,23 @@ def main():
     timing = phase_kernel(dev, fd)
     launches = phase_fd(dev, fd)
     phase_golden(dev)
-    print(json.dumps({"kernels": [{
-        "name": "pairpanel_spmm", "route": "cuda",
-        "source": "tfqmrgpu_tpu_torch/csrc/pairpanel_spmm.cu",
-        "replaces": "tfqmrgpu_tpu/ops/pairpanel.py:1770",
-        "launches": launches, **timing, "card": card}]}))
+    k3 = phase_rowtile(dev)
+    k3_launches = phase_golden_c(dev)
+    phase_dense(dev)
+    k4 = phase_probe(dev)
+    print(json.dumps({"kernels": [
+        {"name": "pairpanel_spmm", "route": "cuda",
+         "source": "tfqmrgpu_tpu_torch/csrc/pairpanel_spmm.cu",
+         "replaces": "tfqmrgpu_tpu/ops/pairpanel.py:1770",
+         "launches": launches, **timing, "card": card},
+        {"name": "rowtile_spmm", "route": "cuda",
+         "source": "tfqmrgpu_tpu_torch/csrc/rowtile_spmm.cu",
+         "replaces": "tfqmrgpu_tpu/ops/pallas_spmm.py:214",
+         "launches": k3_launches, **k3, "card": card},
+        {"name": "dma_probe", "route": "cuda",
+         "source": "tfqmrgpu_tpu_torch/csrc/dma_probe.cu",
+         "replaces": "tools/dma_probe.py:39", **k4, "card": card},
+    ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,4 +1,5 @@
-"""The hand-written pair-plan kernel and its build.
+"""The hand-written kernels (pair-plan K1, row-tile K3, stream probe K4)
+and their build.
 
 Imports neither JAX nor tests/conftest.py, so that the card-only tests run
 on a machine without JAX:
@@ -12,9 +13,11 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import planes, random_problem
-from tfqmrgpu_tpu_torch import ALLOWED_BLOCK_SIZES, Solver, _build, create_plan
+from chip_smoke import _rowtile_multiply, planes, random_problem
+from tfqmrgpu_tpu_torch import (ALLOWED_BLOCK_SIZES, Solver, _build,
+                                create_plan, dma_probe)
 from tfqmrgpu_tpu_torch.ops.pairpanel import PairPlanMultiply
+from tfqmrgpu_tpu_torch.ops.pallas_spmm import RowTileMultiply
 
 torch.set_num_threads(2)
 
@@ -51,7 +54,8 @@ def test_cpu_multiply_never_builds(monkeypatch):
 
     monkeypatch.setattr(_build, "load_kernels", refuse)
     rng = np.random.default_rng(0)
-    plan = create_plan(*random_problem(rng, mb=10, lm=4, ln=8, ncols=3))
+    plan = create_plan(*random_problem(rng, mb=10, lm=4, ln=8, ncols=3),
+                       device="cpu")
     av = rng.standard_normal((plan.nnzb_a, 4, 4, 2)) @ [1, 1j]
     xv = rng.standard_normal((plan.nnzb_x, 4, 8, 2)) @ [1, 1j]
     mult = PairPlanMultiply(plan, *planes(av, torch.float64, "cpu"), 8)
@@ -92,10 +96,67 @@ def test_solve_on_card_matches_cpu():
     a, b = prob.a_with_data(), prob.b_with_data()
     infos, xs = [], []
     for device in ("cpu", "cuda", "cuda"):
-        s = Solver(a, prob.x, b, precision="z", device=device)
+        s = Solver(a, prob.x, b, precision="z", engine="pairs",
+                   device=device)
         infos.append(s.solve(tolerance=1e-9, max_iterations=500))
         xs.append(s.get_matrix("X"))
     assert [i.iterations_needed for i in infos] == [infos[0].iterations_needed] * 3
     assert all(i.return_status == 0 for i in infos)
     assert np.array_equal(xs[1], xs[2])            # repeatable on the card
     assert np.max(np.abs(xs[1] - xs[0])) <= 1e-10 * np.max(np.abs(xs[0]))
+
+
+def _rowtile(rng, lm, ln, r_tile, device):
+    """A RowTileMultiply on a random plan and an X panel, on ``device``."""
+    plan = create_plan(*random_problem(rng, mb=12, lm=lm, ln=ln, ncols=3),
+                       device=device)
+    av = rng.standard_normal((plan.nnzb_a, lm, lm, 2)) @ [1, 1j]
+    xv = rng.standard_normal((plan.nnzb_x, lm, ln, 2)) @ [1, 1j]
+    mult, x, _ = _rowtile_multiply(plan, lm, ln, av, xv, device, r_tile)
+    return mult, x
+
+
+def test_cpu_rowtile_and_probe_never_build(monkeypatch):
+    def refuse():
+        raise AssertionError("a CPU tensor must not reach the kernel")
+
+    monkeypatch.setattr(_build, "load_kernels", refuse)
+    mult, x = _rowtile(np.random.default_rng(2), 4, 8, 2, "cpu")
+    before = RowTileMultiply.launches
+    assert torch.equal(mult(x)[0], mult.plain(x)[0])
+    assert RowTileMultiply.launches == before
+    xs = dma_probe.operands(2, 1 << 20, "cpu")
+    before = dma_probe.StreamProbe.launches
+    assert torch.equal(dma_probe.StreamProbe(32 << 10)(xs), dma_probe.plain(xs))
+    assert dma_probe.StreamProbe.launches == before
+
+
+@pytest.mark.cuda
+def test_rowtile_kernel_matches_plain_on_card():
+    _needs_card()
+    rng = np.random.default_rng(3)
+    for lm, ln in ALLOWED_BLOCK_SIZES:
+        for r_tile in (1, 4):
+            mult, x = _rowtile(rng, lm, ln, r_tile, "cuda")
+            before = RowTileMultiply.launches
+            got = mult(x)
+            torch.cuda.synchronize()
+            assert RowTileMultiply.launches == before + 1
+            assert _maxdev(got, mult.plain(x)) <= 1e-4, (lm, ln, r_tile)
+            again = mult(x)                        # no atomics: same bits
+            assert torch.equal(again[0], got[0]) and torch.equal(again[1],
+                                                                 got[1])
+
+
+@pytest.mark.cuda
+def test_stream_probe_matches_plain_on_card():
+    _needs_card()
+    x = dma_probe.operands(2, 64 << 20, "cuda")
+    want = dma_probe.plain(x)
+    for stage in dma_probe.STAGE_BYTES:
+        before = dma_probe.StreamProbe.launches
+        got = dma_probe.StreamProbe(stage)(x)
+        torch.cuda.synchronize()
+        assert dma_probe.StreamProbe.launches == before + 1
+        assert float((got - want).abs().max()) <= 1e-4 * float(
+            want.abs().max()), stage

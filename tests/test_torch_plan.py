@@ -20,6 +20,7 @@ from tfqmrgpu_tpu.errors import TfqmrgpuError as JError
 torch.set_num_threads(2)
 
 TABLES = ("starts", "pairs", "subset", "colindx")
+HOST_TABLES = ("rowptr_a", "colind_a", "rowptr_x")
 
 
 def _port_bsrs(*bsrs):
@@ -34,6 +35,10 @@ def _assert_tables_equal(tp, jp):
         assert got.dtype == np.int32
         assert got.shape == want.shape, k
         assert np.array_equal(got.astype(np.int64), want.astype(np.int64)), k
+    for k in HOST_TABLES:                       # numpy int64 on the host
+        got = getattr(tp, k)
+        assert isinstance(got, np.ndarray) and got.dtype == np.int64, k
+        assert np.array_equal(got, np.asarray(getattr(jp, k), np.int64)), k
     for k in ("nrows", "ncols", "nnzb_a", "nnzb_x", "nnzb_b"):
         assert getattr(tp, k) == getattr(jp, k), k
 
@@ -49,7 +54,7 @@ def test_plan_tables_identical(seed, mb, lm, ln, ncols, x_fill):
     a, x, b = make_random_problem(rng, mb=mb, lm=lm, ln=ln, ncols=ncols,
                                   x_fill=x_fill)
     jp = jplan_mod.create_plan(a, x, b, cache=False)
-    tp = tplan_mod.create_plan(*_port_bsrs(a, x, b))
+    tp = tplan_mod.create_plan(*_port_bsrs(a, x, b), device="cpu")
     _assert_tables_equal(tp, jp)
 
 
@@ -58,14 +63,16 @@ def test_plan_index_offset_and_fd_identical():
 
     prob = generate_fd_problem(rtb=4.75)
     jp = jplan_mod.create_plan(prob.a, prob.x, prob.b, cache=False)
-    tp = tplan_mod.create_plan(*_port_bsrs(prob.a, prob.x, prob.b))
+    tp = tplan_mod.create_plan(*_port_bsrs(prob.a, prob.x, prob.b),
+                               device="cpu")
     _assert_tables_equal(tp, jp)
     # Fortran-style indices give the same tables
     shifted = []
     for m in (prob.a, prob.x, prob.b):
         shifted.append(TBsr(m.nrows, m.ncols, m.rowptr + 1, m.colind + 1,
                             None, m.name))
-    _assert_tables_equal(tplan_mod.create_plan(*shifted, index_offset=1), jp)
+    _assert_tables_equal(tplan_mod.create_plan(*shifted, index_offset=1,
+                                               device="cpu"), jp)
 
 
 def test_fd_generator_identical():
@@ -110,7 +117,7 @@ def test_b_not_subset_of_x_same_code():
     with pytest.raises(JError) as je:
         jplan_mod.create_plan(a, x, b_bad, cache=False)
     with pytest.raises(TError) as te:
-        tplan_mod.create_plan(*_port_bsrs(a, x, b_bad))
+        tplan_mod.create_plan(*_port_bsrs(a, x, b_bad), device="cpu")
     assert te.value.status == je.value.status
     assert te.value.code == TStatus.B_IS_NOT_SUBSET_OF_X
 
@@ -120,12 +127,12 @@ def test_plan_from_numpy_matches_create_plan():
     a, x, b = make_random_problem(rng, mb=10, lm=4, ln=4, ncols=3)
     jp = jplan_mod.create_plan(a, x, b, cache=False)
     tp = convert.plan_from_numpy(
-        **{k: getattr(jp, k) for k in convert.PLAN_FIELDS})
+        **{k: getattr(jp, k) for k in convert.PLAN_FIELDS}, device="cpu")
     _assert_tables_equal(tp, jp)
     with pytest.raises(TError):
         convert.plan_from_numpy(
             **{k: getattr(jp, k) for k in convert.PLAN_FIELDS if k != "ncols"},
-            ncols=0)
+            ncols=0, device="cpu")
 
 
 def test_port_imports_no_jax():

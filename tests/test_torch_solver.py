@@ -34,9 +34,9 @@ def _jax_and_port(monkeypatch, a, x, b, tol, maxit, x0=None,
     jp = js.plan
     v3 = jcore.make_shadow_vector(jp.nnzb_x, js.lm, js.ln)
     plan = convert.plan_from_numpy(
-        **{k: getattr(jp, k) for k in convert.PLAN_FIELDS})
-    ts = tt.Solver(*_port(a, x, b), precision="z", plan=plan,
-                   v3=tuple(np.asarray(v) for v in v3))
+        **{k: getattr(jp, k) for k in convert.PLAN_FIELDS}, device="cpu")
+    ts = tt.Solver(*_port(a, x, b), precision="z", engine="pairs", plan=plan,
+                   v3=tuple(np.asarray(v) for v in v3), device="cpu")
     assert ts.engine == "pairs"
     if x0 is not None:
         ts.set_matrix("X", x0)
@@ -105,7 +105,9 @@ def test_fd_bsrsv_z_reaches_dense_reference():
 
     prob = generate_fd_problem(rtb=6.75, reference=True)
     xs, info = tt.bsrsv_z(prob.a_with_data(), prob.x, prob.b_with_data(),
-                          tolerance=1e-9, max_iterations=2000)
+                          tolerance=1e-9, max_iterations=2000,
+                          engine="pairs", device="cpu")
+    assert info.engine == "pairs"
     assert info.return_status == Status.SUCCESS
     assert info.residuum_reached <= 1e-9
     ref = prob.x_reference.astype(np.float64)
@@ -115,7 +117,8 @@ def test_fd_bsrsv_z_reaches_dense_reference():
 def test_complex64_solve_and_layouts():
     a, x, b = make_random_problem(np.random.default_rng(4), mb=10, lm=4,
                                   ln=8, ncols=2, dtype=np.complex64)
-    s = tt.Solver(*_port(a, x, b), precision="c")
+    s = tt.Solver(*_port(a, x, b), precision="c", engine="pairs",
+                  device="cpu")
     info = s.solve(tolerance=1e-5, max_iterations=200)
     assert info.return_status == Status.SUCCESS
     xc = s.get_matrix("X")
@@ -129,8 +132,8 @@ def test_complex64_solve_and_layouts():
 
 
 @pytest.mark.parametrize("kw,code", [
-    (dict(engine="dense"), Status.NO_IMPLEMENTATION),
-    (dict(engine="pallas"), Status.NO_IMPLEMENTATION),
+    (dict(engine="pallas"), Status.PRECISION_MISSMATCH),
+    (dict(engine="ell"), Status.NO_IMPLEMENTATION),
     (dict(precision="m"), Status.NO_IMPLEMENTATION),
     (dict(precision="q"), Status.PRECISION_MISSMATCH),
 ])
@@ -138,5 +141,5 @@ def test_unported_options_raise(kw, code):
     a, x, b = make_random_problem(np.random.default_rng(6), mb=6, lm=4, ln=4,
                                   ncols=1)
     with pytest.raises(tt.TfqmrgpuError) as e:
-        tt.Solver(*_port(a, x, b), **kw)
+        tt.Solver(*_port(a, x, b), device="cpu", **kw)
     assert e.value.code == code

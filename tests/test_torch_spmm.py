@@ -28,7 +28,7 @@ def _problem(seed, mb, lm, ln, ncols, x_fill=0.6):
     a, x, b = make_random_problem(rng, mb=mb, lm=lm, ln=ln, ncols=ncols,
                                   x_fill=x_fill)
     plan = create_plan(*[TBsr(m.nrows, m.ncols, m.rowptr, m.colind, None,
-                              m.name) for m in (a, x, b)])
+                              m.name) for m in (a, x, b)], device="cpu")
     xv = (rng.standard_normal((plan.nnzb_x, lm, ln))
           + 1j * rng.standard_normal((plan.nnzb_x, lm, ln)))
     return plan, a.data, xv
@@ -73,7 +73,7 @@ def _banded(mb, ncols, lm, ln, seed):
     brows = [[j for j in range(ncols) if j == i] for i in range(mb)]
     rowptr_b = np.concatenate([[0], np.cumsum([len(r) for r in brows])])
     b = TBsr(mb, ncols, rowptr_b, np.concatenate(brows).astype(int), None, "B")
-    plan = create_plan(a, x, b)
+    plan = create_plan(a, x, b, device="cpu")
     av = (rng.standard_normal((a.nnzb, lm, lm))
           + 1j * rng.standard_normal((a.nnzb, lm, lm)))
     xv = (rng.standard_normal((x.nnzb, lm, ln))

@@ -7,12 +7,20 @@ library's numerics.  The module names follow the JAX package's.
 
 * ``plan.py``      -- the analysis step: pair list, subset, column tables.
 * ``core.py``      -- the tfQMR iteration.
-* ``solver.py``    -- ``Solver`` and the one-call ``bsrsv_z`` / ``bsrsv_c``.
-* ``ops/``         -- vector ops, decisions, the plain block-sparse product
-                      and the wrapper of the Hopper pair-plan kernel
-                      (``csrc/pairpanel_spmm.cu``, built by ``_build.py``).
+* ``solver.py``    -- ``Solver`` and the one-call ``bsrsv_z`` / ``bsrsv_c``;
+                      engines 'dense', 'pallas' (row tiles), 'pairs', 'xla'
+                      and 'auto'.
+* ``ops/``         -- vector ops, decisions, the plain block-sparse product,
+                      the panel layout and the wrappers of the Hopper
+                      kernels (``csrc/pairpanel_spmm.cu``,
+                      ``csrc/rowtile_spmm.cu``, built by ``_build.py``).
+* ``dma_probe.py`` -- the device-memory stream probe
+                      (``csrc/dma_probe.cu``).
 * ``convert.py``   -- hands a JAX plan's tables to this package.
 * ``generator.py`` -- the finite-difference example problem.
+
+Every entry point runs on the CUDA card unless it is given
+``device="cpu"``; without a card it raises.
 """
 
 from .bsr import Bsr

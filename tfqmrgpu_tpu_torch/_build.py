@@ -1,6 +1,7 @@
 """Build and load the hand-written CUDA kernels of ``csrc/``.
 
-The sources are compiled with ``nvcc`` for Hopper (``sm_90a``) into one
+The sources are compiled with ``nvcc`` for Hopper (``sm_90a``), one
+compiler process per source, all started together, and linked into one
 shared library with a plain C interface, on first use, and loaded with
 ``ctypes``.  The library goes to ``build/kernels/<hash>/`` beside the
 package, where ``<hash>`` covers the sources and the flags, so an edited
@@ -22,7 +23,7 @@ import time
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = pathlib.Path(__file__).resolve().parent.parent / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC")
 LIB_NAME = "libtfqmrgpu_torch_kernels.so"
 
 _P = ctypes.c_void_p
@@ -33,6 +34,13 @@ SIGNATURES = {
     # nnzb_y, lm, ln, stream
     "tfq_pairpanel_spmm_f64": [_P] * 9 + [_I] * 3 + [_P],
     "tfq_pairpanel_spmm_f32": [_P] * 9 + [_I] * 3 + [_P],
+    # a_fused, xcols, x_re, x_im, mask, y_re, y_im,
+    # ntiles, rlm, ku, lm, nr, c, ln, stream
+    "tfq_rowtile_spmm_f32": [_P] * 7 + [_I] * 7 + [_P],
+    # stage_bytes, n_ops -> CTAs of one wave (or -cudaError_t)
+    "tfq_dma_probe_ctas": [_I] * 2,
+    # x, n_ops, nsteps, rows, cols, stage_bytes, ctas, partial, out, stream
+    "tfq_dma_probe_f32": [_P] + [_I] * 6 + [_P] * 3,
 }
 
 
@@ -77,17 +85,31 @@ def build() -> tuple[pathlib.Path, float]:
         return path, 0.0
     nvcc = _nvcc()
     path.parent.mkdir(parents=True, exist_ok=True)
-    tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
+    tag = f"{os.getpid()}.tmp"
+    tmp = path.with_name(f"{path.name}.{tag}")
+    srcs = _sources()
+    objs = [path.with_name(f"{src.stem}.{tag}.o") for src in srcs]
     t0 = time.perf_counter()
-    proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", str(tmp),
-                           *map(str, _sources())], capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stdout}{proc.stderr}")
-    os.replace(tmp, path)   # atomic: a concurrent loader never sees half a file
-    return path, seconds
+    try:
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj),
+                                   str(src)], stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for src, obj in zip(srcs, objs)]
+        outs = [p.communicate()[0] for p in procs]
+        failed = [f"{src.name} ({p.returncode}):\n{out}"
+                  for src, p, out in zip(srcs, procs, outs) if p.returncode]
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+        link = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp),
+                               *map(str, objs)], capture_output=True, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n"
+                               f"{link.stdout}{link.stderr}")
+        os.replace(tmp, path)   # atomic: a concurrent loader never sees half a file
+    finally:
+        for f in (tmp, *objs):
+            f.unlink(missing_ok=True)
+    return path, time.perf_counter() - t0
 
 
 @functools.cache

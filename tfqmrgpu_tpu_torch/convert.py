@@ -19,22 +19,28 @@ from __future__ import annotations
 import numpy as np
 
 from .errors import Status, TfqmrgpuError, encode_status
-from .plan import Plan, plan_on_device
+from .plan import Plan, plan_on_device, resolve_device
 
-PLAN_FIELDS = ("pairs", "starts", "colindx", "subset", "nrows", "ncols",
-               "nnzb_a", "nnzb_x", "nnzb_b")
+PLAN_FIELDS = ("pairs", "starts", "colindx", "subset", "rowptr_a",
+               "colind_a", "rowptr_x", "nrows", "ncols", "nnzb_a", "nnzb_x",
+               "nnzb_b")
 
 
-def plan_from_numpy(*, pairs, starts, colindx, subset, nrows: int, ncols: int,
-                    nnzb_a: int, nnzb_x: int, nnzb_b: int,
-                    device="cpu") -> Plan:
-    """A ``Plan`` on ``device`` from another plan's numpy tables (any
-    integer dtype, for example the JAX plan's uint32 and uint16 ones).
-    The tables are checked against each other and against the counts."""
+def plan_from_numpy(*, pairs, starts, colindx, subset, rowptr_a, colind_a,
+                    rowptr_x, nrows: int, ncols: int, nnzb_a: int,
+                    nnzb_x: int, nnzb_b: int, device=None) -> Plan:
+    """A ``Plan`` on ``device`` (the CUDA card unless given) from another
+    plan's numpy tables (any integer dtype, for example the JAX plan's
+    uint32 and uint16 ones).  The tables are checked against each other
+    and against the counts."""
+    device = resolve_device(device)
     pairs = np.asarray(pairs, dtype=np.int64).reshape(-1, 2)
     starts = np.asarray(starts, dtype=np.int64)
     colindx = np.asarray(colindx, dtype=np.int64)
     subset = np.asarray(subset, dtype=np.int64)
+    rowptr_a = np.asarray(rowptr_a, dtype=np.int64)
+    colind_a = np.asarray(colind_a, dtype=np.int64)
+    rowptr_x = np.asarray(rowptr_x, dtype=np.int64)
     problems = []
     if starts.shape != (nnzb_x + 1,) or starts[0] != 0 \
             or np.any(np.diff(starts) < 0) or starts[-1] != pairs.shape[0]:
@@ -48,10 +54,20 @@ def plan_from_numpy(*, pairs, starts, colindx, subset, nrows: int, ncols: int,
     if subset.shape != (nnzb_b,) or (nnzb_b and (
             subset.min() < 0 or subset.max() >= nnzb_x)):
         problems.append("subset must give each B block an X block")
+    for name, rowptr, nnzb in (("rowptr_a", rowptr_a, nnzb_a),
+                               ("rowptr_x", rowptr_x, nnzb_x)):
+        if rowptr.shape != (nrows + 1,) or rowptr[0] != 0 \
+                or np.any(np.diff(rowptr) < 0) or rowptr[-1] != nnzb:
+            problems.append(f"{name} must rise from 0 to its nnzb over "
+                            "nrows+1 slots")
+    if colind_a.shape != (nnzb_a,) or (nnzb_a and (
+            colind_a.min() < 0 or colind_a.max() >= nrows)):
+        problems.append("colind_a must give each A block a column < nrows")
     if problems:
         raise TfqmrgpuError(encode_status(Status.UNDOCUMENTED_ERROR),
                             "; ".join(problems))
     return plan_on_device(nrows=nrows, ncols=ncols, nnzb_a=nnzb_a,
                           nnzb_x=nnzb_x, nnzb_b=nnzb_b, starts=starts,
                           pairs=pairs, subset=subset, colindx=colindx,
-                          device=device)
+                          rowptr_a=rowptr_a, colind_a=colind_a,
+                          rowptr_x=rowptr_x, device=device)

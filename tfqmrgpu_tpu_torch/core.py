@@ -67,20 +67,24 @@ class TfqmrPrimitives:
     add_rhs: Callable[[Pair, Pair, float], Pair]
 
 
-def make_shadow_vector(nnzb_x: int, lm: int, ln: int, seed: int = RANDOM_SEED,
-                       generator: torch.Generator | None = None,
-                       device="cpu") -> Pair:
+def make_shadow_vector(nnzb_x: int, lm: int, ln: int, *, device,
+                       seed: int = RANDOM_SEED) -> Pair:
     """The random shadow vector v3: uniform float32 from a seeded generator
     (reference: create_random_numbers, tfqmrgpu_linalg.hxx:777-806).  The
-    numbers are drawn on the generator's device (the CPU by default, so
-    that every device gets the same v3) and then moved to ``device``.
-    ``jax.random`` numbers cannot be reproduced here; to compare with the
-    JAX package, hand its v3 to the solver instead."""
-    if generator is None:
-        generator = torch.Generator().manual_seed(seed)
+    numbers are drawn on a CPU generator, so that every device gets the
+    same v3, and then moved to ``device``.  ``jax.random`` numbers cannot
+    be reproduced here; to compare with the JAX package, hand its v3 to the
+    solver instead."""
+    generator = torch.Generator().manual_seed(seed)
     v = torch.rand((2, nnzb_x, lm, ln), generator=generator,
-                   dtype=torch.float32, device=generator.device)
+                   dtype=torch.float32)
     return v[0].to(device), v[1].to(device)
+
+
+def inverse_norms(n2: torch.Tensor) -> torch.Tensor:
+    """1/n2 where n2 > 0, else 0: the convergence normalization of the
+    squared column norms of B (an empty column never converges)."""
+    return torch.where(n2 > 0, 1.0 / torch.where(n2 > 0, n2, 1.0), 0.0)
 
 
 def tfqmr_loop(prim: TfqmrPrimitives, v2: Pair, v3: Pair, v5_init: Pair,
@@ -199,12 +203,36 @@ def solve_core(multiply: Callable[[Pair], Pair], v2: Pair, v3: Pair,
     else:
         v5 = prim.add_rhs((z, z), v2, 1.0)
         tau0 = prim.nrm2(v5)                 # squared column norms of B
-        inv_bn2 = torch.where(tau0 > 0, 1.0 / torch.where(tau0 > 0, tau0, 1.0),
-                              0.0)
+        inv_bn2 = inverse_norms(tau0)
     if inv_bn2_override is not None:
         inv_bn2 = inv_bn2_override
     return tfqmr_loop(prim, v2, v3, v5, tau0, inv_bn2, tolerance,
                       max_iterations, dt)
+
+
+def solve_core_panel(multiply: Callable[[Pair], Pair], b_panel: Pair,
+                     v3_panel: Pair, tolerance: float, max_iterations: int,
+                     inv_bn2_override=None, *,
+                     rhs_trivial: bool = False) -> SolveResult:
+    """The panel engines' entry (JAX: core.solve_core_panel): vectors live
+    as [NR, ncc, LN] panels (``ops/panel.py``); ``multiply`` returns masked
+    panels and ``b_panel`` holds B (the unit blocks when ``rhs_trivial``)."""
+    from .ops.panel import make_panel_primitives
+
+    prim = make_panel_primitives(multiply, b_panel)
+    v5 = (b_panel[0], b_panel[1])
+    _, ncc, ln = b_panel[0].shape
+    if rhs_trivial:
+        tau0 = torch.ones((ncc, ln), dtype=torch.float64,
+                          device=b_panel[0].device)
+        inv_bn2 = tau0
+    else:
+        tau0 = prim.nrm2(v5)                 # squared column norms of B
+        inv_bn2 = inverse_norms(tau0)
+    if inv_bn2_override is not None:
+        inv_bn2 = inv_bn2_override
+    return tfqmr_loop(prim, b_panel, v3_panel, v5, tau0, inv_bn2, tolerance,
+                      max_iterations, b_panel[0].dtype)
 
 
 def flops_per_iteration(n_pairs: int, nnzb_x: int, lm: int, ln: int) -> float:

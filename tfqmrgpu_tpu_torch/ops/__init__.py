@@ -9,8 +9,14 @@
                      PyTorch (the 'xla' engine and the kernel's reference).
 * ``pairpanel``   -- the wrapper of the hand-written Hopper pair-plan kernel
                      (the 'pairs' engine).
+* ``panel``       -- the panel layout and primitives of the 'dense' and
+                     row-tile engines, and the dense multiply.
+* ``pallas_spmm`` -- the row-tile packing and the wrapper of the
+                     hand-written Hopper row-tile kernel (the 'pallas'
+                     engine).
 """
 
-from . import blocksparse, decisions, layout, linalg, pairpanel
+from . import blocksparse, decisions, layout, linalg, pairpanel, pallas_spmm, panel
 
-__all__ = ["layout", "linalg", "decisions", "blocksparse", "pairpanel"]
+__all__ = ["layout", "linalg", "decisions", "blocksparse", "pairpanel",
+           "panel", "pallas_spmm"]

@@ -14,7 +14,12 @@ every solver iteration reuses:
 
 The tables are computed with vectorized numpy on the host, exactly as
 ``tfqmrgpu_tpu.plan`` computes them (the same values in the same order), and
-then kept as int32 tensors on the plan's device.
+then kept as int32 tensors on the plan's device.  The plan also keeps the
+zero-based patterns ``rowptr_a``, ``colind_a`` and ``rowptr_x`` on the host
+(numpy int64), which the panel layout and the row-tile packing read.
+
+Every entry point of the package runs on the CUDA card unless it is given
+``device="cpu"`` (``resolve_device``); without a card it raises.
 """
 
 from __future__ import annotations
@@ -28,6 +33,19 @@ from .bsr import Bsr
 from .errors import Status, TfqmrgpuError, encode_status
 
 MAX_BLOCK_COLUMNS = 1 << 16  # reference: colIndex_t = uint16_t (tfqmrgpu.hxx:59)
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: ``device`` when given, else the
+    CUDA card.  Without a card that is an error, never a quiet move to the
+    CPU."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise TfqmrgpuError(
+            encode_status(Status.NO_IMPLEMENTATION),
+            "no CUDA device is available; pass device=\"cpu\" to run on the CPU")
+    return torch.device("cuda")
 
 
 def _row_sorted_view(rowptr: np.ndarray, colind: np.ndarray):
@@ -72,6 +90,9 @@ class Plan:
     pairs: torch.Tensor       # int32[nPairs, 2] -- (iA, iX), in Y order
     subset: torch.Tensor      # int32[nnzbB] -- X index of every B block
     colindx: torch.Tensor     # int32[nnzbX] -- compressed column index
+    rowptr_a: np.ndarray      # int64[nrows+1] -- host patterns, zero-based
+    colind_a: np.ndarray      # int64[nnzbA]
+    rowptr_x: np.ndarray      # int64[nrows+1]
     lm: int = 0
     ln: int = 0
     precision: str = "?"
@@ -102,26 +123,34 @@ class Plan:
 
 
 def plan_on_device(*, nrows, ncols, nnzb_a, nnzb_x, nnzb_b, starts, pairs,
-                   subset, colindx, device) -> Plan:
+                   subset, colindx, rowptr_a, colind_a, rowptr_x,
+                   device) -> Plan:
     """Wrap host index tables (any integer dtype) into a ``Plan`` whose
-    tables are int32 tensors on ``device``."""
+    multiplication tables are int32 tensors on ``device`` and whose
+    patterns stay numpy int64 on the host."""
     def t(v):
         return torch.from_numpy(
             np.ascontiguousarray(np.asarray(v).astype(np.int32))).to(device)
 
+    def h(v):
+        return np.ascontiguousarray(np.asarray(v).astype(np.int64))
+
     return Plan(nrows=int(nrows), ncols=int(ncols), nnzb_a=int(nnzb_a),
                 nnzb_x=int(nnzb_x), nnzb_b=int(nnzb_b), starts=t(starts),
                 pairs=t(np.asarray(pairs).reshape(-1, 2)), subset=t(subset),
-                colindx=t(colindx))
+                colindx=t(colindx), rowptr_a=h(rowptr_a),
+                colind_a=h(colind_a), rowptr_x=h(rowptr_x))
 
 
 def create_plan(a: Bsr, x: Bsr, b: Bsr, index_offset: int = 0,
-                echo: int = 0, device="cpu") -> Plan:
-    """Build the multiplication, subset and column-compression tables.
+                echo: int = 0, device=None) -> Plan:
+    """Build the multiplication, subset and column-compression tables on
+    ``device`` (the CUDA card unless given, see ``resolve_device``).
 
     Mirrors tfqmrgpu_bsrsv_createPlan (tfqmrgpu.cu:136-351), including its
     validation rules and error codes.
     """
+    device = resolve_device(device)
     mb = a.nrows
     # static plausibility checks (tfqmrgpu.cu:166-172)
     if mb < 1:
@@ -208,4 +237,5 @@ def create_plan(a: Bsr, x: Bsr, b: Bsr, index_offset: int = 0,
 
     return plan_on_device(nrows=mb, ncols=nb, nnzb_a=a.nnzb, nnzb_x=nnzb_x,
                           nnzb_b=b.nnzb, starts=starts, pairs=pairs,
-                          subset=subset, colindx=colindx, device=device)
+                          subset=subset, colindx=colindx, rowptr_a=rowptr_a,
+                          colind_a=colind_a, rowptr_x=rowptr_x, device=device)

@@ -5,15 +5,30 @@ setBuffer -> setMatrix('A'/'B') -> solve -> getInfo -> getMatrix('X'),
 tfqmrgpu.cu:700-791) reduces to a ``Solver``: the plan, the matrices on
 one device, and the solve.  PyTorch's caching allocator owns the buffers.
 
-Engines ported so far:
+Engines (``ENGINES``), as in the JAX package:
 
-* ``'pairs'`` -- the plan's pair table through ``ops.pairpanel``: the
+* ``'dense'``  -- panel engine, A densified into [NR, NR] planes; the
+  multiply is four ``torch.matmul`` calls (``ops/panel.py``), native
+  float64 for 'z', full float32 for 'c'.
+* ``'pallas'`` -- panel engine over row-tile union panels of A
+  (``ops/pallas_spmm.py``): the hand-written Hopper kernel
+  ``csrc/rowtile_spmm.cu`` on a CUDA device, its plain version on the CPU.
+  The name is the JAX package's (and its C-API bridge's); here it means the
+  row-tile engine.  float32 ('c') only, as there.
+* ``'pairs'``  -- the plan's pair table through ``ops/pairpanel.py``: the
   hand-written Hopper kernel on a CUDA device, the plain version on the CPU.
-* ``'xla'``   -- the block-list engine: the plain ``spmm_pairs``.
-* ``'auto'``  -- ``'pairs'``.  The JAX package's auto also weighs its dense
-  and row-tile engines, which are not ported yet.
+* ``'xla'``    -- the block-list engine: the plain ``spmm_pairs``.
+* ``'auto'``   -- the JAX package's rules (its solver.py:113-184): 'dense'
+  while the dense planes fit ``DENSE_A_BYTE_LIMIT``, or A is at least 25%
+  full and the planes take at most 4 GB; else, for 'c' with LM >= 8 and an
+  X panel within ``PALLAS_X_BYTE_LIMIT``, 'pallas' unless its pack inflates
+  A by more than 4x; else 'pairs'.  One difference is kept on purpose: the
+  port's 'pairs' runs every pattern and every LM natively, so where the
+  JAX package falls back to 'xla' the port stays on 'pairs'.
 
-Vectors live as (re, im) planes [nnzbX, LM, LN] in the plan's block order.
+The block-list engines keep vectors as (re, im) planes [nnzbX, LM, LN] in
+the plan's block order, the panel engines as [mb*LM, ncc, LN] panels.
+Everything runs on the CUDA card unless ``device="cpu"`` is given.
 """
 
 from __future__ import annotations
@@ -29,11 +44,22 @@ from .bsr import Bsr
 from .errors import Status, TfqmrgpuError, encode_status
 from .ops import layout as layout_ops
 from .ops import linalg
+from .ops import panel as panel_ops
 from .ops.blocksparse import BlockSparseAction
 from .ops.pairpanel import PairPlanMultiply
-from .plan import Plan, create_plan
+from .ops.pallas_spmm import (RowTileMultiply, build_a_panels_device,
+                              choose_row_tile)
+from .plan import Plan, create_plan, resolve_device
 
-ENGINES = ("auto", "pairs", "xla")
+ENGINES = ("auto", "dense", "pallas", "pairs", "xla")
+PANEL_ENGINES = ("dense", "pallas")
+
+# 'auto' takes 'dense' while both dense A planes fit in this many bytes, and
+# the row-tile engine while both X panel planes (float32) fit in the other.
+# These are the JAX package's values, sized for a TPU v5e's VMEM; an H100
+# rule replaces them in later work, from the times chip_smoke.py prints.
+DENSE_A_BYTE_LIMIT = int(64e6)
+PALLAS_X_BYTE_LIMIT = 90 << 20
 
 
 def _dtype_for(precision: str) -> torch.dtype:
@@ -50,7 +76,8 @@ def _dtype_for(precision: str) -> torch.dtype:
 
 @dataclasses.dataclass
 class SolveInfo:
-    """getInfo parity (tfqmrgpu.cu:663-679), plus the probe count."""
+    """getInfo parity (tfqmrgpu.cu:663-679), plus the probe count and the
+    engine that ran."""
 
     residuum_reached: float
     iterations_needed: int
@@ -59,6 +86,7 @@ class SolveInfo:
     return_status: int = 0
     rhs_status: Optional[np.ndarray] = None
     n_probes: int = 0
+    engine: str = ""
 
 
 class Solver:
@@ -69,8 +97,9 @@ class Solver:
         [LM, LN] blocks, X gives the solution pattern (data optional).  B's
         pattern must be a subset of X's.
       precision: 'z' (complex128) or 'c' (complex64).
-      engine: 'auto', 'pairs' or 'xla' (see the module docstring).
-      device: where the plan, the matrices and the iteration live.
+      engine: one of ``ENGINES`` (see the module docstring).
+      device: where the plan, the matrices and the iteration live; the
+        CUDA card unless given (``plan.resolve_device``).
       plan: an analysis result to reuse (``create_plan`` or
         ``convert.plan_from_numpy``); it is moved to ``device``.
       v3: the shadow vector as (re, im) [nnzbX, LM, LN] arrays or tensors;
@@ -80,8 +109,8 @@ class Solver:
     def __init__(self, a: Bsr, x: Bsr, b: Bsr, *, precision: str = "z",
                  engine: str = "auto", index_offset: int = 0, echo: int = 0,
                  lm: int = 0, ln: int = 0, plan: Optional[Plan] = None,
-                 device="cpu", v3=None):
-        self.device = torch.device(device)
+                 device=None, v3=None):
+        self.device = resolve_device(device)
         self.dtype = _dtype_for(precision)
         if engine not in ENGINES:
             raise TfqmrgpuError(
@@ -103,33 +132,76 @@ class Solver:
         self.lm, self.ln = int(lm), int(ln)
         self.plan.lm, self.plan.ln = self.lm, self.ln
         self.plan.precision = precision
-        self.engine = "pairs" if engine == "auto" else engine
+        self._pack = None              # row-tile packing ('pallas')
+        self.engine = self._choose_engine(engine, echo)
 
+        self._panel = self.engine in PANEL_ENGINES
+        self._layout = (panel_ops.PanelLayout.from_plan(self.plan)
+                        if self._panel else None)
         self._cols = linalg.columns(self.plan.colindx, self.plan.ncols)
-        self._multiply = None          # PairPlanMultiply or BlockSparseAction
+        self._multiply = None          # the engine's y = A @ x
         self._b: Optional[tuple] = None
         self._x0: Optional[tuple] = None
         self._x_result: Optional[tuple] = None
         if v3 is None:
-            v3 = core.make_shadow_vector(self.plan.nnzb_x, self.lm, self.ln,
-                                         device=self.device)
+            # the panel engines pack v3 on the host before its one upload
+            v3 = core.make_shadow_vector(
+                self.plan.nnzb_x, self.lm, self.ln,
+                device="cpu" if self._panel else self.device)
         self.set_shadow_vector(*v3)
         if a.data is not None:
             self.set_matrix("A", a.data)
         if b.data is not None:
             self.set_matrix("B", b.data)
 
+    def _choose_engine(self, engine: str, echo: int) -> str:
+        """Resolve 'auto' by the JAX package's rules, and build the row-tile
+        pack for 'pallas'."""
+        plan, auto = self.plan, engine == "auto"
+        if auto:
+            nr = plan.nrows * self.lm
+            dense_bytes = 2 * nr * nr * (8 if self.precision == "z" else 4)
+            a_fill = plan.nnzb_a / max(plan.nrows ** 2, 1)
+            x_panel_bytes = 2 * nr * plan.ncols * self.ln * 4
+            if dense_bytes <= DENSE_A_BYTE_LIMIT or (
+                    a_fill >= 0.25 and dense_bytes <= int(4e9)):
+                engine = "dense"
+            elif (self.precision == "c" and self.lm >= 8
+                  and x_panel_bytes <= PALLAS_X_BYTE_LIMIT):
+                engine = "pallas"
+            else:
+                engine = "pairs"
+        if engine == "pallas":
+            if self.precision != "c":
+                raise TfqmrgpuError(
+                    encode_status(Status.PRECISION_MISSMATCH),
+                    "the row-tile ('pallas') engine is float32-only; use "
+                    "precision='c' or engine='dense'")
+            pack = choose_row_tile(plan, self.lm)
+            if auto and pack.inflation > 4.0:
+                return "pairs"         # unions too ragged for row tiles
+            self._pack = pack
+            if echo > 2:
+                print(f"# row-tile pack: {pack.ntiles} tiles x {pack.r_tile} "
+                      f"rows, ku={pack.ku}, inflation {pack.inflation:.2f}x")
+        return engine
+
     # ------------------------------------------------------------- matrices
 
     def set_shadow_vector(self, re, im):
-        """Install v3 (float32 [nnzbX, LM, LN], numpy or torch)."""
+        """Install v3 (float32 [nnzbX, LM, LN], numpy or torch); the panel
+        engines pack it into a float32 panel on the host, then upload it."""
         shape = (self.plan.nnzb_x, self.lm, self.ln)
-        planes = tuple((v if torch.is_tensor(v) else torch.from_numpy(
-            np.array(v, dtype=np.float32))).to(self.device, torch.float32)
-            for v in (re, im))
-        if any(tuple(p.shape) != shape for p in planes):
+        if any(tuple(v.shape) != shape for v in (re, im)):
             raise ValueError(f"v3 must have shape {shape}")
-        self._v3 = planes
+        if self._panel:
+            host = (np.asarray(v.cpu() if torch.is_tensor(v) else v,
+                               dtype=np.float32) for v in (re, im))
+            self._v3 = self._upload(*(self._layout.pack_x(h) for h in host))
+        else:
+            self._v3 = tuple((v if torch.is_tensor(v) else torch.from_numpy(
+                np.array(v, dtype=np.float32))).to(self.device, torch.float32)
+                for v in (re, im))
 
     def _upload(self, re: np.ndarray, im: np.ndarray) -> tuple:
         return (torch.from_numpy(re).to(self.device),
@@ -154,20 +226,36 @@ class Solver:
         re, im = layout_ops.to_planes(np.asarray(val), *dims[var], trans=trans,
                                       layout=layout, scale=scale,
                                       conjugate=conjugate, dtype=npdt)
+        lay = self._layout
         if var == "A":
-            a_re, a_im = self._upload(re, im)
-            if self.engine == "pairs":
-                self._multiply = PairPlanMultiply(self.plan, a_re, a_im,
-                                                  self.ln)
-            else:
-                self._multiply = BlockSparseAction.from_plan(
-                    self.plan, a_re, a_im)
+            self._multiply = self._make_multiply(re, im)
         elif var == "B":
-            self._b = self._upload(re, im)
+            self._b = (self._upload(lay.pack_b(re), lay.pack_b(im))
+                       if self._panel else self._upload(re, im))
         else:
             # initial guess X0: solve A*dX == B - A*X0 and return X0 + dX
             # (the reference always starts from zero, tfqmrgpu_core.hxx:125)
-            self._x0 = self._upload(re, im)
+            self._x0 = (self._upload(lay.pack_x(re), lay.pack_x(im))
+                        if self._panel else self._upload(re, im))
+
+    def _make_multiply(self, re: np.ndarray, im: np.ndarray):
+        """The engine's y = A @ x over A's (re, im) block planes."""
+        if self.engine == "dense":
+            lay = self._layout
+            a_re, a_im = self._upload(*lay.densify_a(self.plan, re, im))
+            mask4 = torch.from_numpy(lay.mask[:, None, :, None]).to(
+                self.device, self.dtype)
+            return panel_ops.dense_multiply(a_re, a_im, mask4, lay.mb,
+                                            lay.lm, lay.ncc, lay.ln)
+        a_re, a_im = self._upload(re, im)
+        if self.engine == "pallas":
+            return RowTileMultiply(
+                self._pack, build_a_panels_device(self._pack, a_re),
+                build_a_panels_device(self._pack, a_im), self._layout.mask,
+                self.ln)
+        if self.engine == "pairs":
+            return PairPlanMultiply(self.plan, a_re, a_im, self.ln)
+        return BlockSparseAction.from_plan(self.plan, a_re, a_im)
 
     def get_matrix(self, var: str = "X", *, trans: str = "n",
                    layout: Optional[int] = None,
@@ -182,6 +270,8 @@ class Solver:
             raise TfqmrgpuError(encode_status(Status.NO_INFO_PASSED),
                                 "solve() has not been called")
         re, im = (t.cpu().numpy() for t in self._x_result)
+        if self._panel:
+            re, im = self._layout.unpack_x(re), self._layout.unpack_x(im)
         if layout is not None:
             return layout_ops.from_planes(re, im, trans=trans, layout=layout,
                                           conjugate=conjugate)
@@ -202,6 +292,15 @@ class Solver:
         if self._b is None and not rhs_trivial:
             raise TfqmrgpuError(encode_status(Status.NO_INFO_PASSED),
                                 "matrix 'B' has not been set")
+        if self._panel:
+            result = self._solve_panel(tolerance, max_iterations, rhs_trivial)
+        else:
+            result = self._solve_blocks(tolerance, max_iterations,
+                                        rhs_trivial)
+        return self._finish_solve(result, max_iterations)
+
+    def _solve_blocks(self, tolerance, max_iterations, rhs_trivial):
+        """The block-list engines ('pairs', 'xla')."""
         multiply = self._multiply
         plan = self.plan
         kw = dict(lm=self.lm, ln=self.ln)
@@ -212,25 +311,46 @@ class Solver:
             ax0 = multiply(x0)
             bp = (bx[0] - ax0[0], bx[1] - ax0[1])
             # keep the convergence target relative to the original |B|
-            bn2 = linalg.nrm2(bx, self._cols)
-            inv = torch.where(bn2 > 0, 1.0 / torch.where(bn2 > 0, bn2, 1.0),
-                              0.0)
+            inv = core.inverse_norms(linalg.nrm2(bx, self._cols))
             ident = torch.arange(plan.nnzb_x, dtype=torch.int32,
                                  device=self.device)
             result = core.solve_core(multiply, bp, self._v3, self._cols, ident,
                                      tolerance, max_iterations, inv, **kw)
-            result = result._replace(x=(result.x[0] + x0[0],
-                                        result.x[1] + x0[1]))
+            return result._replace(x=(result.x[0] + x0[0],
+                                      result.x[1] + x0[1]))
+        b = self._b
+        if b is None:          # trivial RHS: a shape placeholder
+            z = torch.zeros((plan.nnzb_b, self.lm, self.ln),
+                            dtype=self.dtype, device=self.device)
+            b = (z, z)
+        return core.solve_core(multiply, b, self._v3, self._cols,
+                               plan.subset, tolerance, max_iterations,
+                               rhs_trivial=rhs_trivial, **kw)
+
+    def _solve_panel(self, tolerance, max_iterations, rhs_trivial):
+        """The panel engines ('dense', 'pallas'), as the JAX package's
+        _solve_panel and _solve_shifted."""
+        multiply = self._multiply
+        if self._x0 is not None and not rhs_trivial:
+            x0, b = self._x0, self._b
+            ax0 = multiply(x0)
+            bp = (b[0] - ax0[0], b[1] - ax0[1])
+            # keep the convergence target relative to the original |B|
+            inv = core.inverse_norms(
+                (b[0].double() ** 2 + b[1].double() ** 2).sum(dim=0))
+            result = core.solve_core_panel(multiply, bp, self._v3, tolerance,
+                                           max_iterations, inv)
+            return result._replace(x=(result.x[0] + x0[0],
+                                      result.x[1] + x0[1]))
+        if rhs_trivial:
+            lay = self._layout
+            npdt = np.float64 if self.dtype == torch.float64 else np.float32
+            unit = lay.unit_b_blocks(npdt)
+            b = self._upload(lay.pack_b(unit), lay.pack_b(np.zeros_like(unit)))
         else:
             b = self._b
-            if b is None:          # trivial RHS: a shape placeholder
-                z = torch.zeros((plan.nnzb_b, self.lm, self.ln),
-                                dtype=self.dtype, device=self.device)
-                b = (z, z)
-            result = core.solve_core(multiply, b, self._v3, self._cols,
-                                     plan.subset, tolerance, max_iterations,
-                                     rhs_trivial=rhs_trivial, **kw)
-        return self._finish_solve(result, max_iterations)
+        return core.solve_core_panel(multiply, b, self._v3, tolerance,
+                                     max_iterations, rhs_trivial=rhs_trivial)
 
     def _finish_solve(self, result: core.SolveResult,
                       max_iterations: int) -> SolveInfo:
@@ -239,10 +359,25 @@ class Solver:
         if result.return_status != int(Status.SUCCESS):
             iters = min(int(max_iterations), iters)
         p = self.plan
-        flops = (iters * core.flops_per_iteration(p.n_pairs, p.nnzb_x,
-                                                  self.lm, self.ln)
-                 + result.n_probes * core.flops_per_probe(
-                     p.n_pairs, p.nnzb_x, self.lm, self.ln))
+        if self._panel:
+            # the JAX package's panel accounting (its solver.py:1013-1028)
+            lay = self._layout
+            nb_panel = lay.mb * lay.ncc          # panel positions incl. zeros
+            spmm = (panel_ops.flops_dense_multiply(lay.mb, lay.lm, lay.ncc,
+                                                   lay.ln)
+                    if self.engine == "dense" else
+                    p.nnzb_a * 8.0 * lay.lm * lay.lm * lay.ncc * lay.ln)
+            per_iter = (2 * spmm
+                        + 2 * linalg.flops_dotp(nb_panel, lay.lm, lay.ln)
+                        + 2 * linalg.flops_nrm2(nb_panel, lay.lm, lay.ln)
+                        + 10 * linalg.flops_axpy(nb_panel, lay.lm, lay.ln))
+            per_probe = spmm + linalg.flops_nrm2(nb_panel, lay.lm, lay.ln)
+        else:
+            per_iter = core.flops_per_iteration(p.n_pairs, p.nnzb_x,
+                                                self.lm, self.ln)
+            per_probe = core.flops_per_probe(p.n_pairs, p.nnzb_x, self.lm,
+                                             self.ln)
+        flops = iters * per_iter + result.n_probes * per_probe
         p.residuum_reached = result.residuum
         p.iterations_needed = iters
         p.flops_performed = flops
@@ -252,7 +387,7 @@ class Solver:
             flops_performed=flops, flops_performed_all=p.flops_performed_all,
             return_status=result.return_status,
             rhs_status=result.rhs_status.cpu().numpy(),
-            n_probes=result.n_probes)
+            n_probes=result.n_probes, engine=self.engine)
 
 
 # ------------------------------------------------------------- one-callers
@@ -260,9 +395,10 @@ class Solver:
 def solve(a: Bsr, x: Bsr, b: Bsr, *, precision: str = "z",
           tolerance: float = 1e-6, max_iterations: int = 999,
           engine: str = "auto", index_offset: int = 0, echo: int = 0,
-          device="cpu") -> tuple[Bsr, SolveInfo]:
+          device=None) -> tuple[Bsr, SolveInfo]:
     """One-call solve: returns (X with data attached, SolveInfo)
-    (tfqmrgpu_bsrsv, tfqmrgpu.cu:700-791)."""
+    (tfqmrgpu_bsrsv, tfqmrgpu.cu:700-791), on the CUDA card unless
+    ``device`` is given."""
     s = Solver(a, x, b, precision=precision, engine=engine,
                index_offset=index_offset, echo=echo, device=device)
     info = s.solve(tolerance=tolerance, max_iterations=max_iterations)
