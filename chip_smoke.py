@@ -34,7 +34,22 @@ two for each:
    dense reference;
 8. the stream probe K4 (``tfqmrgpu_tpu_torch.dma_probe.sweep``) over stage
    sizes and operand counts, each held against its plain version, with
-   the ``copy_`` yardstick.
+   the ``copy_`` yardstick;
+9. the packed pair-plan kernel K2 against its plain version on random
+   plans at all 15 block sizes x column groups (1, 2) x r_tile (1, 2), at
+   512 lanes per plane, and on the FD rtb=12.75 fine pack (maxdev <= 1e-4, the same bits on a
+   repeated launch), and at the golden class with cos/sin data at
+   G = 1, 2, 4, 8: K2's and the plain version's times, the G the solver's
+   rule picks and the fastest G; beside them K1 in 'c' on the plain pair
+   table and the library call (complex64 BSR);
+10. the golden-class 'c' solve through ``Solver(engine='pairs')``, which
+   must pack with G = 8, converge to 1e-5 with every multiply through K2
+   and pass the independent float64 residual < 1e-4; its time per
+   iteration over 10 fixed iterations;
+11. FD rtb=12.75 through ``bsrsv_c`` (tolerance 1e-5, at most 2000
+   iterations): 'auto' takes the packed 'pairs' engine with G = 1, every
+   multiply goes through K2 and X is finite; status, iterations, residuum,
+   maxdev against the dense reference and wall are printed, not gated.
 
 Then one JSON line on the kernels (time, launches on their path, bound,
 plain and library times) and, last, one JSON line on the device.  Any
@@ -172,6 +187,68 @@ def library_product(plan, a_blocks: np.ndarray, xp: tuple, cdtype,
 
 
 # --------------------------------------------------------------- phases
+
+def packed_multiply(plan, lm: int, ln: int, av: np.ndarray, xv: np.ndarray,
+                    dev, group: int = 1, r_tile: int = 1):
+    """PairPanelMultiply (K2) on ``dev`` over the plan's packed pairs at
+    column group size ``group`` and ``r_tile``, the fused X panel of the
+    complex blocks ``xv``, and the packed plan."""
+    from tfqmrgpu_tpu_torch.ops import pairpanel as pp
+
+    pairs = plan.pairs.cpu().numpy().astype(np.int64)
+    pair_y = np.repeat(np.arange(plan.nnzb_x),
+                       np.diff(plan.starts.cpu().numpy()))
+    row_of = np.repeat(np.arange(plan.nrows), np.diff(plan.rowptr_x))
+    cols = plan.colindx.cpu().numpy().astype(np.int64)
+    xre, xim = (np.ascontiguousarray(v, dtype=np.float32)
+                for v in (xv.real, xv.imag))
+    if group > 1:
+        gp = pp.pack_grouped(pairs[:, 0], pairs[:, 1], pair_y, plan.nnzb_x,
+                             ln, group, row_of=row_of, col_of=cols)
+        pplan = pp.pack_pair_plan(gp.pair_a2, gp.pair_x2, gp.pair_y2,
+                                  gp.nnzb2, gp.nnzb2, lm, gp.ln2,
+                                  r_tile=r_tile, row_of=gp.row_of2,
+                                  col_of=gp.col_of2)
+        xre, xim = pp.grouped_blocks(gp, xre), pp.grouped_blocks(gp, xim)
+    else:
+        pplan = pp.pack_pair_plan(pairs[:, 0], pairs[:, 1], pair_y,
+                                  plan.nnzb_x, plan.nnzb_x, lm, ln,
+                                  r_tile=r_tile, row_of=row_of, col_of=cols)
+    a_re, a_im = planes(av, torch.float32, dev)
+    mult = pp.PairPanelMultiply(pplan, pp.build_a_panels_device(pplan, a_re,
+                                                                a_im))
+    x = torch.from_numpy(pp.permute_x(pplan, xre, xim)).to(dev)
+    return mult, x, pplan
+
+
+def pattern_residual(s, a, b, dev) -> float:
+    """The independent float64 |A X - B| / |B| over X's pattern of a
+    solver's X, through the plain block-list product."""
+    from tfqmrgpu_tpu_torch.ops import linalg
+    from tfqmrgpu_tpu_torch.ops.blocksparse import spmm_pairs
+
+    p = s.plan
+    xp = planes(s.get_matrix("X"), torch.float64, dev)
+    ax = spmm_pairs(planes(a.data, torch.float64, dev), xp, p.pairs[:, 0],
+                    p.pairs[:, 1], p.pair_y(), p.nnzb_x)
+    z = torch.zeros_like(xp[0])
+    bx = linalg.add_rhs((z, z), planes(b.data, torch.float64, dev), 1.0,
+                        p.subset)
+    return float(torch.sqrt(((ax[0] - bx[0]) ** 2 + (ax[1] - bx[1]) ** 2).sum()
+                            / (bx[0] ** 2 + bx[1] ** 2).sum()))
+
+
+def golden_c_problem(mb: int = 281, ncols: int = 16, deg: int = 11,
+                     lm: int = 32):
+    """The golden-class 'c' system of phases 6 and 10: seeded random
+    complex64 blocks, A diagonally dominant."""
+    rng = np.random.default_rng(282)
+    a, x, b = golden_class_patterns(mb, deg, ncols)
+    a = a.with_data(dominant_fill(rng, a.nnzb, deg, lm).astype(np.complex64))
+    b = b.with_data((rng.standard_normal((b.nnzb, lm, lm, 2)) @ [1, 1j])
+                    .astype(np.complex64))
+    return a, x, b
+
 
 def phase_device():
     from tfqmrgpu_tpu_torch import _build
@@ -316,8 +393,6 @@ def phase_fd(dev, fd):
 def phase_golden(dev, mb: int = 281, ncols: int = 16, deg: int = 11,
                  lm: int = 32, timed_iterations: int = 20):
     from tfqmrgpu_tpu_torch import Solver
-    from tfqmrgpu_tpu_torch.ops import linalg
-    from tfqmrgpu_tpu_torch.ops.blocksparse import spmm_pairs
 
     rng = np.random.default_rng(281)
     a, x, b = golden_class_patterns(mb, deg, ncols)
@@ -329,15 +404,7 @@ def phase_golden(dev, mb: int = 281, ncols: int = 16, deg: int = 11,
     info = s.solve(tolerance=1e-10, max_iterations=500)
     wall_ms = (time.perf_counter() - t0) * 1e3
     require(info.return_status == 0, f"golden solve status {info.return_status}")
-    p = s.plan
-    xp = planes(s.get_matrix("X"), torch.float64, dev)
-    ax = spmm_pairs(planes(a.data, torch.float64, dev), xp, p.pairs[:, 0],
-                    p.pairs[:, 1], p.pair_y(), p.nnzb_x)
-    z = torch.zeros_like(xp[0])
-    bx = linalg.add_rhs((z, z), planes(b.data, torch.float64, dev), 1.0,
-                        p.subset)
-    res = float(torch.sqrt(((ax[0] - bx[0]) ** 2 + (ax[1] - bx[1]) ** 2).sum()
-                           / (bx[0] ** 2 + bx[1] ** 2).sum()))
+    res = pattern_residual(s, a, b, dev)
     require(res < 1e-8, f"golden |AX-B|/|B| = {res:.3e}")
     # a fixed number of iterations (tolerance 0 never converges; one probe
     # at the cap) times the iteration itself rather than a short solve
@@ -426,18 +493,11 @@ def phase_rowtile(dev):
                 library_refused=why)
 
 
-def phase_golden_c(dev, mb: int = 281, ncols: int = 16, deg: int = 11,
-                   lm: int = 32, timed_iterations: int = 10):
+def phase_golden_c(dev, timed_iterations: int = 10):
     from tfqmrgpu_tpu_torch import Solver
-    from tfqmrgpu_tpu_torch.ops import linalg
-    from tfqmrgpu_tpu_torch.ops.blocksparse import spmm_pairs
     from tfqmrgpu_tpu_torch.ops.pallas_spmm import RowTileMultiply
 
-    rng = np.random.default_rng(282)
-    a, x, b = golden_class_patterns(mb, deg, ncols)
-    a = a.with_data(dominant_fill(rng, a.nnzb, deg, lm).astype(np.complex64))
-    b = b.with_data((rng.standard_normal((b.nnzb, lm, lm, 2)) @ [1, 1j])
-                    .astype(np.complex64))
+    a, x, b = golden_c_problem()
     s = Solver(a, x, b, precision="c", engine="auto", device=dev)
     require(s.engine == "pallas", f"auto picked {s.engine}")
     require((s._pack.r_tile, s._pack.ku) == (2, 12),
@@ -453,15 +513,7 @@ def phase_golden_c(dev, mb: int = 281, ncols: int = 16, deg: int = 11,
     require(launches == 2 * info.iterations_needed + info.n_probes,
             f"{launches} K3 launches for {info.iterations_needed} iterations "
             f"and {info.n_probes} probes")
-    p = s.plan
-    xp = planes(s.get_matrix("X"), torch.float64, dev)
-    ax = spmm_pairs(planes(a.data, torch.float64, dev), xp, p.pairs[:, 0],
-                    p.pairs[:, 1], p.pair_y(), p.nnzb_x)
-    z = torch.zeros_like(xp[0])
-    bx = linalg.add_rhs((z, z), planes(b.data, torch.float64, dev), 1.0,
-                        p.subset)
-    res = float(torch.sqrt(((ax[0] - bx[0]) ** 2 + (ax[1] - bx[1]) ** 2).sum()
-                           / (bx[0] ** 2 + bx[1] ** 2).sum()))
+    res = pattern_residual(s, a, b, dev)
     require(res < 1e-4, f"golden 'c' |AX-B|/|B| = {res:.3e}")
     # a fixed number of iterations, as in phase 4; in float32 every column
     # of this well-conditioned system stops by itself (the reference's
@@ -530,6 +582,183 @@ def phase_probe(dev):
                 gbps=best["gbps"])
 
 
+def phase_packed(dev, fd):
+    from tfqmrgpu_tpu_torch import ALLOWED_BLOCK_SIZES, create_plan
+    from tfqmrgpu_tpu_torch.ops.pairpanel import PairPlanMultiply
+    from tfqmrgpu_tpu_torch.solver import choose_group_size
+
+    gate = 1e-4
+
+    def check(mult, x, what):
+        got = mult(x)
+        rel, abs_err = _maxdev((got,), (mult.plain(x),))
+        again = mult(x)
+        torch.cuda.synchronize()
+        require(rel <= gate, f"K2 {what} maxdev {rel:.3e} > {gate}")
+        require(torch.equal(got, again), f"K2 {what}: repeated launch differs")
+        return rel, abs_err
+
+    rng = np.random.default_rng(2026)
+    worst = 0.0
+    for lm, ln in ALLOWED_BLOCK_SIZES:
+        a, x, b = random_problem(rng, mb=24, lm=lm, ln=ln, ncols=5)
+        plan = create_plan(a, x, b, device=dev)
+        av = rng.standard_normal((plan.nnzb_a, lm, lm, 2)) @ [1, 1j]
+        xv = rng.standard_normal((plan.nnzb_x, lm, ln, 2)) @ [1, 1j]
+        for group in (1, 2):
+            for r_tile in (1, 2):
+                mult, xf, _ = packed_multiply(plan, lm, ln, av, xv, dev,
+                                              group, r_tile)
+                rel, _ = check(mult, xf, f"({lm},{ln}) G {group} r_tile "
+                               f"{r_tile}")
+                worst = max(worst, rel)
+    for lm, ln, group in ((32, 64, 8), (4, 32, 16)):     # 512-lane planes
+        a, x, b = random_problem(rng, mb=24, lm=lm, ln=ln, ncols=group)
+        plan = create_plan(a, x, b, device=dev)
+        av = rng.standard_normal((plan.nnzb_a, lm, lm, 2)) @ [1, 1j]
+        xv = rng.standard_normal((plan.nnzb_x, lm, ln, 2)) @ [1, 1j]
+        mult, xf, _ = packed_multiply(plan, lm, ln, av, xv, dev, group)
+        worst = max(worst, check(mult, xf, f"({lm},{ln}) G {group}")[0])
+    fplan = create_plan(fd.a, fd.x, fd.b, device=dev)
+    fx = rng.standard_normal((fplan.nnzb_x, 8, 8, 2)) @ [1, 1j]
+    fmult, fxf, fpack = packed_multiply(fplan, 8, 8, fd.a_with_data().data,
+                                        fx, dev)
+    frel, _ = check(fmult, fxf, "FD rtb=12.75")
+    fd_ms, fd_plain_ms = (_time_ms(lambda: fmult(fxf)),
+                          _time_ms(lambda: fmult.plain(fxf)))
+    print(f"phase 9 K2 vs plain: 15 block sizes x G (1, 2) x r_tile (1, 2) "
+          f"and 512 lanes at (32, 64) G 8 and (4, 32) G 16, worst maxdev "
+          f"{worst:.3e}; FD rtb=12.75 fine pack ({fpack.ntiles} "
+          f"tiles, ku {fpack.ku}, {2 * fpack.ln} lanes) {frel:.3e}, K2 "
+          f"{fd_ms:.4f} ms, plain {fd_plain_ms:.4f} ms; repeated launches "
+          f"bit-identical", flush=True)
+
+    plan = create_plan(*golden_class_patterns(), device=dev)
+    av, xv = cos_sin(plan.nnzb_a, 32, 32), cos_sin(plan.nnzb_x, 32, 32)
+    pair_y = np.repeat(np.arange(plan.nnzb_x),
+                       np.diff(plan.starts.cpu().numpy()))
+    picked = choose_group_size(
+        plan.pairs.cpu().numpy().astype(np.int64), pair_y, plan.nnzb_x, 32,
+        32, np.repeat(np.arange(plan.nrows), np.diff(plan.rowptr_x)),
+        plan.colindx.cpu().numpy().astype(np.int64), plan.ncols)
+    flops = plan.n_pairs * 8.0 * 32 ** 3          # the products needed
+    sweep = {}
+    for group in (1, 2, 4, 8):
+        mult, xf, pplan = packed_multiply(plan, 32, 32, av, xv, dev, group)
+        rel, abs_err = check(mult, xf, f"golden G {group}")
+        ms = _time_ms(lambda: mult(xf))
+        plain_ms = _time_ms(lambda: mult.plain(xf))
+        nbytes = 4 * (mult.a_panels.numel() + 2 * xf.numel()
+                      + mult.xloc.numel())
+        bound_ms, bound_by = bound(nbytes, flops)
+        sweep[group] = dict(max_abs_err=abs_err, rel=rel, ms=ms,
+                            plain_ms=plain_ms, bound_ms=bound_ms,
+                            bound_by=bound_by, ntiles=pplan.ntiles,
+                            ku=pplan.ku, mbytes=nbytes / 1e6)
+        print(f"phase 9 golden-class K2 G {group} ({pplan.ntiles} tiles, ku "
+              f"{pplan.ku}, {2 * pplan.ln} lanes, {nbytes / 1e6:.1f} MB): "
+              f"{ms:.4f} ms ({flops / ms / 1e9:.2f} TFlop/s), plain "
+              f"{plain_ms:.4f} ms, maxdev {rel:.3e}; bound {bound_ms:.4f} ms "
+              f"({bound_by})", flush=True)
+        del mult, xf
+    fastest = min(sweep, key=lambda g: sweep[g]["ms"])
+    k1 = PairPlanMultiply(plan, *planes(av, torch.float32, dev), 32)
+    xp = planes(xv, torch.float32, dev)
+    k1_c_ms = _time_ms(lambda: k1(xp))
+    xpan, lay = x_panel(plan, 32, 32, xv, torch.float32, dev)
+    want = tuple(torch.from_numpy(lay.pack_x(y.cpu().numpy())).to(dev)
+                 for y in k1.plain(xp))
+    lib, why = library_product(plan, av, xpan, torch.complex64, want, gate)
+    library_ms = _time_ms(lib) if lib else None
+    print(f"phase 9 golden-class 'c': the rule picks G {picked}, the fastest "
+          f"K2 is G {fastest} ({sweep[fastest]['ms']:.4f} ms); K1 in 'c' on "
+          f"the plain pair table {k1_c_ms:.4f} ms; library (complex64 BSR "
+          f"torch.sparse.mm) "
+          + (f"{library_ms:.4f} ms" if lib else f"refused: {why}"), flush=True)
+    row = sweep[picked]
+    return dict(max_abs_err=row["max_abs_err"], ms=row["ms"],
+                plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
+                bound_by=row["bound_by"], library_ms=library_ms,
+                library_refused=why, group=picked, fastest_group=fastest,
+                ms_by_group={g: sweep[g]["ms"] for g in sweep},
+                k1_c_ms=k1_c_ms, fd_ms=fd_ms, fd_plain_ms=fd_plain_ms)
+
+
+def phase_golden_pairs_c(dev, timed_iterations: int = 10):
+    from tfqmrgpu_tpu_torch import Solver
+    from tfqmrgpu_tpu_torch.ops.pairpanel import PairPanelMultiply
+
+    a, x, b = golden_c_problem()
+    s = Solver(a, x, b, precision="c", engine="pairs", device=dev)
+    require(s._pp_plan is not None and s._gp is not None
+            and s._gp.group_size == 8,
+            f"packed plan {s._pp_plan is not None}, groups {s._gp}")
+    PairPanelMultiply.launches = 0
+    t0 = time.perf_counter()
+    info = s.solve(tolerance=1e-5, max_iterations=500)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    launches = PairPanelMultiply.launches
+    require(info.return_status == 0,
+            f"golden 'c' pairs solve status {info.return_status}")
+    require(launches == 2 * info.iterations_needed + info.n_probes,
+            f"{launches} K2 launches for {info.iterations_needed} iterations "
+            f"and {info.n_probes} probes")
+    res = pattern_residual(s, a, b, dev)
+    require(res < 1e-4, f"golden 'c' pairs |AX-B|/|B| = {res:.3e}")
+    # 10 fixed iterations, as in phase 6
+    t0 = time.perf_counter()
+    timed = s.solve(tolerance=0.0, max_iterations=timed_iterations)
+    torch.cuda.synchronize()
+    per_it = (time.perf_counter() - t0) * 1e3 / timed_iterations
+    require(timed.return_status == 9 and timed.n_probes == 1,
+            f"timed run status {timed.return_status}, {timed.n_probes} probes")
+    pp = s._pp_plan
+    print(f"phase 10 golden-class 'c' Solver(engine='pairs'): G "
+          f"{s._gp.group_size}, {pp.ntiles} tiles, ku {pp.ku}; "
+          f"{info.iterations_needed} iterations, {info.n_probes} probes, "
+          f"|AX-B|/|B| {res:.3e}, K2 launches {launches}, wall {wall_ms:.1f} "
+          f"ms; {per_it:.3f} ms per iteration over {timed_iterations} "
+          f"iterations", flush=True)
+    return launches
+
+
+def phase_fd_c(dev, fd):
+    import tfqmrgpu_tpu_torch as tt
+    from tfqmrgpu_tpu_torch.ops.pairpanel import PairPanelMultiply
+
+    # the engine and the pack 'auto' gives this pattern in 'c'
+    probe = tt.Solver(fd.a, fd.x, fd.b, precision="c", lm=8, ln=8,
+                      device=dev)
+    require(probe.engine == "pairs" and probe._pp_plan is not None
+            and probe._gp is None,
+            f"FD 'c': auto picked {probe.engine}, groups {probe._gp}")
+    ref = fd.x_reference.astype(np.complex128)
+    PairPanelMultiply.launches = 0
+    t0 = time.perf_counter()
+    xs, info = tt.bsrsv_c(fd.a_with_data(), fd.x, fd.b_with_data(),
+                          tolerance=1e-5, max_iterations=2000, device=dev)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    launches = PairPanelMultiply.launches
+    require(info.engine == "pairs", f"bsrsv_c took {info.engine}")
+    # a breakdown stops early and reports max_iterations; every other end
+    # counts the iterations it ran
+    want = 2 * info.iterations_needed + info.n_probes
+    require(0 < launches <= want if info.return_status == 2
+            else launches == want,
+            f"{launches} K2 launches for {info.iterations_needed} iterations "
+            f"and {info.n_probes} probes (status {info.return_status})")
+    require(bool(np.isfinite(xs.data).all()), "FD 'c' X is not finite")
+    maxdev = float(np.max(np.abs(xs.data - ref)) / np.max(np.abs(ref)))
+    print(f"phase 11 FD rtb=12.75 bsrsv_c -> {info.engine} (G 1, "
+          f"{probe._pp_plan.ntiles} tiles, ku {probe._pp_plan.ku}): status "
+          f"{info.return_status}, {info.iterations_needed} iterations, "
+          f"{info.n_probes} probes, residuum {info.residuum_reached:.3e}, "
+          f"maxdev {maxdev:.3e}, K2 launches {launches}, wall {wall_ms:.1f} "
+          f"ms (set-up included)", flush=True)
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device; none is available")
@@ -548,6 +777,9 @@ def main():
     k3_launches = phase_golden_c(dev)
     phase_dense(dev)
     k4 = phase_probe(dev)
+    k2 = phase_packed(dev, fd)
+    k2_launches = phase_golden_pairs_c(dev)
+    phase_fd_c(dev, fd)
     print(json.dumps({"kernels": [
         {"name": "pairpanel_spmm", "route": "cuda",
          "source": "tfqmrgpu_tpu_torch/csrc/pairpanel_spmm.cu",
@@ -557,6 +789,10 @@ def main():
          "source": "tfqmrgpu_tpu_torch/csrc/rowtile_spmm.cu",
          "replaces": "tfqmrgpu_tpu/ops/pallas_spmm.py:214",
          "launches": k3_launches, **k3, "card": card},
+        {"name": "pairpanel_tiles", "route": "cuda",
+         "source": "tfqmrgpu_tpu_torch/csrc/pairpanel_tiles.cu",
+         "replaces": "tfqmrgpu_tpu/ops/pairpanel.py:1706",
+         "launches": k2_launches, **k2, "card": card},
         {"name": "dma_probe", "route": "cuda",
          "source": "tfqmrgpu_tpu_torch/csrc/dma_probe.cu",
          "replaces": "tools/dma_probe.py:39", **k4, "card": card},

@@ -1,5 +1,5 @@
-"""The hand-written kernels (pair-plan K1, row-tile K3, stream probe K4)
-and their build.
+"""The hand-written kernels (pair-plan K1, packed pair-plan K2, row-tile
+K3, stream probe K4) and their build.
 
 Imports neither JAX nor tests/conftest.py, so that the card-only tests run
 on a machine without JAX:
@@ -13,10 +13,11 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import _rowtile_multiply, planes, random_problem
+from chip_smoke import (_rowtile_multiply, packed_multiply, planes,
+                        random_problem)
 from tfqmrgpu_tpu_torch import (ALLOWED_BLOCK_SIZES, Solver, _build,
                                 create_plan, dma_probe)
-from tfqmrgpu_tpu_torch.ops.pairpanel import PairPlanMultiply
+from tfqmrgpu_tpu_torch.ops.pairpanel import PairPanelMultiply, PairPlanMultiply
 from tfqmrgpu_tpu_torch.ops.pallas_spmm import RowTileMultiply
 
 torch.set_num_threads(2)
@@ -104,6 +105,47 @@ def test_solve_on_card_matches_cpu():
     assert all(i.return_status == 0 for i in infos)
     assert np.array_equal(xs[1], xs[2])            # repeatable on the card
     assert np.max(np.abs(xs[1] - xs[0])) <= 1e-10 * np.max(np.abs(xs[0]))
+
+
+def _packed(rng, lm, ln, group, r_tile, device, ncols=4):
+    """A PairPanelMultiply (K2) on a random plan and its fused X panel."""
+    plan = create_plan(*random_problem(rng, mb=12, lm=lm, ln=ln, ncols=ncols),
+                       device=device)
+    av = rng.standard_normal((plan.nnzb_a, lm, lm, 2)) @ [1, 1j]
+    xv = rng.standard_normal((plan.nnzb_x, lm, ln, 2)) @ [1, 1j]
+    mult, x, _ = packed_multiply(plan, lm, ln, av, xv, device, group, r_tile)
+    return mult, x
+
+
+def test_cpu_packed_multiply_never_builds(monkeypatch):
+    def refuse():
+        raise AssertionError("a CPU tensor must not reach the kernel")
+
+    monkeypatch.setattr(_build, "load_kernels", refuse)
+    mult, x = _packed(np.random.default_rng(4), 4, 8, 2, 1, "cpu")
+    before = PairPanelMultiply.launches
+    assert torch.equal(mult(x), mult.plain(x))
+    assert PairPanelMultiply.launches == before
+
+
+@pytest.mark.cuda
+def test_packed_kernel_matches_plain_on_card():
+    _needs_card()
+    rng = np.random.default_rng(5)
+    cases = [(lm, ln, group, r_tile)
+             for lm, ln in ((4, 4), (4, 5), (8, 9), (8, 10), (16, 64), (32, 32))
+             for group in (1, 2) for r_tile in (1, 2, 4)]
+    cases += [(32, 64, 8, 1), (4, 32, 16, 1)]            # 512-lane planes
+    for lm, ln, group, r_tile in cases:
+        mult, x = _packed(rng, lm, ln, group, r_tile, "cuda",
+                          ncols=max(4, group))
+        before = PairPanelMultiply.launches
+        got = mult(x)
+        torch.cuda.synchronize()
+        assert PairPanelMultiply.launches == before + 1
+        assert _maxdev((got,), (mult.plain(x),)) <= 1e-4, (lm, ln, group,
+                                                            r_tile)
+        assert torch.equal(mult(x), got)           # no atomics: same bits
 
 
 def _rowtile(rng, lm, ln, r_tile, device):

@@ -245,6 +245,10 @@ def test_auto_picks_jax_engine(case, precision, lm, want):
     ts = tt.Solver(*_port(a, x, b), precision=precision, lm=lm, ln=lm,
                    device="cpu")
     assert js.engine == ts.engine == want
+    if want == "pairs":
+        # the packed 'c' engine on the fine cells, ungrouped (one column)
+        assert ts._pp_plan is not None and ts._gp is None
+        assert ts._pp_plan.n_slots == ts.plan.nnzb_x
     if want == "pallas":
         assert (ts._pack.r_tile, ts._pack.ku) == (js._pack.r_tile,
                                                   js._pack.ku) == (2, 12)

@@ -114,12 +114,16 @@ def test_fd_bsrsv_z_reaches_dense_reference():
     assert np.max(np.abs(xs.data - ref)) / np.max(np.abs(ref)) < 1e-5
 
 
-def test_complex64_solve_and_layouts():
+@pytest.mark.parametrize("engine", ["pairs", "xla"])
+def test_complex64_solve_and_layouts(engine):
+    """'c' through the packed 'pairs' engine and the plain block list."""
     a, x, b = make_random_problem(np.random.default_rng(4), mb=10, lm=4,
                                   ln=8, ncols=2, dtype=np.complex64)
-    s = tt.Solver(*_port(a, x, b), precision="c", engine="pairs",
+    s = tt.Solver(*_port(a, x, b), precision="c", engine=engine,
                   device="cpu")
+    assert (s._pp_plan is not None) == (engine == "pairs")
     info = s.solve(tolerance=1e-5, max_iterations=200)
+    assert info.engine == engine
     assert info.return_status == Status.SUCCESS
     xc = s.get_matrix("X")
     assert xc.dtype == np.complex64

@@ -13,7 +13,8 @@ library's numerics.  The module names follow the JAX package's.
 * ``ops/``         -- vector ops, decisions, the plain block-sparse product,
                       the panel layout and the wrappers of the Hopper
                       kernels (``csrc/pairpanel_spmm.cu``,
-                      ``csrc/rowtile_spmm.cu``, built by ``_build.py``).
+                      ``csrc/pairpanel_tiles.cu``, ``csrc/rowtile_spmm.cu``,
+                      built by ``_build.py``).
 * ``dma_probe.py`` -- the device-memory stream probe
                       (``csrc/dma_probe.cu``).
 * ``convert.py``   -- hands a JAX plan's tables to this package.

@@ -34,6 +34,8 @@ SIGNATURES = {
     # nnzb_y, lm, ln, stream
     "tfq_pairpanel_spmm_f64": [_P] * 9 + [_I] * 3 + [_P],
     "tfq_pairpanel_spmm_f32": [_P] * 9 + [_I] * 3 + [_P],
+    # a_panels, xloc, x, y, ntiles, rlm, ku, lm, c, n_rows, stream
+    "tfq_pairpanel_tiles_f32": [_P] * 4 + [_I] * 6 + [_P],
     # a_fused, xcols, x_re, x_im, mask, y_re, y_im,
     # ntiles, rlm, ku, lm, nr, c, ln, stream
     "tfq_rowtile_spmm_f32": [_P] * 7 + [_I] * 7 + [_P],

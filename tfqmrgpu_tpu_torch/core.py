@@ -98,6 +98,9 @@ def tfqmr_loop(prim: TfqmrPrimitives, v2: Pair, v3: Pair, v5_init: Pair,
     dev = tau0.device
 
     def czeros():
+        # vectors are (re, im) pairs, or single fused tensors (packed pairs)
+        if torch.is_tensor(v5_init):
+            return torch.zeros_like(v5_init)
         return torch.zeros_like(v5_init[0]), torch.zeros_like(v5_init[1])
 
     def szeros(dtype=dt):
@@ -233,6 +236,29 @@ def solve_core_panel(multiply: Callable[[Pair], Pair], b_panel: Pair,
         inv_bn2 = inv_bn2_override
     return tfqmr_loop(prim, b_panel, v3_panel, v5, tau0, inv_bn2, tolerance,
                       max_iterations, b_panel[0].dtype)
+
+
+def solve_core_fused(prim: TfqmrPrimitives, b_fused: torch.Tensor,
+                     v3_fused: torch.Tensor, ncols: int, ln: int,
+                     tolerance: float, max_iterations: int,
+                     inv_bn2_override=None, *,
+                     rhs_trivial: bool = False) -> SolveResult:
+    """The packed pairs engine's entry (JAX: the step of its solver's
+    ``_solve_pairs``): vectors are fused permuted panels
+    (``ops/pairpanel.fused_primitives``, whose ``add_rhs`` holds
+    ``b_fused``: B, or the unit blocks when ``rhs_trivial``)."""
+    v5 = prim.add_rhs(torch.zeros_like(b_fused), b_fused, 1.0)
+    if rhs_trivial:
+        tau0 = torch.ones((ncols, ln), dtype=torch.float64,
+                          device=b_fused.device)
+        inv_bn2 = tau0
+    else:
+        tau0 = prim.nrm2(v5)                 # squared column norms of B
+        inv_bn2 = inverse_norms(tau0)
+    if inv_bn2_override is not None:
+        inv_bn2 = inv_bn2_override
+    return tfqmr_loop(prim, b_fused, v3_fused, v5, tau0, inv_bn2, tolerance,
+                      max_iterations, b_fused.dtype)
 
 
 def flops_per_iteration(n_pairs: int, nnzb_x: int, lm: int, ln: int) -> float:

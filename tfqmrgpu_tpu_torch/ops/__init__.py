@@ -7,8 +7,10 @@
 * ``decisions``   -- the three tfQMR scalar decision updates.
 * ``blocksparse`` -- block-sparse Y = A @ X over the pair list, in plain
                      PyTorch (the 'xla' engine and the kernel's reference).
-* ``pairpanel``   -- the wrapper of the hand-written Hopper pair-plan kernel
-                     (the 'pairs' engine).
+* ``pairpanel``   -- the 'pairs' engine: the wrapper of the pair-table
+                     kernel K1 ('z'), and for 'c' the host packing (column
+                     groups, the resident union-ELL plan), the fused-panel
+                     primitives and the wrapper of the packed kernel K2.
 * ``panel``       -- the panel layout and primitives of the 'dense' and
                      row-tile engines, and the dense multiply.
 * ``pallas_spmm`` -- the row-tile packing and the wrapper of the

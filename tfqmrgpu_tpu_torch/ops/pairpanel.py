@@ -1,21 +1,52 @@
-"""The pairs engine's multiply: the wrapper of the hand-written Hopper
-kernel ``csrc/pairpanel_spmm.cu``.
+"""The 'pairs' engine: the pair-table multiply (K1) and the packed pair
+plan of the 'c' solve (host packing, column grouping, fused-panel vectors
+and K2).  Counterpart of ``tfqmrgpu_tpu/ops/pairpanel.py``; the function
+names are the JAX package's.
 
-It computes what the TPU kernel K1 computes
-(``tfqmrgpu_tpu/ops/pairpanel.py::_make_call.kernel``, line 1770, and its
-callers ``make_pairpanel_multiply`` and ``make_pairpanel_multiply_oz``):
+**'z' (K1).**  ``PairPlanMultiply`` wraps ``csrc/pairpanel_spmm.cu``, which
+computes what the TPU kernel ``_make_call.kernel`` (line 1770) computes,
 
     Y[iY] = sum_{p in [starts[iY], starts[iY+1])}  A[pair_a[p]] @ X[pair_x[p]]
 
-The TPU needed union-ELL panels, window replicas, a Cuthill-McKee
-relabelling and, for 'z', Ozaki int8 slices; the H100 has native FP64 and
-runs the plan's pair table as it is, on the vectors' own (re, im) block
-planes.  On a CUDA tensor the wrapper launches the kernel; on a CPU tensor
-it runs the plain version ``ops.blocksparse.spmm_pairs``.
+over the plan's pair table as it is, on the vectors' own (re, im) block
+planes, in native FP64 (the H100 has it; the TPU needed Ozaki slices).
+
+**'c' (K2).**  As in the JAX package, the pair list is packed once on the
+host (pattern only):
+
+1. ``pack_grouped``: G compressed columns side by side on the lane axis
+   (LN' = G*LN), so that one streamed A block serves all G; the pair list
+   is deduplicated over (A block, row, group) cells.  ``auto_group_size``
+   picks G from a full-iteration model at the card's rates.
+2. ``pack_pair_plan``: Cuthill-McKee relabelling of the cells (column-major,
+   rows in CM order), tiles of ``r_tile`` cells, each tile's union of X
+   cells padded to ``ku`` and its A blocks scattered into a fused panel
+   [2*r_tile*LM, ku*LM] (re rows over im rows).  Only the TPU's *resident*
+   layout is ported: X is one window over all slots, so ``xloc`` holds
+   absolute slot ids; on the card X lives in device memory whatever its
+   size.  The TPU's VMEM windows, copy-code programs and step tables are
+   not ported.
+3. Vectors live as fused permuted panels [n_slots*LM, 2*LN'] (re lanes
+   [:LN'], im lanes [LN':]); ``fused_primitives`` does the tfQMR vector
+   work there, and the multiply is ``PairPanelMultiply`` (K2,
+   ``csrc/pairpanel_tiles.cu``), the counterpart of ``kernel_tile_pipe``
+   (line 1706), followed by the grouped lane mask.
+
+The JAX package merges block rows into superblocks for LM <= 8 before
+packing (its ``ops/superblock.py``); the port has no superblock yet and
+packs the fine cells, so FD-sized plans run K2 at their own LM and at
+narrow lanes.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import functools
+import itertools
+from collections import deque
+from math import comb
+
+import numpy as np
 import torch
 
 from ..errors import Status, TfqmrgpuError, encode_status
@@ -23,7 +54,7 @@ from .blocksparse import spmm_pairs
 
 Pair = tuple
 
-# The (LM, LN) pairs the kernel is compiled for: the reference's list
+# The (LM, LN) pairs the kernels are compiled for: the reference's list
 # (allowed_block_sizes.h:4-18).
 KERNEL_BLOCK_SIZES = (
     (4, 4), (4, 5), (4, 8), (4, 32),
@@ -36,6 +67,18 @@ KERNEL_BLOCK_SIZES = (
 _ENTRY = {torch.float64: "tfq_pairpanel_spmm_f64",
           torch.float32: "tfq_pairpanel_spmm_f32"}
 
+# The rates of the group-size model (auto_group_size), the card's own: the
+# device-memory rate the K4 stream probe (dma_probe.py) measured through
+# shared memory on an H100 80GB HBM3 at 700 W, for the A stream and the
+# vector passes alike, and NVIDIA's FP32 peak of the H100 SXM outside the
+# tensor cores, for the product.
+STREAM_BYTES_PER_S = 2.65e12
+FP32_FLOPS_PER_S = 67e12
+# estimates within this relative margin of the best tie; the larger G wins
+GROUP_TIE = 1e-3
+
+
+# ================================================================ K1 ('z')
 
 class PairPlanMultiply:
     """``y = A @ x`` over a plan's pair table, with A held on the device.
@@ -121,3 +164,730 @@ class PairPlanMultiply:
                                 f"pair-plan kernel returned {rc}")
         PairPlanMultiply.launches += 1
         return y_re, y_im
+
+
+# ================================================= geometry and relabelling
+
+def _find(par: np.ndarray, i: int) -> int:
+    r = i
+    while par[r] != r:
+        r = par[r]
+    while par[i] != r:
+        par[i], i = r, par[i]
+    return int(r)
+
+
+def recover_geometry(pair_a, pair_x, pair_y, nnzb_y: int):
+    """Recover (row_fragment, column) labels of the shared X/Y pattern space
+    from a bare pair list.  Returns (frag[nnzb_y], col[nnzb_y])."""
+    pa = np.asarray(pair_a, dtype=np.int64)
+    px = np.asarray(pair_x, dtype=np.int64)
+    py = np.asarray(pair_y, dtype=np.int64)
+    n = pa.shape[0]
+
+    def _union(par, a, b):
+        ra, rb = _find(par, int(a)), _find(par, int(b))
+        if ra != rb:
+            par[ra] = rb
+
+    par = np.arange(nnzb_y)
+    o = np.argsort(pa, kind="stable")
+    pa_s, py_s, px_s = pa[o], py[o], px[o]
+    i = 0
+    while i < n:
+        j = i + 1
+        while j < n and pa_s[j] == pa_s[i]:
+            j += 1
+        for t in range(i + 1, j):
+            # one A block: its Y blocks share a block row, and so do its
+            # X blocks (the A block's column is one row index)
+            _union(par, py_s[i], py_s[t])
+            _union(par, px_s[i], px_s[t])
+        i = j
+    frag = np.fromiter((_find(par, i) for i in range(nnzb_y)), np.int64,
+                       nnzb_y)
+    _, frag = np.unique(frag, return_inverse=True)
+
+    par = np.arange(nnzb_y)
+    for t in range(n):
+        _union(par, py[t], px[t])
+    col = np.fromiter((_find(par, i) for i in range(nnzb_y)), np.int64,
+                      nnzb_y)
+    _, col = np.unique(col, return_inverse=True)
+    return frag, col
+
+
+def _cuthill_mckee(nfrag: int, edges_a: np.ndarray, edges_b: np.ndarray):
+    """BFS (Cuthill-McKee) ordering of the fragment graph -> rank[nfrag]."""
+    adj = [set() for _ in range(nfrag)]
+    for a, b in zip(edges_a, edges_b):
+        if a != b:
+            adj[a].add(int(b))
+            adj[b].add(int(a))
+    order = []
+    seen = np.zeros(nfrag, bool)
+    deg = np.array([len(s) for s in adj])
+    for s in np.argsort(deg):
+        if seen[s]:
+            continue
+        seen[s] = True
+        dq = deque([int(s)])
+        while dq:
+            u = dq.popleft()
+            order.append(u)
+            for v in sorted(adj[u], key=lambda v: len(adj[v])):
+                if not seen[v]:
+                    seen[v] = True
+                    dq.append(v)
+    rank = np.zeros(nfrag, np.int64)
+    rank[np.array(order)] = np.arange(nfrag)
+    return rank
+
+
+def _labels(pa, px, py, nnzb, row_of, col_of):
+    """(row, col) labels: recovered from the pair list unless given."""
+    if row_of is None or col_of is None:
+        return recover_geometry(pa, px, py, nnzb)
+    _, row = np.unique(np.asarray(row_of, np.int64), return_inverse=True)
+    _, col = np.unique(np.asarray(col_of, np.int64), return_inverse=True)
+    return row, col
+
+
+# ==================================================================== pack
+
+@dataclasses.dataclass
+class PairPanelPlan:
+    """A packed resident pair plan (pattern only; data enters via panels).
+    The tables are the JAX package's ``pack_pair_plan(..., resident=True)``
+    tables of the same names."""
+
+    ntiles: int
+    r_tile: int
+    ku: int                  # union X slots per tile (max, rounded to even)
+    lm: int
+    ln: int                  # lanes of one plane (G*LN when grouped)
+    nnzb_y: int
+    nnzb_x: int
+    n_slots: int             # relabelled slots (== nnzb_x)
+    perm: np.ndarray         # int64[n_slots]: new slot -> old block
+    inv_perm: np.ndarray     # int64[nnzb_x]: old block -> new slot
+    xloc: np.ndarray         # int32[ntiles, ku]: the tile's union slots
+    kcount: np.ndarray       # int32[ntiles]: true union size per tile
+    # A panel scatter map: pair p -> panel[pair_tile, pair_rslot, pair_kslot]
+    pair_tile: np.ndarray    # int32[nPairs]
+    pair_rslot: np.ndarray   # int32[nPairs]
+    pair_kslot: np.ndarray   # int32[nPairs]
+    pair_a: np.ndarray       # int64[nPairs]: the pair's A block
+    inflation: float         # padded block products / nPairs
+    col_of_new: np.ndarray   # int64[n_slots]: column (or group) of each slot
+
+
+def pack_pair_plan(pair_a, pair_x, pair_y, nnzb_y: int, nnzb_x: int,
+                   lm: int, ln: int, r_tile: int = 2, row_of=None,
+                   col_of=None) -> PairPanelPlan:
+    """Compile a pair list into the resident union-ELL tile plan.
+
+    row_of/col_of: the known geometry (from a BSR plan); recovered from the
+    pair list if absent."""
+    pa = np.asarray(pair_a, dtype=np.int64)
+    px = np.asarray(pair_x, dtype=np.int64)
+    py = np.asarray(pair_y, dtype=np.int64)
+    if nnzb_x != nnzb_y:
+        raise ValueError("pair plans share one X/Y pattern space")
+    frag, col = _labels(pa, px, py, nnzb_y, row_of, col_of)
+    nfrag = int(frag.max()) + 1
+
+    rank = _cuthill_mckee(nfrag, frag[py], frag[px])
+    key = col * (nfrag + 1) + rank[frag]
+    perm = np.argsort(key, kind="stable")          # new slot -> old block
+    n_slots = nnzb_x
+    inv = np.zeros(nnzb_x, np.int64)
+    inv[perm] = np.arange(nnzb_x)
+
+    npy, npx = inv[py], inv[px]                     # pairs in new labels
+    order = np.argsort(npy, kind="stable")
+    npy_s, npx_s, pa_s = npy[order], npx[order], pa[order]
+    starts = np.searchsorted(npy_s, np.arange(n_slots + 1))
+
+    ntiles = (n_slots + r_tile - 1) // r_tile
+    unions = []
+    ku = 1
+    for t in range(ntiles):
+        lo = starts[t * r_tile]
+        hi = starts[min((t + 1) * r_tile, n_slots)]
+        u = np.unique(npx_s[lo:hi])
+        if u.shape[0] == 0:
+            u = np.zeros(1, np.int64)
+        unions.append(u)
+        ku = max(ku, u.shape[0])
+    ku += ku % 2               # even, as the JAX package's panels are
+
+    xloc = np.zeros((ntiles, ku), np.int32)
+    kcount = np.zeros(ntiles, np.int32)
+    pair_kslot = np.zeros(npx_s.shape[0], np.int32)
+    for t, u in enumerate(unions):
+        xloc[t, : u.shape[0]] = u.astype(np.int32)
+        kcount[t] = u.shape[0]
+        lo = starts[t * r_tile]
+        hi = starts[min((t + 1) * r_tile, n_slots)]
+        pair_kslot[lo:hi] = np.searchsorted(u, npx_s[lo:hi]).astype(np.int32)
+    return PairPanelPlan(
+        ntiles=ntiles, r_tile=r_tile, ku=ku, lm=lm, ln=ln, nnzb_y=nnzb_y,
+        nnzb_x=nnzb_x, n_slots=n_slots, perm=perm, inv_perm=inv, xloc=xloc,
+        kcount=kcount, pair_tile=(npy_s // r_tile).astype(np.int32),
+        pair_rslot=(npy_s % r_tile).astype(np.int32), pair_kslot=pair_kslot,
+        pair_a=pa_s, inflation=float((ntiles * r_tile * ku) / max(len(pa), 1)),
+        col_of_new=col[perm])
+
+
+def build_a_panels(plan: PairPanelPlan, a_re: np.ndarray,
+                   a_im: np.ndarray) -> np.ndarray:
+    """Scatter A block data into fused panels [ntiles, 2*r_tile*LM, ku*LM]
+    (re rows over im rows) on the host; duplicate pairs add up."""
+    lm, r, ku = plan.lm, plan.r_tile, plan.ku
+    flat = np.zeros((plan.ntiles * 2 * r * ku, lm, lm), dtype=a_re.dtype)
+    base = (plan.pair_tile.astype(np.int64) * 2 * r
+            + plan.pair_rslot) * ku + plan.pair_kslot
+    np.add.at(flat, base, a_re[plan.pair_a])
+    np.add.at(flat, base + r * ku, a_im[plan.pair_a])
+    p = flat.reshape(plan.ntiles, 2 * r, ku, lm, lm).transpose(0, 1, 3, 2, 4)
+    return np.ascontiguousarray(p.reshape(plan.ntiles, 2 * r * lm, ku * lm))
+
+
+def build_a_panels_device(plan: PairPanelPlan, a_re: torch.Tensor,
+                          a_im: torch.Tensor) -> torch.Tensor:
+    """The same panels built where the A planes lie, with one
+    ``index_add_`` (duplicate pairs add up)."""
+    lm, r, ku = plan.lm, plan.r_tile, plan.ku
+    base = (plan.pair_tile.astype(np.int64) * 2 * r
+            + plan.pair_rslot) * ku + plan.pair_kslot
+    dev = a_re.device
+    index = torch.from_numpy(np.concatenate([base, base + r * ku])).to(dev)
+    src = torch.from_numpy(plan.pair_a).to(dev)
+    flat = a_re.new_zeros((plan.ntiles * 2 * r * ku, lm, lm))
+    flat.index_add_(0, index, torch.cat([a_re[src], a_im[src]]))
+    p = flat.reshape(plan.ntiles, 2 * r, ku, lm, lm).permute(0, 1, 3, 2, 4)
+    return p.reshape(plan.ntiles, 2 * r * lm, ku * lm).contiguous()
+
+
+def permute_x(plan: PairPanelPlan, re: np.ndarray,
+              im: np.ndarray) -> np.ndarray:
+    """Split planes [nnzb_x, LM, LN] (old order) -> fused panel
+    [n_slots*LM, 2*LN] (re in lanes [:LN], im in [LN:])."""
+    out = np.concatenate([re[plan.perm], im[plan.perm]], axis=2)
+    return out.reshape(plan.n_slots * plan.lm, 2 * re.shape[2])
+
+
+def unpermute_y(plan: PairPanelPlan, y_fused: np.ndarray):
+    """Fused [n_slots*LM, 2*LN] (new order) -> (re, im) block lists
+    [nnzb_y, LM, LN] in the original order."""
+    ln = y_fused.shape[1] // 2
+    y = np.asarray(y_fused).reshape(-1, plan.lm, 2 * ln)[: plan.n_slots]
+    re = np.zeros((plan.nnzb_y, plan.lm, ln), dtype=y.dtype)
+    im = np.zeros_like(re)
+    re[plan.perm] = y[:, :, :ln]
+    im[plan.perm] = y[:, :, ln:]
+    return re, im
+
+
+# ================================================== column-grouped pairs
+#
+# A pair (iY, iA, iX) exists per right-hand-side column a block serves
+# (tfqmrgpu.cu:183-230), so a column-sparse X streams each A block once per
+# column.  Grouping G compressed columns onto the lane axis lets one A block
+# serve all G: the new blocks are the occupied (row, group) cells with
+# G*LN lanes, the new pair list the unique (iA, row(iY), row(iX), group),
+# absent lanes of X cells are zero and Y cells are masked back to the true
+# pattern.  This is exact only when the pair list is the full intersection
+# of the BSR patterns, as the reference's createPlan emits it;
+# ``pack_grouped`` checks that and raises ValueError otherwise.
+
+def _optimal_groups(pmb: np.ndarray, group_size: int,
+                    max_transitions: int = 2_000_000):
+    """The exact minimizer, over all partitions of the columns into groups
+    of ``group_size``, of the grouped pair count sum_a |{groups a's pair
+    columns touch}| (A-panel blocks streamed per multiply), by DP over the
+    bitmask of remaining columns.  None when ncol is not divisible by the
+    group size or the instance is too big."""
+    ncol = int(pmb.shape[1])
+    G = int(group_size)
+    if G < 2 or ncol % G != 0 or ncol > 24:
+        return None
+    est = 0
+    rem = ncol
+    while rem > 0:
+        est += comb(ncol, rem) * comb(rem - 1, G - 1)
+        rem -= G
+    if est > max_transitions:
+        return None
+
+    # distinct A column masks with multiplicities
+    col_bits = (np.int64(1) << np.arange(ncol, dtype=np.int64))
+    amask = (pmb.astype(np.int64) * col_bits[None, :]).sum(axis=1)
+    masks_u, counts = np.unique(amask, return_counts=True)
+    combos = list(itertools.combinations(range(ncol), G))
+    gmasks = np.array([sum(1 << c for c in combo) for combo in combos],
+                      np.int64)
+    hit = (masks_u[:, None] & gmasks[None, :]) != 0
+    gcost = {int(m): int(c) for m, c in
+             zip(gmasks, counts @ hit.astype(np.int64))}
+
+    @functools.lru_cache(maxsize=None)
+    def dp(remaining):
+        if remaining == 0:
+            return 0, ()
+        b = (remaining & -remaining).bit_length() - 1
+        rest = [c for c in range(ncol)
+                if (remaining >> c) & 1 and c != b]
+        best = None
+        for combo in itertools.combinations(rest, G - 1):
+            g = (1 << b) | sum(1 << c for c in combo)
+            sub, sub_groups = dp(remaining & ~g)
+            tot = gcost[g] + sub
+            if best is None or tot < best[0]:
+                best = (tot, sub_groups + (g,))
+        return best
+
+    _, chosen = dp((1 << ncol) - 1)
+    dp.cache_clear()
+    return [[c for c in range(ncol) if (g >> c) & 1] for g in chosen]
+
+
+def _refine_groups(groups: list, pmb: np.ndarray, max_passes: int = 8):
+    """Hill-climb column swaps between groups to lower the grouped pair
+    count sum_a |{groups a's pair columns touch}|."""
+    ncol = pmb.shape[1]
+    if ncol > 128:
+        return groups
+    assign = np.zeros(ncol, np.int64)
+    for gi, g in enumerate(groups):
+        assign[np.asarray(g, dtype=np.int64)] = gi
+    ngroups = len(groups)
+    pm = pmb.astype(np.int16)
+    # cnt[a, g]: how many of a's pair columns sit in group g
+    onehot = np.zeros((ncol, ngroups), np.int16)
+    onehot[np.arange(ncol), assign] = 1
+    cnt = pm @ onehot
+    nz = (cnt > 0).sum(axis=0).astype(np.int64)
+    for _ in range(max_passes):
+        improved = False
+        for c1 in range(ncol):
+            for c2 in range(c1 + 1, ncol):
+                g1, g2 = int(assign[c1]), int(assign[c2])
+                if g1 == g2:
+                    continue
+                m1, m2 = pm[:, c1], pm[:, c2]
+                n1 = int(((cnt[:, g1] - m1 + m2) > 0).sum())
+                n2 = int(((cnt[:, g2] - m2 + m1) > 0).sum())
+                if n1 + n2 < nz[g1] + nz[g2]:
+                    cnt[:, g1] += m2 - m1
+                    cnt[:, g2] += m1 - m2
+                    nz[g1], nz[g2] = n1, n2
+                    assign[c1], assign[c2] = g2, g1
+                    improved = True
+        if not improved:
+            break
+    return [sorted(np.flatnonzero(assign == gi).tolist())
+            for gi in range(ngroups)]
+
+
+@dataclasses.dataclass
+class GroupedPairs:
+    """Column-grouped transform of a pair list (host, pattern only)."""
+
+    group_size: int
+    ncol: int
+    ngroups: int
+    nnzb2: int               # occupied (row, group) cells
+    ln2: int                 # group_size * ln
+    pair_a2: np.ndarray      # int64[nPairs2]  original A block ids
+    pair_x2: np.ndarray      # int64[nPairs2]  cell ids
+    pair_y2: np.ndarray      # int64[nPairs2]
+    row_of2: np.ndarray      # int64[nnzb2]    row of each cell
+    col_of2: np.ndarray      # int64[nnzb2]    group of each cell
+    src_of: np.ndarray       # int64[nnzb2, group_size] block id | -1
+    cell_of_blk: np.ndarray  # int64[nnzb]     cell of each block
+    lane_of_blk: np.ndarray  # int64[nnzb]     lane slot of each block
+    groups: list             # list[list[int]] columns of each group
+
+
+def _group_columns(rbool: np.ndarray, group_size: int) -> list:
+    """Greedy clustering of columns that share rows into equal groups."""
+    ncol = rbool.shape[1]
+    co = (rbool.astype(np.int64).T @ rbool.astype(np.int64))
+    left = set(range(ncol))
+    groups = []
+    while left:
+        seed = max(left, key=lambda c: co[c, c])
+        g = [seed]
+        left.discard(seed)
+        while len(g) < group_size and left:
+            nxt = max(left, key=lambda c: sum(int(co[c, x]) for x in g))
+            g.append(nxt)
+            left.discard(nxt)
+        groups.append(g)
+    return groups
+
+
+def _choose_groups(pmb, rbool, group_size):
+    groups = _optimal_groups(pmb, group_size)
+    if groups is None:
+        groups = _refine_groups(_group_columns(rbool, group_size), pmb)
+    return groups
+
+
+def pack_grouped(pair_a, pair_x, pair_y, nnzb: int, ln: int,
+                 group_size: int, row_of=None, col_of=None) -> GroupedPairs:
+    """Transform a full-intersection pair list into the column-grouped
+    space.  Raises ValueError when the list is not a full intersection,
+    holds duplicate (iY, iA, iX) triples, or has no columns to group."""
+    pa = np.asarray(pair_a, dtype=np.int64)
+    px = np.asarray(pair_x, dtype=np.int64)
+    py = np.asarray(pair_y, dtype=np.int64)
+    row, col = _labels(pa, px, py, nnzb, row_of, col_of)
+    nrow, ncol = int(row.max()) + 1, int(col.max()) + 1
+    group_size = int(group_size)
+    if group_size < 2 or ncol < 2:
+        raise ValueError("grouping needs group_size >= 2 and >= 2 columns")
+
+    cell_key = row * np.int64(ncol) + col
+    if np.unique(cell_key).shape[0] != nnzb:
+        raise ValueError("recovered (row, col) labels collide")
+
+    trip = (pa * nnzb + py) * nnzb + px
+    if np.unique(trip).shape[0] != trip.shape[0]:
+        raise ValueError("duplicate (iY, iA, iX) triples cannot be grouped")
+
+    # each used A block: its two rows and the columns its pairs serve
+    au, inv = np.unique(pa, return_inverse=True)
+    nau = au.shape[0]
+    ai = np.zeros(nau, np.int64)
+    aj = np.zeros(nau, np.int64)
+    ai[inv] = row[py]
+    aj[inv] = row[px]
+    if (np.unique(inv * np.int64(nrow) + row[py]).shape[0] != nau
+            or np.unique(inv * np.int64(nrow) + row[px]).shape[0] != nau):
+        raise ValueError("an A block spans multiple recovered rows")
+    pmb = np.zeros((nau, ncol), bool)
+    pmb[inv, col[py]] = True
+    rbool = np.zeros((nrow, ncol), bool)
+    rbool[row, col] = True
+    # completeness: pairs(a) must equal cols(row_i) & cols(row_j)
+    if not np.array_equal(pmb, rbool[ai] & rbool[aj]):
+        raise ValueError("pair list is not a full pattern intersection; "
+                         "column grouping would change its semantics")
+
+    groups = _choose_groups(pmb, rbool, group_size)
+    ngroups = len(groups)
+    g_of_col = np.zeros(ncol, np.int64)
+    cpos_of_col = np.zeros(ncol, np.int64)
+    for gi, g in enumerate(groups):
+        for p, c in enumerate(g):
+            g_of_col[c] = gi
+            cpos_of_col[c] = p
+
+    # occupied (row, group) cells, ordered (group, row)
+    occ = np.zeros((nrow, ngroups), bool)
+    occ[row, g_of_col[col]] = True
+    occ_r, occ_g = np.nonzero(occ)
+    o = np.lexsort((occ_r, occ_g))
+    occ_r, occ_g = occ_r[o], occ_g[o]
+    nnzb2 = occ_r.shape[0]
+    cell2 = np.full(nrow * ngroups, -1, np.int64)
+    cell2[occ_r * ngroups + occ_g] = np.arange(nnzb2)
+
+    cell_of_blk = cell2[row * ngroups + g_of_col[col]]
+    lane_of_blk = cpos_of_col[col]
+    src_of = np.full((nnzb2, group_size), -1, np.int64)
+    src_of[cell_of_blk, lane_of_blk] = np.arange(nnzb)
+
+    # grouped pair list: each used A block once per group its pairs touch
+    key2 = inv * np.int64(ngroups) + g_of_col[col[py]]
+    uniq = np.unique(key2)
+    a2 = au[uniq // ngroups]
+    g2 = uniq % ngroups
+    py2 = cell2[ai[uniq // ngroups] * ngroups + g2]
+    px2 = cell2[aj[uniq // ngroups] * ngroups + g2]
+    if np.any(py2 < 0) or np.any(px2 < 0):
+        raise ValueError("internal: grouped pair hits an unoccupied cell")
+
+    return GroupedPairs(
+        group_size=group_size, ncol=ncol, ngroups=ngroups, nnzb2=nnzb2,
+        ln2=group_size * ln, pair_a2=a2, pair_x2=px2, pair_y2=py2,
+        row_of2=occ_r.astype(np.int64), col_of2=occ_g.astype(np.int64),
+        src_of=src_of, cell_of_blk=cell_of_blk, lane_of_blk=lane_of_blk,
+        groups=[list(map(int, g)) for g in groups])
+
+
+def grouped_blocks(gp: GroupedPairs, blocks: np.ndarray) -> np.ndarray:
+    """[nnzb, LM, LN] block data -> [nnzb2, LM, G*LN] grouped cells
+    (absent lanes zero)."""
+    lm, ln = blocks.shape[1], blocks.shape[2]
+    src = gp.src_of.reshape(-1)
+    gathered = np.where((src >= 0)[:, None, None],
+                        blocks[np.maximum(src, 0)], 0).astype(blocks.dtype)
+    out = gathered.reshape(gp.nnzb2, gp.group_size, lm, ln)
+    return out.transpose(0, 2, 1, 3).reshape(gp.nnzb2, lm, gp.ln2)
+
+
+def ungroup_blocks(gp: GroupedPairs, cells: np.ndarray) -> np.ndarray:
+    """[nnzb2, LM, G*LN] grouped cells -> [nnzb, LM, LN] original blocks."""
+    lm = cells.shape[1]
+    ln = gp.ln2 // gp.group_size
+    c4 = cells.reshape(gp.nnzb2, lm, gp.group_size, ln).transpose(0, 2, 1, 3)
+    return np.asarray(c4)[gp.cell_of_blk, gp.lane_of_blk]
+
+
+def grouped_lane_mask(plan: PairPanelPlan, gp: GroupedPairs) -> np.ndarray:
+    """Per-slot lane mask [n_slots, 2*LN'] of the grouped layout: 1 where
+    the (cell, column) is in the true pattern, 0 on absent lanes.  The same
+    for all LM rows of a slot."""
+    ln0 = plan.ln // gp.group_size
+    m = (gp.src_of[plan.perm] >= 0).astype(np.float32)   # [n_slots, G]
+    half = np.repeat(m, ln0, axis=1)
+    return np.concatenate([half, half], axis=1)
+
+
+def auto_group_size(pair_a, pair_x, pair_y, nnzb: int, lm: int, ln: int,
+                    row_of=None, col_of=None, candidates=(1, 2, 4, 8),
+                    vec_passes: float = 15.0, vec_bytes_per_val: int = 4):
+    """The column group size with the least modelled iteration time.
+    Returns (best G, estimates per G); 1 means no grouping.
+
+    The model is the JAX package's full-iteration objective, 2 multiplies
+    plus ``vec_passes`` passes over the G-inflated X-shaped vectors, with
+    the pattern counted the same way (padded A blocks, occupied cells), at
+    the card's rates (``STREAM_BYTES_PER_S``, ``FP32_FLOPS_PER_S``): a
+    multiply is the larger of its A stream and its product.  Estimates
+    within ``GROUP_TIE`` of the best tie, and the larger G (fewer A bytes)
+    wins them."""
+    pa = np.asarray(pair_a, dtype=np.int64)
+    py = np.asarray(pair_y, dtype=np.int64)
+    row, col = _labels(pa, np.asarray(pair_x, dtype=np.int64), py, nnzb,
+                       row_of, col_of)
+    ncol = int(col.max()) + 1
+    au, inv = np.unique(pa, return_inverse=True)
+    ai = np.zeros(au.shape[0], np.int64)
+    ai[inv] = row[py]
+    rbool = np.zeros((int(row.max()) + 1, ncol), bool)
+    rbool[row, col] = True
+    pmb = np.zeros((au.shape[0], ncol), bool)
+    pmb[inv, col[py]] = True
+    ests = {}
+    for g in candidates:
+        if g > ncol:
+            continue
+        if g == 1:
+            kcnt = np.bincount(py)          # pairs per Y block
+            padded = int(np.count_nonzero(kcnt) * kcnt.max())
+            cells = nnzb
+        else:
+            groups = _choose_groups(pmb, rbool, g)
+            g_of_col = np.zeros(ncol, np.int64)
+            for gi, grp in enumerate(groups):
+                g_of_col[grp] = gi
+            ng = len(groups)
+            key2 = np.unique(inv * np.int64(ng) + g_of_col[col[py]])
+            tgt = ai[key2 // ng] * np.int64(ng) + key2 % ng
+            kcnt = np.bincount(np.unique(tgt, return_inverse=True)[1])
+            padded = int(kcnt.shape[0] * kcnt.max())
+            occ = np.zeros((rbool.shape[0], ng), bool)
+            occ[row, g_of_col[col]] = True
+            cells = int(occ.sum())
+        lanes = g * ln
+        a_ms = padded * lm * lm * 8 / STREAM_BYTES_PER_S * 1e3
+        op_ms = padded * lanes * lm * lm * 8 / FP32_FLOPS_PER_S * 1e3
+        vec_ms = (vec_passes * cells * 2 * lm * lanes * vec_bytes_per_val
+                  / STREAM_BYTES_PER_S * 1e3)
+        ests[g] = dict(a_ms=a_ms, op_ms=op_ms, vec_ms=vec_ms,
+                       est_ms=2 * max(a_ms, op_ms) + vec_ms, cells=cells,
+                       tiles=int(kcnt.shape[0]), ku_max=int(kcnt.max()))
+    if not ests:
+        return 1, ests
+    least = min(e["est_ms"] for e in ests.values())
+    best = max(g for g, e in ests.items()
+               if e["est_ms"] <= least * (1.0 + GROUP_TIE))
+    return best, ests
+
+
+# ==================================================================== K2
+
+class PairPanelMultiply:
+    """``y = A @ x`` on fused permuted panels over a resident plan: K2.
+
+    ``x`` is one float32 tensor [n_slots*LM, 2*LN'] (re lanes, then im
+    lanes); the result has the same shape.  For every tile t the kernel
+    multiplies the fused A panel [2*r*LM, ku*LM] with the tile's union X
+    rows (``xloc``) and writes [P1 - Q2 | P2 + Q1] (P the re rows of the
+    product, Q the im rows, 1 and 2 the re and im lanes) for the tile's
+    rows below n_slots*LM.
+
+    The port runs this kernel for every packed plan, narrow lanes
+    included: the JAX package's step-pipelined kernel and its ``t_step``
+    exist to amortise the TPU's per-grid-step cost within its VMEM budget,
+    which the card does not have.  On a CUDA tensor the wrapper launches
+    ``csrc/pairpanel_tiles.cu`` or raises; on a CPU tensor it runs
+    ``plain``.  ``launches`` counts the kernel's launches by every instance
+    in this process; the plain version never adds to it.
+    """
+
+    launches: int = 0
+
+    def __init__(self, plan: PairPanelPlan, a_panels: torch.Tensor):
+        self.ntiles, self.ku, self.lm = plan.ntiles, plan.ku, plan.lm
+        self.ln = plan.ln
+        self.rlm = plan.r_tile * plan.lm
+        self.n_rows = plan.n_slots * plan.lm
+        dev = a_panels.device
+        if a_panels.dtype != torch.float32:
+            raise TfqmrgpuError(encode_status(Status.PRECISION_MISSMATCH),
+                                "the packed pairs engine is float32-only, "
+                                f"got {a_panels.dtype}")
+        shape = (self.ntiles, 2 * self.rlm, self.ku * self.lm)
+        if tuple(a_panels.shape) != shape or not a_panels.is_contiguous():
+            raise ValueError(f"A panels must be a contiguous {shape} tensor, "
+                             f"got {tuple(a_panels.shape)}")
+        if dev.type == "cuda" and self.lm % 4:
+            raise TfqmrgpuError(encode_status(Status.BLOCKSIZE_MISSING),
+                                "the packed pairs kernel takes LM in "
+                                f"multiples of 4, got {self.lm}")
+        self.a_panels = a_panels
+        self.xloc = torch.from_numpy(
+            np.ascontiguousarray(plan.xloc, dtype=np.int32)).to(dev)
+
+    @property
+    def device(self) -> torch.device:
+        return self.a_panels.device
+
+    def _check(self, x: torch.Tensor):
+        shape = (self.n_rows, 2 * self.ln)
+        if (x.device != self.device or x.dtype != torch.float32
+                or tuple(x.shape) != shape or not x.is_contiguous()):
+            raise ValueError(
+                f"x must be a contiguous {shape} float32 tensor on "
+                f"{self.device}; got {tuple(x.shape)} {x.dtype} on {x.device}")
+
+    def plain(self, x: torch.Tensor) -> torch.Tensor:
+        """The plain PyTorch version, on any device: gather the tiles'
+        union rows by ``xloc``, one ``torch.bmm``, combine the halves."""
+        nt, rlm, c = self.ntiles, self.rlm, self.ln
+        xs = x.reshape(-1, self.lm, 2 * c)[self.xloc.to(torch.int64)]
+        d = torch.bmm(self.a_panels, xs.reshape(nt, self.ku * self.lm, 2 * c))
+        p, q = d[:, :rlm], d[:, rlm:]
+        y = torch.cat([p[..., :c] - q[..., c:], p[..., c:] + q[..., :c]], 2)
+        return y.reshape(nt * rlm, 2 * c)[: self.n_rows].contiguous()
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        self._check(x)
+        if self.device.type == "cpu":
+            return self.plain(x)
+        if self.device.type != "cuda":
+            raise TfqmrgpuError(encode_status(Status.NO_IMPLEMENTATION),
+                                f"no packed pairs kernel for {self.device}")
+        return self._launch(x)
+
+    def _launch(self, x: torch.Tensor) -> torch.Tensor:
+        from .._build import load_kernels
+
+        fn = load_kernels().tfq_pairpanel_tiles_f32
+        y = torch.empty_like(x)
+        with torch.cuda.device(self.device):
+            stream = torch.cuda.current_stream(self.device).cuda_stream
+            rc = fn(self.a_panels.data_ptr(), self.xloc.data_ptr(),
+                    x.data_ptr(), y.data_ptr(), self.ntiles, self.rlm,
+                    self.ku, self.lm, self.ln, self.n_rows, stream)
+        if rc != 0:
+            raise TfqmrgpuError(encode_status(Status.LAUNCH_FAILED),
+                                f"packed pairs kernel returned {rc}")
+        PairPanelMultiply.launches += 1
+        return y
+
+
+# ====================================================== fused primitives
+
+def fused_primitives(mult, plan: PairPanelPlan, ncc: int,
+                     b_fused: torch.Tensor, gp: GroupedPairs = None):
+    """``core.TfqmrPrimitives`` over fused permuted panels
+    [n_slots*LM, 2*LN'] (JAX: ``fused_primitives`` in 'c' without col_pad,
+    and ``_fused_primitives_grouped``).
+
+    ``multiply`` is ``mult`` (K2) followed, with column groups, by the
+    grouped lane mask.  ``dotp`` and ``nrm2`` sum over each slot's rows and
+    then over the slots of each group (or column) in float32, through a
+    padded slot table (no atomics: the order is fixed), and cast the
+    per-column results to float64, the JAX package's order of types.
+    ``axpy``/``xpay`` expand the per-column scalars to slots by a gather, in
+    float32.  ``add_rhs`` is ``v + s * b_fused``."""
+    from ..core import TfqmrPrimitives
+    from .linalg import _segment_sum, columns
+
+    lm, ln2 = plan.lm, plan.ln
+    gsz = gp.group_size if gp is not None else 1
+    ln0 = ln2 // gsz
+    ngroups = gp.ngroups if gp is not None else ncc
+    nslots, dev = plan.n_slots, b_fused.device
+    f32, f64 = torch.float32, torch.float64
+    slot_grp = torch.from_numpy(plan.col_of_new).to(dev)     # group of a slot
+    table = columns(slot_grp, ngroups)
+    # compressed column -> its (group, lane block) position
+    gc = np.arange(ncc, dtype=np.int64)
+    if gp is not None:
+        for gi, grp in enumerate(gp.groups):
+            gc[grp] = gi * gsz + np.arange(len(grp))
+    gc = torch.from_numpy(gc).to(dev)
+    mask = (torch.from_numpy(grouped_lane_mask(plan, gp)).to(dev)[:, None, :]
+            if gp is not None else None)
+
+    def view3(v):
+        v3 = v.view(nslots, lm, 2 * ln2)
+        return v3[..., :ln2], v3[..., ln2:]
+
+    def multiply(x):
+        y = mult(x)
+        if mask is None:
+            return y
+        return (y.view(nslots, lm, 2 * ln2) * mask).view(-1, 2 * ln2)
+
+    def colsum(p):
+        """[nslots, LM, LN'] float32 -> [ncc, LN] per-column float64."""
+        z = _segment_sum(p.sum(dim=1), table)                # [ngroups, LN']
+        return z.reshape(ngroups * gsz, ln0)[gc].to(f64)
+
+    def dotp(x, y):
+        xr, xi = view3(x)
+        yr, yi = view3(y)
+        return colsum(xr * yr - xi * yi), colsum(xr * yi + xi * yr)
+
+    def nrm2(x):
+        xr, xi = view3(x)
+        return colsum(xr * xr + xi * xi)
+
+    def scale(a):
+        """[ncc, LN] float64 scalars -> [nslots, 1, LN'] float32."""
+        def expand(v):
+            flat = torch.zeros((ngroups * gsz, ln0), dtype=f32, device=dev)
+            flat[gc] = v.to(f32)
+            return flat.view(ngroups, ln2)[slot_grp][:, None, :]
+        return expand(a[0]), expand(a[1])
+
+    def fuse(re, im):
+        return torch.cat([re, im], dim=2).view(-1, 2 * ln2)
+
+    def axpy(y, x, a):
+        ar, ai = scale(a)
+        xr, xi = view3(x)
+        yr, yi = view3(y)
+        return fuse(ar * xr - ai * xi + yr, ai * xr + ar * xi + yi)
+
+    def xpay(y, a, x):
+        ar, ai = scale(a)
+        xr, xi = view3(x)
+        yr, yi = view3(y)
+        return fuse(xr + ar * yr - ai * yi, xi + ai * yr + ar * yi)
+
+    def add_rhs(v, b, scal):
+        del b  # the fused B panel is closed over and stays on the device
+        return v + scal * b_fused
+
+    return TfqmrPrimitives(multiply=multiply, dotp=dotp, nrm2=nrm2,
+                           axpy=axpy, xpay=xpay, add_rhs=add_rhs)

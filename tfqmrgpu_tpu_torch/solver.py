@@ -15,8 +15,13 @@ Engines (``ENGINES``), as in the JAX package:
   ``csrc/rowtile_spmm.cu`` on a CUDA device, its plain version on the CPU.
   The name is the JAX package's (and its C-API bridge's); here it means the
   row-tile engine.  float32 ('c') only, as there.
-* ``'pairs'``  -- the plan's pair table through ``ops/pairpanel.py``: the
-  hand-written Hopper kernel on a CUDA device, the plain version on the CPU.
+* ``'pairs'``  -- ``ops/pairpanel.py``.  In 'z' the plan's pair table
+  through the hand-written Hopper kernel K1 (``csrc/pairpanel_spmm.cu``).
+  In 'c' the JAX package's packed engine: column groups (G from
+  ``choose_group_size``), a Cuthill-McKee-relabelled resident union-ELL
+  plan with ``r_tile`` 1, vectors as fused permuted panels, and the
+  multiply K2 (``csrc/pairpanel_tiles.cu``).  On the CPU both run their
+  plain versions.
 * ``'xla'``    -- the block-list engine: the plain ``spmm_pairs``.
 * ``'auto'``   -- the JAX package's rules (its solver.py:113-184): 'dense'
   while the dense planes fit ``DENSE_A_BYTE_LIMIT``, or A is at least 25%
@@ -27,7 +32,8 @@ Engines (``ENGINES``), as in the JAX package:
   JAX package falls back to 'xla' the port stays on 'pairs'.
 
 The block-list engines keep vectors as (re, im) planes [nnzbX, LM, LN] in
-the plan's block order, the panel engines as [mb*LM, ncc, LN] panels.
+the plan's block order, the panel engines as [mb*LM, ncc, LN] panels, and
+the packed 'pairs' engine as one fused panel [n_slots*LM, 2*G*LN].
 Everything runs on the CUDA card unless ``device="cpu"`` is given.
 """
 
@@ -44,9 +50,9 @@ from .bsr import Bsr
 from .errors import Status, TfqmrgpuError, encode_status
 from .ops import layout as layout_ops
 from .ops import linalg
+from .ops import pairpanel as pp_ops
 from .ops import panel as panel_ops
 from .ops.blocksparse import BlockSparseAction
-from .ops.pairpanel import PairPlanMultiply
 from .ops.pallas_spmm import (RowTileMultiply, build_a_panels_device,
                               choose_row_tile)
 from .plan import Plan, create_plan, resolve_device
@@ -60,6 +66,25 @@ PANEL_ENGINES = ("dense", "pallas")
 # rule replaces them in later work, from the times chip_smoke.py prints.
 DENSE_A_BYTE_LIMIT = int(64e6)
 PALLAS_X_BYTE_LIMIT = 90 << 20
+# the packed 'pairs' engine groups at most this many lanes (G*LN), as the
+# JAX package's 'c' solver does
+GROUP_LANE_LIMIT = 512
+
+
+def choose_group_size(pairs: np.ndarray, pair_y: np.ndarray, nnzb_x: int,
+                      lm: int, ln: int, row_of: np.ndarray,
+                      colindx: np.ndarray, ncols: int) -> int:
+    """The column group size of the packed 'pairs' engine, and the only
+    place it is chosen: ``auto_group_size``'s full-iteration model (2
+    multiplies and 15 vector passes at the card's rates) over G in
+    (1, 2, 4, 8) with G*LN <= ``GROUP_LANE_LIMIT``; 1 for a single column."""
+    if ncols < 2:
+        return 1
+    cands = tuple(g for g in (1, 2, 4, 8) if g * ln <= GROUP_LANE_LIMIT)
+    g, _ = pp_ops.auto_group_size(pairs[:, 0], pairs[:, 1], pair_y, nnzb_x,
+                                  lm, ln, row_of=row_of, col_of=colindx,
+                                  candidates=cands)
+    return g
 
 
 def _dtype_for(precision: str) -> torch.dtype:
@@ -134,6 +159,12 @@ class Solver:
         self.plan.precision = precision
         self._pack = None              # row-tile packing ('pallas')
         self.engine = self._choose_engine(engine, echo)
+        # the packed 'pairs' engine ('c'): its plan and column groups
+        self._packed = self.engine == "pairs" and precision == "c"
+        self._pp_plan: Optional[pp_ops.PairPanelPlan] = None
+        self._gp: Optional[pp_ops.GroupedPairs] = None
+        if self._packed:
+            self._pack_pairs(echo)
 
         self._panel = self.engine in PANEL_ENGINES
         self._layout = (panel_ops.PanelLayout.from_plan(self.plan)
@@ -144,10 +175,11 @@ class Solver:
         self._x0: Optional[tuple] = None
         self._x_result: Optional[tuple] = None
         if v3 is None:
-            # the panel engines pack v3 on the host before its one upload
+            # the panel and packed engines pack v3 on the host before its
+            # one upload
             v3 = core.make_shadow_vector(
                 self.plan.nnzb_x, self.lm, self.ln,
-                device="cpu" if self._panel else self.device)
+                device="cpu" if self._panel or self._packed else self.device)
         self.set_shadow_vector(*v3)
         if a.data is not None:
             self.set_matrix("A", a.data)
@@ -186,6 +218,69 @@ class Solver:
                       f"rows, ku={pack.ku}, inflation {pack.inflation:.2f}x")
         return engine
 
+    def _pack_pairs(self, echo: int):
+        """The packed plan of the 'c' 'pairs' engine (JAX: the fine branch
+        of its solver's ``_build_fine_pairs``): the group size, the grouped
+        pair list (ungrouped if ``pack_grouped`` refuses the pattern), then
+        the resident plan with ``r_tile`` 1."""
+        plan = self.plan
+        pairs = plan.pairs.cpu().numpy().astype(np.int64)
+        pair_y = np.repeat(np.arange(plan.nnzb_x, dtype=np.int64),
+                           np.diff(plan.starts.cpu().numpy()))
+        row_of = np.repeat(np.arange(plan.nrows, dtype=np.int64),
+                           np.diff(plan.rowptr_x))
+        colindx = plan.colindx.cpu().numpy().astype(np.int64)
+        g = choose_group_size(pairs, pair_y, plan.nnzb_x, self.lm, self.ln,
+                              row_of, colindx, plan.ncols)
+        if g > 1:
+            try:
+                self._gp = pp_ops.pack_grouped(
+                    pairs[:, 0], pairs[:, 1], pair_y, plan.nnzb_x, self.ln,
+                    g, row_of=row_of, col_of=colindx)
+            except ValueError:
+                self._gp = None
+        gp = self._gp
+        if gp is not None:
+            self._pp_plan = pp_ops.pack_pair_plan(
+                gp.pair_a2, gp.pair_x2, gp.pair_y2, gp.nnzb2, gp.nnzb2,
+                self.lm, gp.ln2, r_tile=1, row_of=gp.row_of2,
+                col_of=gp.col_of2)
+        else:
+            self._pp_plan = pp_ops.pack_pair_plan(
+                pairs[:, 0], pairs[:, 1], pair_y, plan.nnzb_x, plan.nnzb_x,
+                self.lm, self.ln, r_tile=1, row_of=row_of, col_of=colindx)
+        if echo > 2:
+            pp = self._pp_plan
+            print(f"# packed pairs: G={gp.group_size if gp else 1}, "
+                  f"{pp.ntiles} tiles, ku={pp.ku}, lanes {2 * pp.ln}, "
+                  f"inflation {pp.inflation:.2f}x")
+
+    def _pairs_permute(self, re: np.ndarray, im: np.ndarray) -> np.ndarray:
+        """X-shaped block planes -> the packed engine's fused panel
+        (column grouping, then the relabelling)."""
+        if self._gp is not None:
+            re = pp_ops.grouped_blocks(self._gp, re)
+            im = pp_ops.grouped_blocks(self._gp, im)
+        return pp_ops.permute_x(self._pp_plan, re, im)
+
+    def _pairs_unpermute(self, fused: np.ndarray) -> tuple:
+        """The fused panel -> (re, im) block planes [nnzbX, LM, LN]."""
+        re, im = pp_ops.unpermute_y(self._pp_plan, fused)
+        if self._gp is not None:
+            re = pp_ops.ungroup_blocks(self._gp, re)
+            im = pp_ops.ungroup_blocks(self._gp, im)
+        return re, im
+
+    def _pairs_b_panel(self, re: np.ndarray, im: np.ndarray) -> torch.Tensor:
+        """B blocks scattered into X's shape, grouped, permuted into the
+        fused panel, uploaded."""
+        shape = (self.plan.nnzb_x, self.lm, self.ln)
+        xr, xi = np.zeros(shape, re.dtype), np.zeros(shape, im.dtype)
+        sub = self.plan.subset.cpu().numpy().astype(np.int64)
+        np.add.at(xr, sub, re)
+        np.add.at(xi, sub, im)
+        return torch.from_numpy(self._pairs_permute(xr, xi)).to(self.device)
+
     # ------------------------------------------------------------- matrices
 
     def set_shadow_vector(self, re, im):
@@ -194,10 +289,15 @@ class Solver:
         shape = (self.plan.nnzb_x, self.lm, self.ln)
         if any(tuple(v.shape) != shape for v in (re, im)):
             raise ValueError(f"v3 must have shape {shape}")
-        if self._panel:
-            host = (np.asarray(v.cpu() if torch.is_tensor(v) else v,
-                               dtype=np.float32) for v in (re, im))
-            self._v3 = self._upload(*(self._layout.pack_x(h) for h in host))
+        if self._panel or self._packed:
+            host = [np.asarray(v.cpu() if torch.is_tensor(v) else v,
+                               dtype=np.float32) for v in (re, im)]
+            if self._packed:
+                self._v3 = torch.from_numpy(
+                    self._pairs_permute(*host)).to(self.device)
+            else:
+                self._v3 = self._upload(*(self._layout.pack_x(h)
+                                          for h in host))
         else:
             self._v3 = tuple((v if torch.is_tensor(v) else torch.from_numpy(
                 np.array(v, dtype=np.float32))).to(self.device, torch.float32)
@@ -230,13 +330,20 @@ class Solver:
         if var == "A":
             self._multiply = self._make_multiply(re, im)
         elif var == "B":
-            self._b = (self._upload(lay.pack_b(re), lay.pack_b(im))
-                       if self._panel else self._upload(re, im))
+            if self._packed:
+                self._b = self._pairs_b_panel(re, im)
+            else:
+                self._b = (self._upload(lay.pack_b(re), lay.pack_b(im))
+                           if self._panel else self._upload(re, im))
         else:
             # initial guess X0: solve A*dX == B - A*X0 and return X0 + dX
             # (the reference always starts from zero, tfqmrgpu_core.hxx:125)
-            self._x0 = (self._upload(lay.pack_x(re), lay.pack_x(im))
-                        if self._panel else self._upload(re, im))
+            if self._packed:
+                self._x0 = torch.from_numpy(
+                    self._pairs_permute(re, im)).to(self.device)
+            else:
+                self._x0 = (self._upload(lay.pack_x(re), lay.pack_x(im))
+                            if self._panel else self._upload(re, im))
 
     def _make_multiply(self, re: np.ndarray, im: np.ndarray):
         """The engine's y = A @ x over A's (re, im) block planes."""
@@ -248,13 +355,17 @@ class Solver:
             return panel_ops.dense_multiply(a_re, a_im, mask4, lay.mb,
                                             lay.lm, lay.ncc, lay.ln)
         a_re, a_im = self._upload(re, im)
+        if self._packed:
+            return pp_ops.PairPanelMultiply(
+                self._pp_plan,
+                pp_ops.build_a_panels_device(self._pp_plan, a_re, a_im))
         if self.engine == "pallas":
             return RowTileMultiply(
                 self._pack, build_a_panels_device(self._pack, a_re),
                 build_a_panels_device(self._pack, a_im), self._layout.mask,
                 self.ln)
         if self.engine == "pairs":
-            return PairPlanMultiply(self.plan, a_re, a_im, self.ln)
+            return pp_ops.PairPlanMultiply(self.plan, a_re, a_im, self.ln)
         return BlockSparseAction.from_plan(self.plan, a_re, a_im)
 
     def get_matrix(self, var: str = "X", *, trans: str = "n",
@@ -269,7 +380,10 @@ class Solver:
         if self._x_result is None:
             raise TfqmrgpuError(encode_status(Status.NO_INFO_PASSED),
                                 "solve() has not been called")
-        re, im = (t.cpu().numpy() for t in self._x_result)
+        if self._packed:
+            re, im = self._pairs_unpermute(self._x_result.cpu().numpy())
+        else:
+            re, im = (t.cpu().numpy() for t in self._x_result)
         if self._panel:
             re, im = self._layout.unpack_x(re), self._layout.unpack_x(im)
         if layout is not None:
@@ -294,6 +408,8 @@ class Solver:
                                 "matrix 'B' has not been set")
         if self._panel:
             result = self._solve_panel(tolerance, max_iterations, rhs_trivial)
+        elif self._packed:
+            result = self._solve_fused(tolerance, max_iterations, rhs_trivial)
         else:
             result = self._solve_blocks(tolerance, max_iterations,
                                         rhs_trivial)
@@ -351,6 +467,32 @@ class Solver:
             b = self._b
         return core.solve_core_panel(multiply, b, self._v3, tolerance,
                                      max_iterations, rhs_trivial=rhs_trivial)
+
+    def _solve_fused(self, tolerance, max_iterations, rhs_trivial):
+        """The packed 'pairs' engine, as the JAX package's _solve_pairs and
+        _solve_shifted."""
+        plan, ncc = self._pp_plan, self.plan.ncols
+
+        def run(b, inv=None):
+            prim = pp_ops.fused_primitives(self._multiply, plan, ncc, b,
+                                           self._gp)
+            return core.solve_core_fused(prim, b, self._v3, ncc, self.ln,
+                                         tolerance, max_iterations, inv,
+                                         rhs_trivial=rhs_trivial)
+
+        if self._x0 is not None and not rhs_trivial:
+            x0, b = self._x0, self._b
+            prim = pp_ops.fused_primitives(self._multiply, plan, ncc, b,
+                                           self._gp)
+            # keep the convergence target relative to the original |B|
+            result = run(b - prim.multiply(x0),
+                         core.inverse_norms(prim.nrm2(b)))
+            return result._replace(x=result.x + x0)
+        if rhs_trivial:
+            unit = linalg.set_unit_blocks(self.plan.nnzb_b, self.lm, self.ln,
+                                          torch.float32)[0].numpy()
+            return run(self._pairs_b_panel(unit, np.zeros_like(unit)))
+        return run(self._b)
 
     def _finish_solve(self, result: core.SolveResult,
                       max_iterations: int) -> SolveInfo:

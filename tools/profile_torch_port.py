@@ -2,10 +2,10 @@
 
     python3 tools/profile_torch_port.py
 
-Runs three solves of ``chip_smoke.py`` through ``tfqmrgpu_tpu_torch``:
+Runs four solves of ``chip_smoke.py`` through ``tfqmrgpu_tpu_torch``:
 FD rtb=12.75 'z' to 1e-9 (pairs engine, K1), and the golden-class plan for
-20 fixed iterations in 'z' (pairs engine, K1) and 10 in 'c' (row-tile
-engine, K3).
+20 fixed iterations in 'z' (pairs engine, K1) and 10 each in 'c' through
+the row-tile engine (K3) and the packed pairs engine (K2, G = 8).
 Each is solved once to warm up, once on the host clock, and once under
 ``torch.profiler``.  Device time is the sum of the durations of the events
 the profiler places on the card (kernels, copies, fills); the aten operators
@@ -28,7 +28,8 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from chip_smoke import dominant_fill, golden_class_patterns  # noqa: E402
+from chip_smoke import (dominant_fill, golden_c_problem,  # noqa: E402
+                        golden_class_patterns)
 
 
 def device_events(prof):
@@ -85,7 +86,8 @@ def main():
         raise SystemExit("profile_torch_port.py needs a CUDA device")
     from tfqmrgpu_tpu_torch import Solver
     from tfqmrgpu_tpu_torch.generator import generate_fd_problem
-    from tfqmrgpu_tpu_torch.ops.pairpanel import PairPlanMultiply
+    from tfqmrgpu_tpu_torch.ops.pairpanel import (PairPanelMultiply,
+                                                  PairPlanMultiply)
     from tfqmrgpu_tpu_torch.ops.pallas_spmm import RowTileMultiply
 
     smi = subprocess.run(
@@ -111,10 +113,7 @@ def main():
     print(f"[golden-class 'z'] peak device memory "
           f"{torch.cuda.max_memory_allocated(dev) / 2**30:.3f} GiB", flush=True)
 
-    rng = np.random.default_rng(282)
-    a = a.with_data(dominant_fill(rng, a.nnzb, 11, 32).astype(np.complex64))
-    b = b.with_data((rng.standard_normal((b.nnzb, 32, 32, 2)) @ [1, 1j])
-                    .astype(np.complex64))
+    a, x, b = golden_c_problem()
     s = Solver(a, x, b, precision="c", device=dev)
     if s.engine != "pallas":
         raise RuntimeError(f"auto picked {s.engine} for the golden 'c' plan")
@@ -124,6 +123,15 @@ def main():
     profile_solve("golden-class 'c' (row-tile), 10 fixed iterations", s, 0.0,
                   10, RowTileMultiply, "rowtile_spmm_kernel")
     print(f"[golden-class 'c'] peak device memory "
+          f"{torch.cuda.max_memory_allocated(dev) / 2**30:.3f} GiB", flush=True)
+
+    s = Solver(a, x, b, precision="c", engine="pairs", device=dev)
+    if s._gp is None or s._gp.group_size != 8:
+        raise RuntimeError("the golden 'c' pairs plan is not grouped by 8")
+    torch.cuda.reset_peak_memory_stats(dev)
+    profile_solve("golden-class 'c' (packed pairs, G 8), 10 fixed iterations",
+                  s, 0.0, 10, PairPanelMultiply, "pairpanel_tiles_kernel")
+    print(f"[golden-class 'c' pairs] peak device memory "
           f"{torch.cuda.max_memory_allocated(dev) / 2**30:.3f} GiB", flush=True)
 
 
