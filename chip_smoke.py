@@ -9,11 +9,15 @@ two for each:
 1. the device: the card's name and power limit, the CUDA version, the
    kernel build time;
 2. the pair-plan kernel K1 against its plain PyTorch version on the card,
-   at all 15 allowed block sizes in 'z' and 'c' and on the golden-class
-   plan (maxdev <= 1e-12 for 'z', <= 1e-4 for 'c', relative to the largest
-   entry), K1's and the plain version's times per multiply at the
-   golden-class and the FD shape, and the library yardstick (a complex128
-   BSR ``torch.sparse.mm``);
+   at all 15 allowed block sizes in 'z' and 'c' ('z' also under every warp
+   grid of its tile schedule) and on the golden-class plan (maxdev <= 1e-12
+   for 'z', <= 1e-4 for 'c', relative to the largest entry; the same bits
+   on a repeated launch); at the golden class the schedule's tile (R x W
+   blocks), the bytes it stages per multiply, K1's time, TFlop/s and share
+   of the bound, the plain version's time and the library yardstick (a
+   complex128 BSR ``torch.sparse.mm``); at the FD shape K1's device time
+   (``torch.profiler``) and the dispatch-bound times of K1 and the plain
+   version;
 3. the FD rtb=12.75 'z' solve through ``bsrsv_z`` on the card, twice: it
    must converge to 1e-9, match the generator's dense reference to 1e-5,
    send every multiply through K1 and repeat its iteration count;
@@ -52,9 +56,12 @@ two for each:
    maxdev against the dense reference and wall are printed, not gated.
 
 Then one JSON line on the kernels (time, launches on their path, bound,
-plain and library times) and, last, one JSON line on the device.  Any
-failed check raises, and the script exits non-zero.  It needs CUDA and
-runs nothing on the CPU in its place.
+plain and library times; for K1 also the bytes staged) and, last, one JSON
+line on the device.  K1's times in phase 2 are CUDA events around 20
+calls issued back to back; every other time is the median of 20 single
+calls, each timed with CUDA events.  Any failed check raises, and the
+script exits non-zero.  It needs CUDA and runs nothing on the CPU in its
+place.
 """
 
 from __future__ import annotations
@@ -289,71 +296,133 @@ def _time_ms(fn, reps: int = 20, warm: int = 3) -> float:
     return statistics.median(times)
 
 
+def _burst_ms(fn, reps: int = 20, warm: int = 3) -> float:
+    """Time of one call (ms): CUDA events around ``reps`` calls issued back
+    to back, after ``warm`` calls, so that no call's host dispatch is
+    inside unless it outlasts the device work (the FD shape)."""
+    for _ in range(warm):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def _kernel_ms(fn, kernel: str, reps: int = 50) -> float:
+    """Mean device duration (ms) of the kernels named ``kernel`` over
+    ``reps`` calls, from ``torch.profiler``: the kernel's own time where the
+    host dispatch of a call outlasts it."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = [e.time_range.elapsed_us() for e in prof.events()
+          if e.device_type == torch.autograd.DeviceType.CUDA
+          and kernel in e.name]
+    require(len(us) == reps, f"the profiler saw {len(us)} {kernel} launches "
+            f"for {reps} calls")
+    return sum(us) / reps / 1e3
+
+
 def phase_kernel(dev, fd):
     from tfqmrgpu_tpu_torch import ALLOWED_BLOCK_SIZES, create_plan
-    from tfqmrgpu_tpu_torch.ops.pairpanel import PairPlanMultiply
+    from tfqmrgpu_tpu_torch.ops import pairpanel as pp
 
     gates = {"z": (torch.float64, 1e-12), "c": (torch.float32, 1e-4)}
     rng = np.random.default_rng(2024)
     worst = {"z": 0.0, "c": 0.0}
+    ngrids = 0
+
+    def check(mult, xp, what, gate):
+        got = mult(xp)
+        again = mult(xp)
+        rel, abs_err = _maxdev(got, mult.plain(xp))
+        torch.cuda.synchronize()
+        require(rel <= gate, f"{what} maxdev {rel:.3e} > {gate}")
+        require(all(torch.equal(p, q) for p, q in zip(got, again)),
+                f"{what}: repeated launch differs")
+        return rel, abs_err
+
     for lm, ln in ALLOWED_BLOCK_SIZES:
         a, x, b = random_problem(rng, mb=24, lm=lm, ln=ln, ncols=5)
         plan = create_plan(a, x, b, device=dev)
         av = rng.standard_normal((plan.nnzb_a, lm, lm, 2)) @ [1, 1j]
         xv = rng.standard_normal((plan.nnzb_x, lm, ln, 2)) @ [1, 1j]
         for prec, (dtype, gate) in gates.items():
-            mult = PairPlanMultiply(plan, *planes(av, dtype, dev), ln)
-            xp = planes(xv, dtype, dev)
-            rel, _ = _maxdev(mult(xp), mult.plain(xp))
-            torch.cuda.synchronize()
-            require(rel <= gate, f"({lm},{ln}) '{prec}' maxdev {rel:.3e} > {gate}")
-            worst[prec] = max(worst[prec], rel)
+            ap, xp = planes(av, dtype, dev), planes(xv, dtype, dev)
+            # 'z': the rule's tile schedule, then every warp grid of the size
+            grids = [None] + (pp.warp_grids(lm, ln) if prec == "z" else [])
+            for grid in grids:
+                mult = pp.PairPlanMultiply(plan, *ap, ln, grid=grid)
+                rel, _ = check(mult, xp, f"({lm},{ln}) '{prec}' grid {grid}",
+                               gate)
+                worst[prec] = max(worst[prec], rel)
+                ngrids += grid is not None
 
     plan = create_plan(*golden_class_patterns(), device=dev)
     av, xv = cos_sin(plan.nnzb_a, 32, 32), cos_sin(plan.nnzb_x, 32, 32)
     golden = {}
     for prec, (dtype, gate) in gates.items():
-        mult = PairPlanMultiply(plan, *planes(av, dtype, dev), 32)
+        mult = pp.PairPlanMultiply(plan, *planes(av, dtype, dev), 32)
         xp = planes(xv, dtype, dev)
-        rel, abs_err = _maxdev(mult(xp), mult.plain(xp))
-        require(rel <= gate, f"golden '{prec}' maxdev {rel:.3e} > {gate}")
-        golden[prec] = (rel, abs_err, mult, xp)
-    print(f"phase 2 kernel vs plain: 15 block sizes, worst maxdev z "
-          f"{worst['z']:.3e} c {worst['c']:.3e}; golden-class "
-          f"({plan.n_pairs} pairs) z {golden['z'][0]:.3e} c "
-          f"{golden['c'][0]:.3e}", flush=True)
+        golden[prec] = check(mult, xp, f"golden '{prec}'", gate) + (mult, xp)
+    print(f"phase 2 kernel vs plain: 15 block sizes ('z' also at {ngrids} "
+          f"warp grids), worst maxdev z {worst['z']:.3e} c "
+          f"{worst['c']:.3e}; golden-class ({plan.n_pairs} pairs) z "
+          f"{golden['z'][0]:.3e} c {golden['c'][0]:.3e}; repeated launches "
+          f"bit-identical", flush=True)
 
     _, abs_err, mult, xp = golden["z"]
-    ms, plain_ms = _time_ms(lambda: mult(xp)), _time_ms(lambda: mult.plain(xp))
+    sched = mult.schedule
+    ms = _burst_ms(lambda: mult(xp))
+    plain_ms = _burst_ms(lambda: mult.plain(xp))
     xpan, lay = x_panel(plan, 32, 32, xv, torch.float64, dev)
     want = tuple(torch.from_numpy(lay.pack_x(y.cpu().numpy())).to(dev)
                  for y in mult.plain(xp))
     lib, why = library_product(plan, av, xpan, torch.complex128, want, 1e-12)
-    library_ms = _time_ms(lib) if lib else None
+    library_ms = _burst_ms(lib) if lib else None
+    flops = plan.n_pairs * 8.0 * 32 ** 3
     bound_ms, bound_by = bound(
         16 * (plan.nnzb_a * 32 * 32 + 2 * plan.nnzb_x * 32 * 32)
-        + 4 * (plan.nnzb_x + 1 + 2 * plan.n_pairs),
-        plan.n_pairs * 8.0 * 32 ** 3)
+        + 4 * (plan.nnzb_x + 1 + 2 * plan.n_pairs), flops)
     fplan = create_plan(fd.a, fd.x, fd.b, device=dev)
     fa = fd.a_with_data().data
-    fmult = PairPlanMultiply(fplan, *planes(fa, torch.float64, dev), 8)
+    fmult = pp.PairPlanMultiply(fplan, *planes(fa, torch.float64, dev), 8)
     fx = planes(rng.standard_normal((fplan.nnzb_x, 8, 8, 2)) @ [1, 1j],
                 torch.float64, dev)
-    frel, _ = _maxdev(fmult(fx), fmult.plain(fx))
-    require(frel <= 1e-12, f"FD-shape maxdev {frel:.3e}")
-    fd_ms = _time_ms(lambda: fmult(fx))
-    fd_plain_ms = _time_ms(lambda: fmult.plain(fx))
-    print(f"phase 2 timing ('z', median of 20): golden-class kernel "
-          f"{ms:.4f} ms, plain {plain_ms:.4f} ms; FD rtb=12.75 "
-          f"({fplan.n_pairs} pairs) kernel {fd_ms:.4f} ms, plain "
-          f"{fd_plain_ms:.4f} ms", flush=True)
+    check(fmult, fx, "FD shape", 1e-12)
+    fd_ms = _burst_ms(lambda: fmult(fx))
+    fd_plain_ms = _burst_ms(lambda: fmult.plain(fx))
+    fd_kernel_ms = _kernel_ms(lambda: fmult(fx), "pairpanel_spmm_mma_kernel")
+    fs = fmult.schedule
+    print(f"phase 2 golden-class 'z': tiles of {sched.rows} x {sched.cols} "
+          f"blocks ({sched.warps_m} x {sched.warps_n} warps, {sched.ntiles} "
+          f"tiles), {sched.staged_bytes / 1e6:.1f} MB staged per multiply "
+          f"(one pair at a time: {16 * 2 * 32 * 32 * plan.n_pairs / 1e6:.1f} "
+          f"MB); K1 {ms:.4f} ms ({flops / ms / 1e9:.2f} TFlop/s, "
+          f"{100 * bound_ms / ms:.1f}% of the bound), plain {plain_ms:.4f} "
+          f"ms (CUDA events, 20 calls back to back)", flush=True)
+    print(f"phase 2 FD rtb=12.75 'z' ({fplan.n_pairs} pairs, tiles of "
+          f"{fs.rows} x {fs.cols}, {fs.ntiles} tiles): K1 {fd_kernel_ms:.4f} "
+          f"ms of device time (torch.profiler); {fd_ms:.4f} ms a call "
+          f"back to back (host dispatch), plain {fd_plain_ms:.4f} ms",
+          flush=True)
     print(f"phase 2 golden-class 'z' library call (complex128 BSR "
           f"torch.sparse.mm): "
           + (f"{library_ms:.4f} ms" if lib else f"refused: {why}")
           + f"; K1 bound {bound_ms:.4f} ms ({bound_by})", flush=True)
     return dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
-                library_refused=why, fd_ms=fd_ms, fd_plain_ms=fd_plain_ms)
+                library_refused=why, staged_mb=sched.staged_bytes / 1e6,
+                tile=f"{sched.rows} x {sched.cols}", fd_ms=fd_ms,
+                fd_kernel_ms=fd_kernel_ms, fd_plain_ms=fd_plain_ms)
 
 
 def phase_fd(dev, fd):

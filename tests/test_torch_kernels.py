@@ -13,10 +13,11 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (_rowtile_multiply, packed_multiply, planes,
-                        random_problem)
+from chip_smoke import (_rowtile_multiply, golden_class_patterns,
+                        packed_multiply, planes, random_problem)
 from tfqmrgpu_tpu_torch import (ALLOWED_BLOCK_SIZES, Solver, _build,
                                 create_plan, dma_probe)
+from tfqmrgpu_tpu_torch.ops import pairpanel as pp
 from tfqmrgpu_tpu_torch.ops.pairpanel import PairPanelMultiply, PairPlanMultiply
 from tfqmrgpu_tpu_torch.ops.pallas_spmm import RowTileMultiply
 
@@ -69,23 +70,31 @@ def test_cpu_multiply_never_builds(monkeypatch):
 @pytest.mark.cuda
 @pytest.mark.parametrize("precision", ["z", "c"])
 def test_kernel_matches_plain_on_card(precision):
+    """K1 at all 15 block sizes and the golden class; in 'z' under the
+    rule's tile schedule and every other warp grid of the size."""
     _needs_card()
     dtype, gate = GATES[precision]
     rng = np.random.default_rng(1)
-    for lm, ln in ALLOWED_BLOCK_SIZES:
-        plan = create_plan(*random_problem(rng, mb=12, lm=lm, ln=ln, ncols=3),
-                           device="cuda")
+    cases = [(create_plan(*random_problem(rng, mb=12, lm=lm, ln=ln, ncols=3),
+                          device="cuda"), lm, ln)
+             for lm, ln in ALLOWED_BLOCK_SIZES]
+    cases.append((create_plan(*golden_class_patterns(), device="cuda"), 32, 32))
+    for plan, lm, ln in cases:
         av = rng.standard_normal((plan.nnzb_a, lm, lm, 2)) @ [1, 1j]
         xv = rng.standard_normal((plan.nnzb_x, lm, ln, 2)) @ [1, 1j]
-        mult = PairPlanMultiply(plan, *planes(av, dtype, "cuda"), ln)
-        x = planes(xv, dtype, "cuda")
-        before = PairPlanMultiply.launches
-        got = mult(x)
-        torch.cuda.synchronize()
-        assert PairPlanMultiply.launches == before + 1
-        assert _maxdev(got, mult.plain(x)) <= gate, (lm, ln)
-        again = mult(x)                            # no atomics: same bits
-        assert torch.equal(again[0], got[0]) and torch.equal(again[1], got[1])
+        grids = [None] + (pp.warp_grids(lm, ln) if precision == "z" else [])
+        for grid in grids:
+            mult = PairPlanMultiply(plan, *planes(av, dtype, "cuda"), ln,
+                                    grid=grid)
+            x = planes(xv, dtype, "cuda")
+            before = PairPlanMultiply.launches
+            got = mult(x)
+            torch.cuda.synchronize()
+            assert PairPlanMultiply.launches == before + 1
+            assert _maxdev(got, mult.plain(x)) <= gate, (lm, ln, grid)
+            again = mult(x)                        # no atomics: same bits
+            assert torch.equal(again[0], got[0]) and torch.equal(again[1],
+                                                                 got[1])
 
 
 @pytest.mark.cuda

@@ -30,9 +30,12 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # name -> argtypes; every kernel returns a cudaError_t as int (0 = success)
 SIGNATURES = {
+    # a_re, a_im, x_re, x_im, tile_steps, tile_y, step_a, step_x,
+    # step_mask, y_re, y_im, ntiles, lm, ln, warps_m, warps_n, rows, cols,
+    # stream
+    "tfq_pairpanel_spmm_f64": [_P] * 11 + [_I] * 7 + [_P],
     # a_re, a_im, x_re, x_im, starts, pair_a, pair_x, y_re, y_im,
     # nnzb_y, lm, ln, stream
-    "tfq_pairpanel_spmm_f64": [_P] * 9 + [_I] * 3 + [_P],
     "tfq_pairpanel_spmm_f32": [_P] * 9 + [_I] * 3 + [_P],
     # a_panels, xloc, x, y, ntiles, rlm, ku, lm, c, n_rows, stream
     "tfq_pairpanel_tiles_f32": [_P] * 4 + [_I] * 6 + [_P],

@@ -8,8 +8,12 @@ computes what the TPU kernel ``_make_call.kernel`` (line 1770) computes,
 
     Y[iY] = sum_{p in [starts[iY], starts[iY+1])}  A[pair_a[p]] @ X[pair_x[p]]
 
-over the plan's pair table as it is, on the vectors' own (re, im) block
-planes, in native FP64 (the H100 has it; the TPU needed Ozaki slices).
+on the vectors' own (re, im) block planes, in native FP64 (the H100 has
+it; the TPU needed Ozaki slices).  In 'z' the kernel runs a plan-time tile
+schedule (``tile_schedule``: tiles of R block rows x W block columns, each
+A and X block staged once per tile) on the FP64 tensor cores; in 'c' it
+walks the pair table itself.  ``spmm_schedule`` is the schedule's plain
+walker, for the tests.
 
 **'c' (K2).**  As in the JAX package, the pair list is packed once on the
 host (pattern only):
@@ -78,10 +82,217 @@ FP32_FLOPS_PER_S = 67e12
 GROUP_TIE = 1e-3
 
 
-# ================================================================ K1 ('z')
+# ======================================================= K1's tile schedule
+#
+# In 'z' a CTA of K1 owns a tile of Y blocks: R consecutive block rows x W
+# consecutive compressed columns.  Y index = X index, so Y block (i, c) is
+# X block (i, c).  Step k of a tile multiplies the A blocks (i, k) of its
+# rows, stacked into an [R*LM, LM] slice, with the X blocks (k, c) of its
+# columns, side by side in an [LM, W*LN] slice: one dense product into the
+# tile's [R*LM, W*LN] accumulators, with absent blocks staged as zeros.  A
+# block (i, k) belongs to one row and one k, and X block (k, c) to one k and
+# one column, so each is staged once per tile.  Because create_plan's pair
+# list is the full intersection of the patterns (pair (A(i,k), X(k,c))
+# exists for Y (i,c) whenever all three blocks do), the step's products are
+# exactly the plan's pairs; ``build_tile_schedule`` checks that and raises
+# for a table that is not such a list.
+
+# Streaming multiprocessors the shape rule fills with two tiles each before
+# it makes tiles larger: the H100 SXM's, for a schedule built off the card;
+# on the card the wrapper passes the device's own count.
+SM_COUNT = 132
+# Warps of one K1 CTA in 'z'.  At 64 accumulators a thread, two CTAs of four
+# warps fill an SM's registers, and one CTA's waits at its barriers overlap
+# the other's products.
+MAX_WARPS = 4
+Z_BYTES = 16                      # bytes of one complex128 element
+
+
+def warp_tile(lm: int, ln: int) -> tuple:
+    """(rows, columns) of one warp's part of a K1 'z' tile: whole m16 x n8
+    MMA fragments, at most 32 x 32 (64 accumulators per thread).  The same
+    rule as ``TileGeo`` in ``csrc/pairpanel_spmm.cu``."""
+    return (32 if lm >= 32 else 16,
+            32 if ln >= 32 else -(-ln // 8) * 8)
+
+
+@dataclasses.dataclass
+class TileSchedule:
+    """K1's plan-time tile schedule ('z'), host numpy tables.
+
+    Tile t owns Y slots ``tile_y[t, r*W + w]`` (Y block of its row r and
+    column w, or -1) and runs steps ``tile_steps[t]:tile_steps[t+1]`` in
+    ascending k; step s stages A blocks ``step_a[s, r]`` and X blocks
+    ``step_x[s, w]`` (-1: absent, staged as zeros); bit r of
+    ``step_mask[s]`` says that A slot r is present.  Step s adds
+    A[step_a[s, r]] @ X[step_x[s, w]] to Y slot (r, w) wherever all three
+    are present: those are exactly the plan's pairs."""
+
+    lm: int
+    ln: int
+    warps_m: int
+    warps_n: int
+    rows: int                # R: block rows of a tile
+    cols: int                # W: block columns of a tile
+    tile_steps: np.ndarray   # int32[ntiles + 1]
+    tile_y: np.ndarray       # int32[ntiles, R*W]
+    step_a: np.ndarray       # int32[nsteps, R]
+    step_x: np.ndarray       # int32[nsteps, W]
+    step_mask: np.ndarray    # uint64[nsteps]
+    staged_bytes: int        # complex128 bytes copied to shared memory per multiply
+
+    @property
+    def ntiles(self) -> int:
+        return int(self.tile_y.shape[0])
+
+    @property
+    def nsteps(self) -> int:
+        return int(self.step_a.shape[0])
+
+    def products(self) -> tuple:
+        """(A block, X block, Y block) of every product the schedule runs,
+        in tile, step, row, column order."""
+        r_, w_ = self.rows, self.cols
+        tile = np.repeat(np.arange(self.ntiles), np.diff(self.tile_steps))
+        ys = self.tile_y[tile].reshape(-1, r_, w_)
+        s, r, w = np.nonzero((self.step_a >= 0)[:, :, None]
+                             & (self.step_x >= 0)[:, None, :] & (ys >= 0))
+        return (self.step_a[s, r].astype(np.int64),
+                self.step_x[s, w].astype(np.int64),
+                ys[s, r, w].astype(np.int64))
+
+
+def warp_grids(lm: int, ln: int) -> list:
+    """Every (warps_m, warps_n) grid of one to ``MAX_WARPS`` warps whose tile
+    holds whole block rows (R = warps_m*WTM/LM) and at least one block
+    column (W = warps_n*WTN // LN), largest first."""
+    wtm, wtn = warp_tile(lm, ln)
+    return [(warps // wn, wn)
+            for warps in (4, 2, 1) for wn in (1, 2, 4)
+            if wn <= warps and warps // wn * wtm % lm == 0
+            and wn * wtn // ln >= 1]
+
+
+def tile_shapes(lm: int, ln: int, nrows: int, ncols: int) -> list:
+    """``warp_grids`` less the grids whose half already spans every row or
+    column of an nrows x ncols pattern."""
+    wtm, wtn = warp_tile(lm, ln)
+
+    def rows(wm):   # block rows of a tile wm warps tall; 0 if it splits one
+        return wm * wtm // lm if wm * wtm % lm == 0 else 0
+
+    return [(wm, wn) for wm, wn in warp_grids(lm, ln)
+            if not (wm > 1 and rows(wm // 2) >= max(nrows, 1))
+            and not (wn > 1 and wn // 2 * wtn // ln >= ncols)]
+
+
+def build_tile_schedule(rowptr_x, colindx, starts, pairs, lm: int, ln: int,
+                        shape: tuple) -> TileSchedule:
+    """K1's tile schedule for the warp grid ``shape`` = (warps_m, warps_n).
+
+    ``rowptr_x`` and ``colindx`` give every Y (= X) block's row and
+    compressed column; ``starts`` and ``pairs`` are the plan's pair table.
+    Raises ValueError for a grid that does not fit (LM, LN) or a pair table
+    that is not the full intersection create_plan builds."""
+    warps_m, warps_n = (int(v) for v in shape)
+    if (warps_m, warps_n) not in warp_grids(lm, ln):
+        raise ValueError(f"warp grid {shape} does not fit ({lm}, {ln})")
+    wtm, wtn = warp_tile(lm, ln)
+    r_, w_ = warps_m * wtm // lm, warps_n * wtn // ln
+    rowptr_x = np.asarray(rowptr_x, np.int64)
+    col = np.asarray(colindx, np.int64)
+    starts = np.asarray(starts, np.int64)
+    pairs = np.asarray(pairs, np.int64).reshape(-1, 2)
+    nrows, nnzb = rowptr_x.shape[0] - 1, col.shape[0]
+    row = np.repeat(np.arange(nrows, dtype=np.int64), np.diff(rowptr_x))
+    if row.shape[0] != nnzb or starts.shape[0] != nnzb + 1:
+        raise ValueError("rowptr_x, colindx and starts disagree on nnzb")
+    ntc = -(-(int(col.max()) + 1 if nnzb else 0) // w_)
+
+    _, tile_of_y = np.unique((row // r_) * ntc + col // w_,
+                             return_inverse=True)
+    ntiles = int(tile_of_y.max()) + 1 if nnzb else 0
+    tile_y = np.full((ntiles, r_ * w_), -1, np.int64)
+    tile_y[tile_of_y, (row % r_) * w_ + col % w_] = np.arange(nnzb)
+    if np.count_nonzero(tile_y >= 0) != nnzb:
+        raise ValueError("two Y blocks share a (row, column)")
+
+    pa, px = pairs[:, 0], pairs[:, 1]
+    py = np.repeat(np.arange(nnzb, dtype=np.int64), np.diff(starts))
+    if np.any(col[px] != col[py]):
+        raise ValueError("a pair's X block lies outside its Y block's column")
+    steps, step_of = np.unique(tile_of_y[py] * nrows + row[px],
+                               return_inverse=True)
+    nsteps = steps.shape[0]
+    step_tile = steps // nrows
+    r, w = row[py] % r_, col[py] % w_
+    step_a = np.full((nsteps, r_), -1, np.int64)
+    step_x = np.full((nsteps, w_), -1, np.int64)
+    step_a[step_of, r] = pa
+    step_x[step_of, w] = px
+    va, vx = step_a >= 0, step_x >= 0
+    implied = np.count_nonzero(
+        va[:, :, None] & vx[:, None, :]
+        & (tile_y[step_tile] >= 0).reshape(nsteps, r_, w_))
+    distinct = np.unique((step_of * r_ + r) * w_ + w).shape[0]
+    if (np.any(step_a[step_of, r] != pa) or np.any(step_x[step_of, w] != px)
+            or distinct != pa.shape[0] or implied != pa.shape[0]):
+        raise ValueError("the pair table is not the full pattern "
+                         "intersection create_plan builds")
+    mask = np.bitwise_or.reduce(
+        va.astype(np.uint64) << np.arange(r_, dtype=np.uint64), axis=1)
+    staged = Z_BYTES * (int(va.sum()) * lm * lm + int(vx.sum()) * lm * ln)
+    return TileSchedule(
+        lm=lm, ln=ln, warps_m=warps_m, warps_n=warps_n, rows=r_, cols=w_,
+        tile_steps=np.searchsorted(step_tile, np.arange(ntiles + 1)).astype(
+            np.int32),
+        tile_y=tile_y.astype(np.int32), step_a=step_a.astype(np.int32),
+        step_x=step_x.astype(np.int32), step_mask=mask.astype(np.uint64),
+        staged_bytes=staged)
+
+
+def tile_schedule(plan, lm: int, ln: int, grid: tuple = None,
+                  sm_count: int = SM_COUNT) -> TileSchedule:
+    """The schedule K1 runs for ``plan`` in 'z': under the warp grid
+    ``grid`` if one is given, else by the rule.  The rule: the most warps
+    per tile whose tiles still fill every one of ``sm_count`` SMs twice, the
+    fewest if none does; of the grids of that many warps (tiles of the same
+    area), the one with the fewest steps, that is the least padded product
+    work, then the fewest staged bytes."""
+    col = plan.colindx.cpu().numpy()
+    args = (plan.rowptr_x, col, plan.starts.cpu().numpy(),
+            plan.pairs.cpu().numpy(), lm, ln)
+    if grid is not None:
+        return build_tile_schedule(*args, grid)
+    cands = [build_tile_schedule(*args, shape)
+             for shape in tile_shapes(lm, ln, plan.nrows, int(col.max()) + 1)]
+    warps = max((s.warps_m * s.warps_n for s in cands
+                 if s.ntiles >= 2 * sm_count),
+                default=min(s.warps_m * s.warps_n for s in cands))
+    return min((s for s in cands if s.warps_m * s.warps_n == warps),
+               key=lambda s: (s.nsteps, s.staged_bytes))
+
+
+def spmm_schedule(a: Pair, x: Pair, sched: TileSchedule, nnzb_y: int) -> Pair:
+    """Plain PyTorch walk of K1's tile schedule: every product it lists,
+    four real batched products and an ``index_add_`` into Y.  The tests
+    hold the schedule against the JAX package with it; the main path never
+    calls it."""
+    dev = a[0].device
+    ia, ix, iy = (torch.from_numpy(v).to(dev) for v in sched.products())
+    return spmm_pairs(a, x, ia, ix, iy, nnzb_y)
+
+
+# ================================================================ K1
 
 class PairPlanMultiply:
     """``y = A @ x`` over a plan's pair table, with A held on the device.
+
+    In 'z' (float64) the kernel runs the plan's tile schedule, built once
+    here by ``tile_schedule`` (under the warp grid ``grid``, by default the
+    rule's, for the SMs of A's device) and uploaded; in 'c' (float32) it
+    walks the pair table itself.  On a CPU tensor the plain version
+    (``spmm_pairs``) runs instead.
 
     ``launches`` counts the kernel's launches by every instance in this
     process, so that a run can show that its multiplies went through the
@@ -90,7 +301,8 @@ class PairPlanMultiply:
 
     launches: int = 0
 
-    def __init__(self, plan, a_re: torch.Tensor, a_im: torch.Tensor, ln: int):
+    def __init__(self, plan, a_re: torch.Tensor, a_im: torch.Tensor, ln: int,
+                 grid: tuple = None):
         self.lm = int(a_re.shape[1])
         self.ln = int(ln)
         self.nnzb_x = plan.nnzb_x
@@ -117,6 +329,19 @@ class PairPlanMultiply:
         self.pair_a = plan.pairs[:, 0].contiguous()
         self.pair_x = plan.pairs[:, 1].contiguous()
         self.pair_y = plan.pair_y()
+        self.schedule = None
+        if a_re.dtype == torch.float64:
+            sm_count = (torch.cuda.get_device_properties(dev)
+                        .multi_processor_count if dev.type == "cuda"
+                        else SM_COUNT)
+            s = tile_schedule(plan, self.lm, self.ln, grid, sm_count)
+            self.schedule = s
+            self._tables = tuple(
+                torch.from_numpy(np.ascontiguousarray(t)).to(dev)
+                for t in (s.tile_steps, s.tile_y, s.step_a, s.step_x,
+                          s.step_mask.view(np.int64)))
+        elif grid is not None:
+            raise ValueError("a warp grid applies to the 'z' kernel only")
 
     @property
     def device(self) -> torch.device:
@@ -152,13 +377,25 @@ class PairPlanMultiply:
         fn = getattr(load_kernels(), _ENTRY[self.a_re.dtype])
         y_re = torch.empty_like(x[0])
         y_im = torch.empty_like(x[1])
+        planes = (self.a_re, self.a_im, x[0], x[1])
         with torch.cuda.device(self.device):
             stream = torch.cuda.current_stream(self.device).cuda_stream
-            rc = fn(self.a_re.data_ptr(), self.a_im.data_ptr(),
-                    x[0].data_ptr(), x[1].data_ptr(), self.starts.data_ptr(),
-                    self.pair_a.data_ptr(), self.pair_x.data_ptr(),
-                    y_re.data_ptr(), y_im.data_ptr(), self.nnzb_x, self.lm,
-                    self.ln, stream)
+            s = self.schedule
+            if s is None:
+                rc = fn(*(t.data_ptr() for t in planes),
+                        self.starts.data_ptr(), self.pair_a.data_ptr(),
+                        self.pair_x.data_ptr(), y_re.data_ptr(),
+                        y_im.data_ptr(), self.nnzb_x, self.lm, self.ln,
+                        stream)
+            elif any(t.data_ptr() % 16 for t in planes):
+                raise ValueError("the 'z' kernel copies A and x in 16-byte "
+                                 "pieces: their planes must be 16-byte "
+                                 "aligned")
+            else:
+                rc = fn(*(t.data_ptr() for t in planes + self._tables),
+                        y_re.data_ptr(), y_im.data_ptr(), s.ntiles, self.lm,
+                        self.ln, s.warps_m, s.warps_n, s.rows, s.cols,
+                        stream)
         if rc != 0:
             raise TfqmrgpuError(encode_status(Status.LAUNCH_FAILED),
                                 f"pair-plan kernel returned {rc}")

@@ -100,7 +100,7 @@ def main():
     s = Solver(fd.a_with_data(), fd.x, fd.b_with_data(), precision="z",
                device=dev)
     profile_solve("FD rtb=12.75", s, 1e-9, 2000, PairPlanMultiply,
-                  "pairpanel_spmm_kernel")
+                  "pairpanel_spmm_mma_kernel")
 
     rng = np.random.default_rng(281)
     a, x, b = golden_class_patterns()
@@ -109,7 +109,7 @@ def main():
     s = Solver(a, x, b, precision="z", device=dev)
     torch.cuda.reset_peak_memory_stats(dev)
     profile_solve("golden-class 'z', 20 fixed iterations", s, 0.0, 20,
-                  PairPlanMultiply, "pairpanel_spmm_kernel")
+                  PairPlanMultiply, "pairpanel_spmm_mma_kernel")
     print(f"[golden-class 'z'] peak device memory "
           f"{torch.cuda.max_memory_allocated(dev) / 2**30:.3f} GiB", flush=True)
 
