@@ -25,9 +25,14 @@ two for each:
    an independent residual |A X - B| / |B| < 1e-8, and its time per
    iteration over 20 fixed iterations;
 5. the row-tile kernel K3 against its plain version at all 15 block sizes
-   with r_tile 1 and 4, and on the golden-class plan with cos/sin data
-   (maxdev <= 1e-4), the same bits on a repeated launch, and K3's, the
-   plain version's and the library call's (complex64 BSR) times;
+   with r_tile 1 and 4, at the shapes its staged design adds (wide planes
+   of 81, 65 and 70 columns, which take the 4-byte copy branch; 1, 2, 4 and
+   8 tiles side by side in a unit; an x that is not 16-byte aligned; work
+   lists dealt to 1, 7 and units/2 CTAs: all the same bits), and on the
+   golden-class plan with cos/sin data (maxdev <= 1e-4), the same bits on a
+   repeated launch, and K3's device time, back-to-back time and
+   single-call median, the plain version's and the library call's
+   (complex64 BSR) times;
 6. the golden-class 'c' solve through ``Solver(engine='auto')``, which
    must take the row-tile engine (r_tile 2, ku 12), converge to 1e-5 with
    every multiply through K3, and pass an independent float64 residual
@@ -41,11 +46,12 @@ two for each:
    the ``copy_`` yardstick;
 9. the packed pair-plan kernel K2 against its plain version on random
    plans at all 15 block sizes x column groups (1, 2) x r_tile (1, 2), at
-   512 lanes per plane, and on the FD rtb=12.75 fine pack (maxdev <= 1e-4, the same bits on a
-   repeated launch), and at the golden class with cos/sin data at
-   G = 1, 2, 4, 8: K2's and the plain version's times, the G the solver's
-   rule picks and the fastest G; beside them K1 in 'c' on the plain pair
-   table and the library call (complex64 BSR);
+   512 lanes per plane, at the added shapes of phase 5, and on the FD
+   rtb=12.75 fine pack (maxdev <= 1e-4, the same bits on a repeated
+   launch), and at the golden class with cos/sin data at G = 1, 2, 4, 8:
+   K2's device, back-to-back and single-call times and the plain
+   version's, the G the solver's rule picks and the fastest G; beside them
+   K1 in 'c' on the plain pair table and the library call (complex64 BSR);
 10. the golden-class 'c' solve through ``Solver(engine='pairs')``, which
    must pack with G = 8, converge to 1e-5 with every multiply through K2
    and pass the independent float64 residual < 1e-4; its time per
@@ -56,9 +62,11 @@ two for each:
    maxdev against the dense reference and wall are printed, not gated.
 
 Then one JSON line on the kernels (time, launches on their path, bound,
-plain and library times; for K1 also the bytes staged) and, last, one JSON
-line on the device.  K1's times in phase 2 are CUDA events around 20
-calls issued back to back; every other time is the median of 20 single
+plain and library times; for K1 also the bytes staged, for K2 and K3 also
+``kernel_ms`` and ``burst_ms``) and, last, one JSON line on the device.
+K1's times in phase 2 are CUDA events around 20 calls issued back to back
+(``burst_ms`` for K2 and K3); ``kernel_ms`` is the kernel's device time
+from ``torch.profiler``; every other time is the median of 20 single
 calls, each timed with CUDA events.  Any failed check raises, and the
 script exits non-zero.  It needs CUDA and runs nothing on the CPU in its
 place.
@@ -196,10 +204,11 @@ def library_product(plan, a_blocks: np.ndarray, xp: tuple, cdtype,
 # --------------------------------------------------------------- phases
 
 def packed_multiply(plan, lm: int, ln: int, av: np.ndarray, xv: np.ndarray,
-                    dev, group: int = 1, r_tile: int = 1):
+                    dev, group: int = 1, r_tile: int = 1, slots: int = None):
     """PairPanelMultiply (K2) on ``dev`` over the plan's packed pairs at
-    column group size ``group`` and ``r_tile``, the fused X panel of the
-    complex blocks ``xv``, and the packed plan."""
+    column group size ``group`` and ``r_tile`` (its work list dealt to
+    ``slots`` CTAs, by default those the card holds at once), the fused X
+    panel of the complex blocks ``xv``, and the packed plan."""
     from tfqmrgpu_tpu_torch.ops import pairpanel as pp
 
     pairs = plan.pairs.cpu().numpy().astype(np.int64)
@@ -222,8 +231,8 @@ def packed_multiply(plan, lm: int, ln: int, av: np.ndarray, xv: np.ndarray,
                                   plan.nnzb_x, plan.nnzb_x, lm, ln,
                                   r_tile=r_tile, row_of=row_of, col_of=cols)
     a_re, a_im = planes(av, torch.float32, dev)
-    mult = pp.PairPanelMultiply(pplan, pp.build_a_panels_device(pplan, a_re,
-                                                                a_im))
+    mult = pp.PairPanelMultiply(
+        pplan, pp.build_a_panels_device(pplan, a_re, a_im), slots=slots)
     x = torch.from_numpy(pp.permute_x(pplan, xre, xim)).to(dev)
     return mult, x, pplan
 
@@ -315,7 +324,8 @@ def _burst_ms(fn, reps: int = 20, warm: int = 3) -> float:
 def _kernel_ms(fn, kernel: str, reps: int = 50) -> float:
     """Mean device duration (ms) of the kernels named ``kernel`` over
     ``reps`` calls, from ``torch.profiler``: the kernel's own time where the
-    host dispatch of a call outlasts it."""
+    host dispatch of a call outlasts it.  The trace may lose a few of the
+    events; the mean is over those it kept, at least half."""
     fn()
     torch.cuda.synchronize()
     with torch.profiler.profile(
@@ -326,9 +336,9 @@ def _kernel_ms(fn, kernel: str, reps: int = 50) -> float:
     us = [e.time_range.elapsed_us() for e in prof.events()
           if e.device_type == torch.autograd.DeviceType.CUDA
           and kernel in e.name]
-    require(len(us) == reps, f"the profiler saw {len(us)} {kernel} launches "
-            f"for {reps} calls")
-    return sum(us) / reps / 1e3
+    require(reps // 2 <= len(us) <= reps, f"the profiler saw {len(us)} "
+            f"{kernel} launches for {reps} calls")
+    return sum(us) / len(us) / 1e3
 
 
 def phase_kernel(dev, fd):
@@ -488,9 +498,10 @@ def phase_golden(dev, mb: int = 281, ncols: int = 16, deg: int = 11,
           f"{timed_iterations} iterations", flush=True)
 
 
-def _rowtile_multiply(plan, lm, ln, av, xv, dev, r_tile=None):
+def _rowtile_multiply(plan, lm, ln, av, xv, dev, r_tile=None, slots=None):
     """RowTileMultiply on ``dev`` over the plan's pack (the solver's choice,
-    or ``r_tile``), and the X panel of ``xv``."""
+    or ``r_tile``; its work list dealt to ``slots`` CTAs, by default those
+    the card holds at once), and the X panel of ``xv``."""
     from tfqmrgpu_tpu_torch.ops.pallas_spmm import (
         RowTileMultiply, build_a_panels_device, choose_row_tile,
         pack_row_tiles)
@@ -501,8 +512,56 @@ def _rowtile_multiply(plan, lm, ln, av, xv, dev, r_tile=None):
                            r_tile))
     a_re, a_im = planes(av, torch.float32, dev)
     mult = RowTileMultiply(pack, build_a_panels_device(pack, a_re),
-                           build_a_panels_device(pack, a_im), lay.mask, ln)
+                           build_a_panels_device(pack, a_im), lay.mask, ln,
+                           slots=slots)
     return mult, xp, pack
+
+
+# The shapes the staged design of K2 and K3 adds, as (LM, LN, block columns
+# or group size, r_tile): wide planes whose lanes are no multiple of 4
+# (c = 81, 65, 70: the 4-byte X copies), and 1, 2, 4 and 8 tiles side by
+# side in a 64-row unit.
+STAGED_SHAPES = ((8, 9, 9, 1), (4, 5, 13, 2), (8, 10, 7, 4), (32, 32, 2, 2),
+                 (32, 32, 2, 1), (16, 16, 4, 1), (8, 8, 8, 1))
+
+
+def _as_tuple(v) -> tuple:
+    return v if isinstance(v, tuple) else (v,)
+
+
+def _misaligned(t: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of ``t`` that starts 4 bytes past a 16-byte
+    boundary, which rules out the kernels' 16-byte X copies."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+def check_staged(make, what: str, gate: float = 1e-4) -> float:
+    """K2 or K3 at one shape, ``make(slots)`` giving (multiply, x): against
+    its plain version, the same bits on a repeated launch, from an x that
+    is not 16-byte aligned (the 4-byte copy branch), and from work lists
+    dealt to 1 CTA, to 7, and to half as many CTAs as there are units (a
+    unit count that is and is not a multiple of the slots).  Returns the
+    maxdev."""
+    mult, x = make(None)
+    got = _as_tuple(mult(x))
+    rel, _ = _maxdev(got, _as_tuple(mult.plain(x)))
+    require(rel <= gate, f"{what} maxdev {rel:.3e} > {gate}")
+    u = mult.units
+    units = u.ngroups * u.row_blocks * -(-mult.launch_tables.c
+                                         // mult.launch_tables.bn)
+    runs = [("repeated", mult, x),
+            ("misaligned x", mult, tuple(_misaligned(v) for v in x)
+             if isinstance(x, tuple) else _misaligned(x))]
+    runs += [(f"{n} slots", *make(n)) for n in (1, 7, max(units // 2, 1))]
+    for label, m, xs in runs:
+        again = _as_tuple(m(xs))
+        torch.cuda.synchronize()
+        require(all(torch.equal(p, q) for p, q in zip(got, again)),
+                f"{what}: {label} differs in bits")
+    return rel
 
 
 def phase_rowtile(dev):
@@ -528,6 +587,22 @@ def phase_rowtile(dev):
                     f"K3 ({lm},{ln}) r_tile {r_tile}: repeated launch differs")
             worst = max(worst, rel)
 
+    side = set()
+    for lm, ln, ncols, r_tile in STAGED_SHAPES:
+        a, x, b = random_problem(rng, mb=24, lm=lm, ln=ln, ncols=ncols)
+        plan = create_plan(a, x, b, device=dev)
+        av = rng.standard_normal((plan.nnzb_a, lm, lm, 2)) @ [1, 1j]
+        xv = rng.standard_normal((plan.nnzb_x, lm, ln, 2)) @ [1, 1j]
+
+        def make(slots):
+            return _rowtile_multiply(plan, lm, ln, av, xv, dev, r_tile,
+                                     slots)[:2]
+
+        worst = max(worst, check_staged(
+            make, f"K3 ({lm},{ln}) x {ncols} columns, r_tile {r_tile}"))
+        side.add(make(None)[0].units.nt)
+    require(side >= {1, 2, 4, 8}, f"K3 tiles side by side: {sorted(side)}")
+
     plan = create_plan(*golden_class_patterns(), device=dev)
     av, xv = cos_sin(plan.nnzb_a, 32, 32), cos_sin(plan.nnzb_x, 32, 32)
     mult, xp, pack = _rowtile_multiply(plan, 32, 32, av, xv, dev)
@@ -538,11 +613,15 @@ def phase_rowtile(dev):
     require(rel <= gate, f"K3 golden maxdev {rel:.3e} > {gate}")
     require(all(torch.equal(p, q) for p, q in zip(got, again)),
             "K3 golden: repeated launch differs")
-    print(f"phase 5 K3 vs plain: 15 block sizes x r_tile (1, 4), worst maxdev "
-          f"{worst:.3e}; golden-class (r_tile {pack.r_tile}, ku {pack.ku}, "
-          f"{pack.ntiles} tiles) {rel:.3e}; repeated launches bit-identical",
-          flush=True)
+    print(f"phase 5 K3 vs plain: 15 block sizes x r_tile (1, 4) and "
+          f"{len(STAGED_SHAPES)} added shapes (c = 81, 65, 70 by 4-byte copies; 1, 2, "
+          f"4, 8 tiles a unit; misaligned x; work lists for 1, 7 and "
+          f"units/2 CTAs: the same bits), worst maxdev {worst:.3e}; "
+          f"golden-class (r_tile {pack.r_tile}, ku {pack.ku}, {pack.ntiles} "
+          f"tiles) {rel:.3e}; repeated launches bit-identical", flush=True)
     ms, plain_ms = _time_ms(lambda: mult(xp)), _time_ms(lambda: mult.plain(xp))
+    kernel_ms = _kernel_ms(lambda: mult(xp), "rowtile_spmm_kernel")
+    burst_ms = _burst_ms(lambda: mult(xp))
     lib, why = library_product(plan, av, xp, torch.complex64, mult.plain(xp),
                                gate)
     library_ms = _time_ms(lib) if lib else None
@@ -552,13 +631,17 @@ def phase_rowtile(dev):
     bound_ms, bound_by = bound(
         8 * (plan.nnzb_a * 32 * 32 + 2 * nr * c)
         + 4 * pack.xcols.size + plan.nrows * plan.ncols, flops)
-    print(f"phase 5 timing ('c', golden-class, median of 20): K3 {ms:.4f} ms "
-          f"({flops / ms / 1e9:.2f} TFlop/s), plain {plain_ms:.4f} ms, "
-          f"library (complex64 BSR torch.sparse.mm) "
+    print(f"phase 5 timing ('c', golden-class): K3 {kernel_ms:.4f} ms of "
+          f"device time ({flops / kernel_ms / 1e9:.2f} TFlop/s, "
+          f"{100 * bound_ms / kernel_ms:.1f}% of the bound), {burst_ms:.4f} "
+          f"ms a call back to back, {ms:.4f} ms median of 20 single calls; "
+          f"plain {plain_ms:.4f} ms, library (complex64 BSR "
+          f"torch.sparse.mm) "
           + (f"{library_ms:.4f} ms" if lib else f"refused: {why}")
           + f"; bound {bound_ms:.4f} ms ({bound_by})", flush=True)
-    return dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
+    return dict(max_abs_err=abs_err, ms=ms, kernel_ms=kernel_ms,
+                burst_ms=burst_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=library_ms,
                 library_refused=why)
 
 
@@ -688,6 +771,21 @@ def phase_packed(dev, fd):
         xv = rng.standard_normal((plan.nnzb_x, lm, ln, 2)) @ [1, 1j]
         mult, xf, _ = packed_multiply(plan, lm, ln, av, xv, dev, group)
         worst = max(worst, check(mult, xf, f"({lm},{ln}) G {group}")[0])
+    side = set()
+    for lm, ln, group, r_tile in STAGED_SHAPES:
+        a, x, b = random_problem(rng, mb=24, lm=lm, ln=ln, ncols=group)
+        plan = create_plan(a, x, b, device=dev)
+        av = rng.standard_normal((plan.nnzb_a, lm, lm, 2)) @ [1, 1j]
+        xv = rng.standard_normal((plan.nnzb_x, lm, ln, 2)) @ [1, 1j]
+
+        def make(slots):
+            return packed_multiply(plan, lm, ln, av, xv, dev, group, r_tile,
+                                   slots)[:2]
+
+        worst = max(worst, check_staged(
+            make, f"K2 ({lm},{ln}) G {group} r_tile {r_tile}"))
+        side.add(make(None)[0].units.nt)
+    require(side >= {1, 2, 4, 8}, f"K2 tiles side by side: {sorted(side)}")
     fplan = create_plan(fd.a, fd.x, fd.b, device=dev)
     fx = rng.standard_normal((fplan.nnzb_x, 8, 8, 2)) @ [1, 1j]
     fmult, fxf, fpack = packed_multiply(fplan, 8, 8, fd.a_with_data().data,
@@ -695,12 +793,17 @@ def phase_packed(dev, fd):
     frel, _ = check(fmult, fxf, "FD rtb=12.75")
     fd_ms, fd_plain_ms = (_time_ms(lambda: fmult(fxf)),
                           _time_ms(lambda: fmult.plain(fxf)))
-    print(f"phase 9 K2 vs plain: 15 block sizes x G (1, 2) x r_tile (1, 2) "
-          f"and 512 lanes at (32, 64) G 8 and (4, 32) G 16, worst maxdev "
-          f"{worst:.3e}; FD rtb=12.75 fine pack ({fpack.ntiles} "
-          f"tiles, ku {fpack.ku}, {2 * fpack.ln} lanes) {frel:.3e}, K2 "
-          f"{fd_ms:.4f} ms, plain {fd_plain_ms:.4f} ms; repeated launches "
-          f"bit-identical", flush=True)
+    fd_kernel_ms = _kernel_ms(lambda: fmult(fxf), "pairpanel_tiles_kernel")
+    print(f"phase 9 K2 vs plain: 15 block sizes x G (1, 2) x r_tile (1, 2), "
+          f"512 lanes at (32, 64) G 8 and (4, 32) G 16, and {len(STAGED_SHAPES)} "
+          f"added shapes (c = 81, 65, 70 by 4-byte copies; 1, 2, 4, 8 tiles a "
+          f"unit; misaligned x; work lists for 1, 7 and units/2 CTAs: the "
+          f"same bits), worst maxdev {worst:.3e}; FD rtb=12.75 fine pack "
+          f"({fpack.ntiles} tiles, ku {fpack.ku}, {2 * fpack.ln} lanes, "
+          f"{fmult.units.nt} tiles a unit) {frel:.3e}, K2 {fd_kernel_ms:.4f} "
+          f"ms of device time, {fd_ms:.4f} ms a single call, plain "
+          f"{fd_plain_ms:.4f} ms; repeated launches bit-identical",
+          flush=True)
 
     plan = create_plan(*golden_class_patterns(), device=dev)
     av, xv = cos_sin(plan.nnzb_a, 32, 32), cos_sin(plan.nnzb_x, 32, 32)
@@ -716,19 +819,25 @@ def phase_packed(dev, fd):
         mult, xf, pplan = packed_multiply(plan, 32, 32, av, xv, dev, group)
         rel, abs_err = check(mult, xf, f"golden G {group}")
         ms = _time_ms(lambda: mult(xf))
+        kernel_ms = _kernel_ms(lambda: mult(xf), "pairpanel_tiles_kernel")
+        burst_ms = _burst_ms(lambda: mult(xf))
         plain_ms = _time_ms(lambda: mult.plain(xf))
         nbytes = 4 * (mult.a_panels.numel() + 2 * xf.numel()
                       + mult.xloc.numel())
         bound_ms, bound_by = bound(nbytes, flops)
         sweep[group] = dict(max_abs_err=abs_err, rel=rel, ms=ms,
+                            kernel_ms=kernel_ms, burst_ms=burst_ms,
                             plain_ms=plain_ms, bound_ms=bound_ms,
                             bound_by=bound_by, ntiles=pplan.ntiles,
                             ku=pplan.ku, mbytes=nbytes / 1e6)
         print(f"phase 9 golden-class K2 G {group} ({pplan.ntiles} tiles, ku "
-              f"{pplan.ku}, {2 * pplan.ln} lanes, {nbytes / 1e6:.1f} MB): "
-              f"{ms:.4f} ms ({flops / ms / 1e9:.2f} TFlop/s), plain "
-              f"{plain_ms:.4f} ms, maxdev {rel:.3e}; bound {bound_ms:.4f} ms "
-              f"({bound_by})", flush=True)
+              f"{pplan.ku}, {2 * pplan.ln} lanes, {nbytes / 1e6:.1f} MB, "
+              f"{mult.units.nt} tiles a unit): {kernel_ms:.4f} ms of device "
+              f"time ({flops / kernel_ms / 1e9:.2f} TFlop/s, "
+              f"{100 * bound_ms / kernel_ms:.1f}% of the bound), "
+              f"{burst_ms:.4f} ms a call back to back, {ms:.4f} ms median of "
+              f"20 single calls; plain {plain_ms:.4f} ms, maxdev {rel:.3e}; "
+              f"bound {bound_ms:.4f} ms ({bound_by})", flush=True)
         del mult, xf
     fastest = min(sweep, key=lambda g: sweep[g]["ms"])
     k1 = PairPlanMultiply(plan, *planes(av, torch.float32, dev), 32)
@@ -746,6 +855,8 @@ def phase_packed(dev, fd):
           + (f"{library_ms:.4f} ms" if lib else f"refused: {why}"), flush=True)
     row = sweep[picked]
     return dict(max_abs_err=row["max_abs_err"], ms=row["ms"],
+                kernel_ms=row["kernel_ms"], burst_ms=row["burst_ms"],
+                fd_kernel_ms=fd_kernel_ms,
                 plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
                 bound_by=row["bound_by"], library_ms=library_ms,
                 library_refused=why, group=picked, fastest_group=fastest,

@@ -13,11 +13,13 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (_rowtile_multiply, golden_class_patterns,
-                        packed_multiply, planes, random_problem)
+from chip_smoke import (STAGED_SHAPES, _rowtile_multiply, check_staged,
+                        golden_class_patterns, packed_multiply, planes,
+                        random_problem)
 from tfqmrgpu_tpu_torch import (ALLOWED_BLOCK_SIZES, Solver, _build,
                                 create_plan, dma_probe)
 from tfqmrgpu_tpu_torch.ops import pairpanel as pp
+from tfqmrgpu_tpu_torch.ops import paneltiles as pt
 from tfqmrgpu_tpu_torch.ops.pairpanel import PairPanelMultiply, PairPlanMultiply
 from tfqmrgpu_tpu_torch.ops.pallas_spmm import RowTileMultiply
 
@@ -155,6 +157,69 @@ def test_packed_kernel_matches_plain_on_card():
         assert _maxdev((got,), (mult.plain(x),)) <= 1e-4, (lm, ln, group,
                                                             r_tile)
         assert torch.equal(mult(x), got)           # no atomics: same bits
+
+
+def _staged_problem(seed, lm, ln, ncols, integer):
+    rng = np.random.default_rng(seed)
+    plan = create_plan(*random_problem(rng, mb=16, lm=lm, ln=ln, ncols=ncols),
+                       device="cuda")
+    if integer:     # every sum exact in float32, whatever its order
+        av = rng.integers(-3, 4, (plan.nnzb_a, lm, lm, 2)) @ [1, 1j]
+        xv = rng.integers(-3, 4, (plan.nnzb_x, lm, ln, 2)) @ [1, 1j]
+    else:
+        av = rng.standard_normal((plan.nnzb_a, lm, lm, 2)) @ [1, 1j]
+        xv = rng.standard_normal((plan.nnzb_x, lm, ln, 2)) @ [1, 1j]
+    return plan, av, xv
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lm,ln,group,r_tile", STAGED_SHAPES)
+def test_packed_kernel_staged_shapes_on_card(lm, ln, group, r_tile):
+    """K2 at the shapes of the staged design: against plain, the same bits
+    on a repeat, from a misaligned x and from other work lists; and on
+    integer data bit for bit what the plain walker gives."""
+    _needs_card()
+    plan, av, xv = _staged_problem(6, lm, ln, group, False)
+    check_staged(lambda slots: packed_multiply(
+        plan, lm, ln, av, xv, "cuda", group, r_tile, slots)[:2],
+        f"K2 ({lm},{ln}) G {group} r_tile {r_tile}")
+    plan, av, xv = _staged_problem(7, lm, ln, group, True)
+    mult, x, pplan = packed_multiply(plan, lm, ln, av, xv, "cuda", group,
+                                     r_tile)
+    got = mult(x).cpu()
+    c = pplan.ln
+    items, _ = pt.work_list(mult.units, c, mult.launch_tables.bn, 7)
+    y_re, y_im, writes = pt.walk(
+        mult.units, items, mult.a_dm.cpu(), x[:, :c].contiguous().cpu(),
+        x[:, c:].contiguous().cpu(), lm, mult.n_rows, mult.launch_tables.bn)
+    assert np.all(writes == 1)
+    assert torch.equal(got, torch.cat([y_re, y_im], dim=1))
+    assert torch.equal(got, mult.plain(x).cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lm,ln,ncols,r_tile", STAGED_SHAPES)
+def test_rowtile_kernel_staged_shapes_on_card(lm, ln, ncols, r_tile):
+    """K3 at the shapes of the staged design, as K2 above."""
+    _needs_card()
+    plan, av, xv = _staged_problem(8, lm, ln, ncols, False)
+    check_staged(lambda slots: _rowtile_multiply(
+        plan, lm, ln, av, xv, "cuda", r_tile, slots)[:2],
+        f"K3 ({lm},{ln}) x {ncols} columns, r_tile {r_tile}")
+    plan, av, xv = _staged_problem(9, lm, ln, ncols, True)
+    mult, x, _ = _rowtile_multiply(plan, lm, ln, av, xv, "cuda", r_tile)
+    got = [v.cpu() for v in mult(x)]
+    want = [v.cpu() for v in mult.plain(x)]
+    items, _ = pt.work_list(mult.units, mult.c, mult.launch_tables.bn, 7)
+    y_re, y_im, writes = pt.walk(
+        mult.units, items, mult.a_dm.cpu(), x[0].reshape(mult.nr, -1).cpu(),
+        x[1].reshape(mult.nr, -1).cpu(), lm, mult.nr, mult.launch_tables.bn)
+    keep = np.repeat(np.repeat(mult.mask.cpu().numpy(), lm, axis=0), ln,
+                     axis=1).astype(np.float32)
+    assert np.all(writes == 1)
+    for g, w, y in zip(got, want, (y_re, y_im)):
+        assert torch.equal(g, w)
+        assert torch.equal(g.reshape(mult.nr, -1), y * torch.from_numpy(keep))
 
 
 def _rowtile(rng, lm, ln, r_tile, device):

@@ -38,6 +38,7 @@ from tfqmrgpu_tpu_torch import convert
 from tfqmrgpu_tpu_torch import solver as tsolver
 from tfqmrgpu_tpu_torch.errors import Status
 from tfqmrgpu_tpu_torch.ops import pairpanel as tpp
+from tfqmrgpu_tpu_torch.ops import paneltiles
 
 torch.set_num_threads(2)
 
@@ -229,6 +230,46 @@ def test_k2_plain_matches_tile_pipe_interpret(monkeypatch, lm, ln, r_tile,
             re, im = tpp.ungroup_blocks(gp, re), tpp.ungroup_blocks(gp, im)
         got = re + 1j * im
         assert np.max(np.abs(got - want)) <= 1e-5 * np.max(np.abs(want))
+
+
+@pytest.mark.parametrize("lm,ln,r_tile,group", [
+    (4, 4, 1, 2), (4, 4, 2, 2), (8, 8, 1, 4), (4, 16, 1, 4),
+])
+def test_k2_unit_tables_walk_grouped_plans(lm, ln, r_tile, group):
+    """The tables K2 runs on the card, for plans packed in column groups:
+    every tile's ``xloc`` slots in order, for the CTA shape of the fused
+    lanes, and the plain walker over them bit for bit the plain version
+    (integer data: every float32 sum is exact)."""
+    rng = np.random.default_rng(90 + ln + r_tile + group)
+    pa, px, py, na, nx = _bsr_pair_plan(rng, mb=10, ncols=4, lm=lm, ln=ln)
+    f32 = np.float32
+    a = rng.integers(-3, 4, (2, na, lm, lm)).astype(f32)
+    x = rng.integers(-3, 4, (2, nx, lm, ln)).astype(f32)
+    gp = tpp.pack_grouped(pa, px, py, nx, ln, group)
+    plan = tpp.pack_pair_plan(gp.pair_a2, gp.pair_x2, gp.pair_y2, gp.nnzb2,
+                              gp.nnzb2, lm, gp.ln2, r_tile=r_tile,
+                              row_of=gp.row_of2, col_of=gp.col_of2)
+    panels = tpp.build_a_panels(plan, a[0], a[1])
+    fused = torch.from_numpy(tpp.permute_x(
+        plan, tpp.grouped_blocks(gp, x[0]), tpp.grouped_blocks(gp, x[1])))
+    tm = tpp.PairPanelMultiply(plan, torch.from_numpy(panels))
+    u, c = tm.units, plan.ln
+    shape = paneltiles.cta_shape(c)
+    assert c == group * ln
+    assert (u.bm, u.union) == (shape[0], shape == paneltiles.WIDE)
+    for t in range(plan.ntiles):
+        g, n = divmod(t, u.nt)
+        steps = np.flatnonzero(u.ukidx[g, :, n] >= 0)
+        assert np.array_equal(u.ukidx[g, steps, n], np.arange(plan.kcount[t]))
+        assert np.array_equal(u.uslot[g, steps, n],
+                              plan.xloc[t, :plan.kcount[t]])
+    items, _ = paneltiles.work_list(u, c, shape[1], 7)
+    y_re, y_im, writes = paneltiles.walk(
+        u, items, paneltiles.depth_major(tm.a_panels),
+        fused[:, :c].contiguous(), fused[:, c:].contiguous(), lm,
+        plan.n_slots * lm, shape[1])
+    assert np.all(writes == 1)
+    assert torch.equal(torch.cat([y_re, y_im], dim=1), tm.plain(fused))
 
 
 def test_k2_wrapper_rejects_bad_inputs():

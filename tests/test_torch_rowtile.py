@@ -18,6 +18,7 @@ from tfqmrgpu_tpu.ops import pallas_spmm as jrt
 from tfqmrgpu_tpu.ops.panel import PanelLayout as JLayout
 from tfqmrgpu_tpu_torch.errors import Status
 from tfqmrgpu_tpu_torch.ops import pallas_spmm as trt
+from tfqmrgpu_tpu_torch.ops import paneltiles
 from tfqmrgpu_tpu_torch.ops.panel import PanelLayout
 
 torch.set_num_threads(2)
@@ -97,6 +98,40 @@ def test_rowtile_multiply_matches_tpu_kernel_interpret(seed, mb, lm, ln,
     for g, w in zip(got, want):
         assert g.dtype == torch.float32 and g.shape == w.shape
         assert np.max(np.abs(g.numpy() - w)) <= 1e-5 * scale
+
+
+@pytest.mark.parametrize("seed,mb,lm,ln,ncols,r_tile", [
+    (20, 12, 4, 8, 3, 1), (21, 13, 4, 4, 2, 4), (22, 9, 8, 16, 5, 2),
+])
+def test_rowtile_unit_tables_follow_the_pack(seed, mb, lm, ln, ncols, r_tile):
+    """The tables K3 runs on the card, built by the wrapper on the CPU too:
+    every tile's real union blocks, in the pack's order, for the CTA shape
+    of its column count; and the plain walker over them against the TPU
+    kernel in interpret mode."""
+    tm, xp, want, pack = _multiply_pair(seed, mb, lm, ln, ncols, r_tile)
+    u = tm.units
+    shape = paneltiles.cta_shape(tm.c)
+    assert (u.bm, u.union) == (shape[0], shape == paneltiles.WIDE)
+    assert u.nt == max(shape[0] // tm.rlm, 1)
+    for t in range(pack.ntiles):
+        used = np.unique(pack.kslot_of[pack.tile_of == t])
+        assert np.array_equal(used, np.arange(tm.kcount[t]))
+        g, n = divmod(t, u.nt)
+        steps = np.flatnonzero(u.ukidx[g, :, n] >= 0)
+        assert np.array_equal(u.ukidx[g, steps, n], used)
+        assert np.array_equal(u.uslot[g, steps, n], pack.xcols[t, used])
+    items, cta_start = paneltiles.work_list(u, tm.c, shape[1], 132)
+    assert cta_start[-1] == len(items)
+    y_re, y_im, writes = paneltiles.walk(
+        u, items, paneltiles.depth_major(tm.a_fused),
+        xp[0].reshape(tm.nr, tm.c), xp[1].reshape(tm.nr, tm.c), lm, tm.nr,
+        shape[1])
+    assert np.all(writes == 1)
+    keep = np.repeat(np.repeat(tm.mask.numpy(), lm, axis=0), ln, axis=1)
+    scale = max(np.max(np.abs(w)) for w in want)
+    for y, w in zip((y_re, y_im), want):
+        got = (y.numpy() * keep).reshape(w.shape)
+        assert np.max(np.abs(got - w)) <= 1e-4 * scale
 
 
 def test_rowtile_wrapper_rejects_bad_inputs():

@@ -13,8 +13,10 @@ library's numerics.  The module names follow the JAX package's.
 * ``ops/``         -- vector ops, decisions, the plain block-sparse product,
                       the panel layout and the wrappers of the Hopper
                       kernels (``csrc/pairpanel_spmm.cu``,
-                      ``csrc/pairpanel_tiles.cu``, ``csrc/rowtile_spmm.cu``,
-                      built by ``_build.py``).
+                      ``csrc/pairpanel_tiles.cu`` and
+                      ``csrc/rowtile_spmm.cu`` over the shared
+                      ``csrc/panel_stage.cuh``, built by ``_build.py``) with
+                      their host tables (``ops/paneltiles.py``).
 * ``dma_probe.py`` -- the device-memory stream probe
                       (``csrc/dma_probe.cu``).
 * ``convert.py``   -- hands a JAX plan's tables to this package.

@@ -4,8 +4,8 @@ The sources are compiled with ``nvcc`` for Hopper (``sm_90a``), one
 compiler process per source, all started together, and linked into one
 shared library with a plain C interface, on first use, and loaded with
 ``ctypes``.  The library goes to ``build/kernels/<hash>/`` beside the
-package, where ``<hash>`` covers the sources and the flags, so an edited
-source is rebuilt and an unchanged one is reused.  Nothing is built or
+package, where ``<hash>`` covers the sources, their headers (``*.cuh``) and the flags, so
+an edited source is rebuilt and an unchanged one is reused.  Nothing is built or
 imported from CUDA when this module is imported.
 """
 
@@ -37,11 +37,16 @@ SIGNATURES = {
     # a_re, a_im, x_re, x_im, starts, pair_a, pair_x, y_re, y_im,
     # nnzb_y, lm, ln, stream
     "tfq_pairpanel_spmm_f32": [_P] * 9 + [_I] * 3 + [_P],
-    # a_panels, xloc, x, y, ntiles, rlm, ku, lm, c, n_rows, stream
-    "tfq_pairpanel_tiles_f32": [_P] * 4 + [_I] * 6 + [_P],
-    # a_fused, xcols, x_re, x_im, mask, y_re, y_im,
-    # ntiles, rlm, ku, lm, nr, c, ln, stream
-    "tfq_rowtile_spmm_f32": [_P] * 7 + [_I] * 7 + [_P],
+    # a_dm, x, y, uslot, ukidx, ucount, items, cta_start, nctas, ntiles,
+    # rlm, ku, lm, c, n_rows, nt, ksteps, bm, bn, stream
+    "tfq_pairpanel_tiles_f32": [_P] * 8 + [_I] * 11 + [_P],
+    # a_dm, x_re, x_im, mask, y_re, y_im, uslot, ukidx, ucount, items,
+    # cta_start, nctas, ntiles, rlm, ku, lm, nr, c, ln, nt, ksteps, bm, bn,
+    # stream
+    "tfq_rowtile_spmm_f32": [_P] * 11 + [_I] * 12 + [_P],
+    # bm, bn, lm, c -> CTAs the card holds at once (or -cudaError_t)
+    "tfq_pairpanel_tiles_slots": [_I] * 4,
+    "tfq_rowtile_spmm_slots": [_I] * 4,
     # stage_bytes, n_ops -> CTAs of one wave (or -cudaError_t)
     "tfq_dma_probe_ctas": [_I] * 2,
     # x, n_ops, nsteps, rows, cols, stage_bytes, ctas, partial, out, stream
@@ -73,7 +78,7 @@ def _nvcc() -> str:
 def library_path() -> pathlib.Path:
     """Where the library for the current sources and flags lives."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in _sources() + sorted(CSRC.glob("*.cuh")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_ROOT / h.hexdigest()[:16] / LIB_NAME

@@ -54,6 +54,7 @@ import numpy as np
 import torch
 
 from ..errors import Status, TfqmrgpuError, encode_status
+from . import paneltiles
 from .blocksparse import spmm_pairs
 
 Pair = tuple
@@ -964,13 +965,21 @@ class PairPanelMultiply:
     exist to amortise the TPU's per-grid-step cost within its VMEM budget,
     which the card does not have.  On a CUDA tensor the wrapper launches
     ``csrc/pairpanel_tiles.cu`` or raises; on a CPU tensor it runs
-    ``plain``.  ``launches`` counts the kernel's launches by every instance
-    in this process; the plain version never adds to it.
+    ``plain``.  The kernel runs the unit tables and the work list of
+    ``ops/paneltiles.py`` (tiles narrower than a CTA side by side, each X
+    block of their union staged once).  On the card the panels are kept
+    once, depth-major ([ntiles, ku*LM, 2*rlm], the layout the kernel stages
+    from); ``a_panels`` is then a transposed view of them.  ``slots``
+    overrides the CTAs the work list is dealt to (by default what the card
+    holds at once); the result does not depend on it.  ``launches`` counts
+    the kernel's launches by every instance in this process; the plain
+    version never adds to it.
     """
 
     launches: int = 0
 
-    def __init__(self, plan: PairPanelPlan, a_panels: torch.Tensor):
+    def __init__(self, plan: PairPanelPlan, a_panels: torch.Tensor,
+                 slots: int = None):
         self.ntiles, self.ku, self.lm = plan.ntiles, plan.ku, plan.lm
         self.ln = plan.ln
         self.rlm = plan.r_tile * plan.lm
@@ -988,7 +997,15 @@ class PairPanelMultiply:
             raise TfqmrgpuError(encode_status(Status.BLOCKSIZE_MISSING),
                                 "the packed pairs kernel takes LM in "
                                 f"multiples of 4, got {self.lm}")
-        self.a_panels = a_panels
+        self.units = paneltiles.unit_tables_for(plan.xloc, plan.kcount,
+                                                self.rlm, self.ln)
+        if dev.type == "cuda":
+            self.a_dm = paneltiles.depth_major(a_panels)
+            self.a_panels = self.a_dm.transpose(1, 2)
+            self.launch_tables = paneltiles.PanelLaunch(
+                self.units, self.lm, self.ln, dev, slots)
+        else:
+            self.a_panels = a_panels
         self.xloc = torch.from_numpy(
             np.ascontiguousarray(plan.xloc, dtype=np.int32)).to(dev)
 
@@ -1026,13 +1043,21 @@ class PairPanelMultiply:
     def _launch(self, x: torch.Tensor) -> torch.Tensor:
         from .._build import load_kernels
 
-        fn = load_kernels().tfq_pairpanel_tiles_f32
+        return self.launch_with(load_kernels(), x)
+
+    def launch_with(self, lib, x: torch.Tensor) -> torch.Tensor:
+        """Launch through the kernel library ``lib``: the built one, or
+        another build of the sources (``tools/kernel_compare.py``)."""
         y = torch.empty_like(x)
+        lt = self.launch_tables
         with torch.cuda.device(self.device):
+            tables, nctas = lt.args(lib.tfq_pairpanel_tiles_slots)
             stream = torch.cuda.current_stream(self.device).cuda_stream
-            rc = fn(self.a_panels.data_ptr(), self.xloc.data_ptr(),
-                    x.data_ptr(), y.data_ptr(), self.ntiles, self.rlm,
-                    self.ku, self.lm, self.ln, self.n_rows, stream)
+            rc = lib.tfq_pairpanel_tiles_f32(
+                self.a_dm.data_ptr(), x.data_ptr(), y.data_ptr(), *tables,
+                nctas, self.ntiles, self.rlm, self.ku, self.lm, self.ln,
+                self.n_rows, self.units.nt, self.units.ksteps, lt.bm, lt.bn,
+                stream)
         if rc != 0:
             raise TfqmrgpuError(encode_status(Status.LAUNCH_FAILED),
                                 f"packed pairs kernel returned {rc}")

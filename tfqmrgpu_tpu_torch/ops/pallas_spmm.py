@@ -1,5 +1,7 @@
 """The row-tile engine: host packing of A into row-tile union panels, and
-the wrapper of the hand-written Hopper kernel ``csrc/rowtile_spmm.cu``.
+the wrapper of the hand-written Hopper kernel ``csrc/rowtile_spmm.cu``
+(K3; its staged product is ``csrc/panel_stage.cuh``, shared with K2, and
+its unit tables and work list come from ``ops/paneltiles.py``).
 
 The module keeps the name of its counterpart, ``tfqmrgpu_tpu/ops/pallas_spmm.py``,
 whose TPU kernel K3 (``_make_call.kernel``, line 214) this package replaces;
@@ -29,6 +31,7 @@ import numpy as np
 import torch
 
 from ..errors import Status, TfqmrgpuError, encode_status
+from . import paneltiles
 
 Pair = tuple
 
@@ -131,15 +134,20 @@ class RowTileMultiply:
     union panels.
 
     On a CUDA tensor it launches ``csrc/rowtile_spmm.cu``, which also
-    applies the mask; on a CPU tensor it runs ``plain``.  ``launches``
-    counts the kernel's launches by every instance in this process; the
-    plain version never adds to it.
+    applies the mask; on a CPU tensor it runs ``plain``.  On the card the
+    fused panels are kept once, depth-major ([ntiles, ku*LM, 2*rlm], the
+    layout the kernel stages from); ``a_fused`` is then a transposed view
+    of them.  ``slots`` overrides the CTAs the work list is dealt to (by
+    default what the card holds at once); the result does not depend on it.
+    ``launches`` counts the kernel's launches by every instance in this
+    process; the plain version never adds to it.
     """
 
     launches: int = 0
 
     def __init__(self, pack: RowTilePack, a_re: torch.Tensor,
-                 a_im: torch.Tensor, mask: np.ndarray, ln: int):
+                 a_im: torch.Tensor, mask: np.ndarray, ln: int,
+                 slots: int = None):
         self.ntiles, self.ku, self.lm = pack.ntiles, pack.ku, pack.lm
         self.rlm = pack.r_tile * pack.lm
         self.mb, self.ncc = (int(s) for s in mask.shape)
@@ -161,8 +169,21 @@ class RowTileMultiply:
             raise TfqmrgpuError(encode_status(Status.BLOCKSIZE_MISSING),
                                 f"the row-tile kernel takes LM in multiples "
                                 f"of 4, got {self.lm}")
+        # the real entries of a tile's block list: its union's size
+        kcount = np.zeros(self.ntiles, np.int64)
+        np.maximum.at(kcount, pack.tile_of, pack.kslot_of.astype(np.int64) + 1)
+        self.kcount = kcount
+        self.units = paneltiles.unit_tables_for(pack.xcols, kcount, self.rlm,
+                                                self.c)
         # fused re/im rows: [ntiles, 2*rlm, ku*LM]
-        self.a_fused = torch.cat([a_re, a_im], dim=1).contiguous()
+        if dev.type == "cuda":
+            self.a_dm = torch.cat([a_re.transpose(1, 2), a_im.transpose(1, 2)],
+                                  dim=2).contiguous()
+            self.a_fused = self.a_dm.transpose(1, 2)
+            self.launch_tables = paneltiles.PanelLaunch(
+                self.units, self.lm, self.c, dev, slots)
+        else:
+            self.a_fused = torch.cat([a_re, a_im], dim=1).contiguous()
         self.xcols = torch.from_numpy(
             np.ascontiguousarray(pack.xcols, dtype=np.int32)).to(dev)
         self.mask = torch.from_numpy(
@@ -214,15 +235,23 @@ class RowTileMultiply:
     def _launch(self, x: Pair) -> Pair:
         from .._build import load_kernels
 
-        fn = load_kernels().tfq_rowtile_spmm_f32
+        return self.launch_with(load_kernels(), x)
+
+    def launch_with(self, lib, x: Pair) -> Pair:
+        """Launch through the kernel library ``lib``: the built one, or
+        another build of the sources (``tools/kernel_compare.py``)."""
         y_re = torch.empty_like(x[0])
         y_im = torch.empty_like(x[1])
+        lt = self.launch_tables
         with torch.cuda.device(self.device):
+            tables, nctas = lt.args(lib.tfq_rowtile_spmm_slots)
             stream = torch.cuda.current_stream(self.device).cuda_stream
-            rc = fn(self.a_fused.data_ptr(), self.xcols.data_ptr(),
-                    x[0].data_ptr(), x[1].data_ptr(), self.mask.data_ptr(),
-                    y_re.data_ptr(), y_im.data_ptr(), self.ntiles, self.rlm,
-                    self.ku, self.lm, self.nr, self.c, self.ln, stream)
+            rc = lib.tfq_rowtile_spmm_f32(
+                self.a_dm.data_ptr(), x[0].data_ptr(), x[1].data_ptr(),
+                self.mask.data_ptr(), y_re.data_ptr(), y_im.data_ptr(),
+                *tables, nctas, self.ntiles, self.rlm, self.ku, self.lm,
+                self.nr, self.c, self.ln, self.units.nt, self.units.ksteps,
+                lt.bm, lt.bn, stream)
         if rc != 0:
             raise TfqmrgpuError(encode_status(Status.LAUNCH_FAILED),
                                 f"row-tile kernel returned {rc}")
