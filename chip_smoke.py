@@ -59,11 +59,26 @@ two for each:
 11. FD rtb=12.75 through ``bsrsv_c`` (tolerance 1e-5, at most 2000
    iterations): 'auto' takes the packed 'pairs' engine with G = 1, every
    multiply goes through K2 and X is finite; status, iterations, residuum,
-   maxdev against the dense reference and wall are printed, not gated.
+   maxdev against the dense reference and wall are printed, not gated;
+12. the file path: FD rtb=12.75 written by ``io.xmlio.write_xml`` and run
+   through the parity CLI (``bench.run_tfqmr``, at most 2000 iterations):
+   'z' must pass the 1e-5 gate against the embedded reference with
+   2 K1 launches an iteration and one a probe; 'm' (``solve_mixed``) must
+   reach 1e-9 with its c stage on the packed 'pairs' engine (K2) and one
+   K1 launch per float64 residual (plus the 'z' fallback's, if it ran);
+13. golden-class 'm' through ``bsrsv_m`` with complex128 data: the c stage
+   on the row tiles (K3), SUCCESS at 1e-9, an independent float64 residual
+   over X's pattern below 1e-8, one K1 launch per float64 residual;
+14. FD rtb=12.75 'z' through ``Solver.solve_checkpointed`` in chunks of 25
+   with a state file: cut after one chunk, resumed in a new Solver, which
+   must converge to 1e-9, remove the state file and match the reference
+   to 1e-5.
 
 Then one JSON line on the kernels (time, launches on their path, bound,
-plain and library times; for K1 also the bytes staged, for K2 and K3 also
-``kernel_ms`` and ``burst_ms``) and, last, one JSON line on the device.
+plain and library times; the launches of every path that runs the kernel
+under ``launches_by_path``; for K1 also the bytes staged, for K2 and K3
+also ``kernel_ms`` and ``burst_ms``) and, last, one JSON line on the
+device.
 K1's times in phase 2 are CUDA events around 20 calls issued back to back
 (``burst_ms`` for K2 and K3); ``kernel_ms`` is the kernel's device time
 from ``torch.profiler``; every other time is the median of 20 single
@@ -75,8 +90,10 @@ place.
 from __future__ import annotations
 
 import json
+import os
 import statistics
 import subprocess
+import tempfile
 import time
 
 import numpy as np
@@ -237,14 +254,14 @@ def packed_multiply(plan, lm: int, ln: int, av: np.ndarray, xv: np.ndarray,
     return mult, x, pplan
 
 
-def pattern_residual(s, a, b, dev) -> float:
-    """The independent float64 |A X - B| / |B| over X's pattern of a
-    solver's X, through the plain block-list product."""
+def pattern_residual(p, xc: np.ndarray, a, b, dev) -> float:
+    """The independent float64 |A X - B| / |B| over X's pattern of the
+    blocks ``xc`` on the plan ``p``, through the plain block-list product
+    on the card."""
     from tfqmrgpu_tpu_torch.ops import linalg
     from tfqmrgpu_tpu_torch.ops.blocksparse import spmm_pairs
 
-    p = s.plan
-    xp = planes(s.get_matrix("X"), torch.float64, dev)
+    xp = planes(xc, torch.float64, dev)
     ax = spmm_pairs(planes(a.data, torch.float64, dev), xp, p.pairs[:, 0],
                     p.pairs[:, 1], p.pair_y(), p.nnzb_x)
     z = torch.zeros_like(xp[0])
@@ -466,7 +483,7 @@ def phase_fd(dev, fd):
           f"{info.n_probes} probes, residuum {info.residuum_reached:.3e}, "
           f"maxdev {maxdev:.3e}, wall {wall_ms:.1f} ms (second run "
           f"{runs[1][1]:.1f} ms), kernel launches {launches}", flush=True)
-    return launches
+    return launches, info.iterations_needed
 
 
 def phase_golden(dev, mb: int = 281, ncols: int = 16, deg: int = 11,
@@ -483,7 +500,7 @@ def phase_golden(dev, mb: int = 281, ncols: int = 16, deg: int = 11,
     info = s.solve(tolerance=1e-10, max_iterations=500)
     wall_ms = (time.perf_counter() - t0) * 1e3
     require(info.return_status == 0, f"golden solve status {info.return_status}")
-    res = pattern_residual(s, a, b, dev)
+    res = pattern_residual(s.plan, s.get_matrix("X"), a, b, dev)
     require(res < 1e-8, f"golden |AX-B|/|B| = {res:.3e}")
     # a fixed number of iterations (tolerance 0 never converges; one probe
     # at the cap) times the iteration itself rather than a short solve
@@ -665,7 +682,7 @@ def phase_golden_c(dev, timed_iterations: int = 10):
     require(launches == 2 * info.iterations_needed + info.n_probes,
             f"{launches} K3 launches for {info.iterations_needed} iterations "
             f"and {info.n_probes} probes")
-    res = pattern_residual(s, a, b, dev)
+    res = pattern_residual(s.plan, s.get_matrix("X"), a, b, dev)
     require(res < 1e-4, f"golden 'c' |AX-B|/|B| = {res:.3e}")
     # a fixed number of iterations, as in phase 4; in float32 every column
     # of this well-conditioned system stops by itself (the reference's
@@ -884,7 +901,7 @@ def phase_golden_pairs_c(dev, timed_iterations: int = 10):
     require(launches == 2 * info.iterations_needed + info.n_probes,
             f"{launches} K2 launches for {info.iterations_needed} iterations "
             f"and {info.n_probes} probes")
-    res = pattern_residual(s, a, b, dev)
+    res = pattern_residual(s.plan, s.get_matrix("X"), a, b, dev)
     require(res < 1e-4, f"golden 'c' pairs |AX-B|/|B| = {res:.3e}")
     # 10 fixed iterations, as in phase 6
     t0 = time.perf_counter()
@@ -939,6 +956,173 @@ def phase_fd_c(dev, fd):
           f"ms (set-up included)", flush=True)
 
 
+# the JAX package's 'm' on FD rtb=12.75 on a CPU, for comparison
+# (python3 tools/jax_mixed_counts.py 12.75): c-iterations, refinement
+# iterations, correction rounds
+JAX_FD_M_COUNTS = (500, 125, 3)
+
+
+def residual_checks(rounds: int, max_rounds: int = 12) -> int:
+    """The float64 residuals ``refinement_loop`` measured: one before each
+    correction round and one more at the stop, unless the rounds ran out."""
+    return min(rounds + 1, max_rounds)
+
+
+def fallback_k1(info) -> int:
+    """K1 launches of the 'z' fallback of an 'm' solve on the 'pairs'
+    engine: 2 an iteration, 1 a probe, 1 for B - A X0."""
+    r = info.refinement
+    if not r["fallback"]:
+        return 0
+    return 2 * (info.iterations_needed - r["iterations"]) + info.n_probes + 1
+
+
+def phase_file_fd(dev, fd, z_iterations: int):
+    """Phase 12: FD rtb=12.75 through the problem file and the parity CLI,
+    in 'z' (K1) and in 'm' (K2 for the c stage and the corrections, K1 for
+    the float64 residuals)."""
+    from tfqmrgpu_tpu_torch import bench
+    from tfqmrgpu_tpu_torch.io.xmlio import read_xml, write_xml
+    from tfqmrgpu_tpu_torch.ops.pairpanel import (PairPanelMultiply,
+                                                  PairPlanMultiply)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "FD_example.xml")
+        t0 = time.perf_counter()
+        write_xml(fd, path)
+        write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        read_xml(path)
+        read_s = time.perf_counter() - t0
+        mbytes = os.path.getsize(path) / 1e6
+        PairPlanMultiply.launches = 0
+        z = bench.run_tfqmr(path, "z", max_iterations=2000, echo=0,
+                            device=dev)
+        k1_z = PairPlanMultiply.launches
+        zi = z.info
+        require(z.rc == 0 and z.maxdev < 1e-5,
+                f"file FD 'z': rc {z.rc}, maxdev {z.maxdev}")
+        require(zi.return_status == 0 and zi.engine == "pairs",
+                f"file FD 'z': status {zi.return_status} on {zi.engine}")
+        require(k1_z == 2 * zi.iterations_needed + zi.n_probes,
+                f"file FD 'z': {k1_z} K1 launches for {zi.iterations_needed} "
+                f"iterations and {zi.n_probes} probes")
+        PairPlanMultiply.launches = PairPanelMultiply.launches = 0
+        m = bench.run_tfqmr(path, "m", max_iterations=2000, echo=0,
+                            device=dev)
+        k1_m, k2_m = PairPlanMultiply.launches, PairPanelMultiply.launches
+    mi, r = m.info, m.info.refinement
+    require(m.rc == 0 and mi.return_status == 0
+            and mi.residuum_reached <= 1e-9,
+            f"file FD 'm': rc {m.rc}, status {mi.return_status}, residuum "
+            f"{mi.residuum_reached:.3e}")
+    require(r["c_engine"] == "pairs", f"file FD 'm' c stage on {r['c_engine']}")
+    want_k1 = residual_checks(r["rounds"]) + fallback_k1(mi)
+    require(k1_m == want_k1, f"file FD 'm': {k1_m} K1 launches, want {want_k1}")
+    require(k2_m >= 2 * r["c_iterations"],
+            f"file FD 'm': {k2_m} K2 launches for {r['c_iterations']} "
+            "c-iterations")
+    jc, jr, jrounds = JAX_FD_M_COUNTS
+    print(f"phase 12 FD rtb=12.75 file ({mbytes:.2f} MB, write_xml "
+          f"{write_s:.3f} s, read_xml {read_s:.3f} s): 'z' -> {zi.engine} "
+          f"{zi.iterations_needed} iterations (phase 3: {z_iterations}), "
+          f"maxdev {z.maxdev:.3e}, K1 launches {k1_z}, wall "
+          f"{z.first_ms:.1f} ms", flush=True)
+    print(f"phase 12 FD rtb=12.75 file 'm': c stage on {r['c_engine']} "
+          f"(packed, K2) {r['c_iterations']} c-iterations (residuum "
+          f"{r['c_residuum']:.3e}) + {r['iterations'] - r['c_iterations']} "
+          f"refinement iterations over {r['rounds']} rounds, 'z' fallback "
+          f"{'ran' if r['fallback'] else 'not needed'}, residuum "
+          f"{mi.residuum_reached:.3e}, maxdev {m.maxdev:.3e}, K2 launches "
+          f"{k2_m}, K1 launches {k1_m}, wall {m.first_ms:.1f} ms (set-up "
+          f"included); the JAX package on a CPU: {jc} + {jr} over {jrounds} "
+          f"rounds", flush=True)
+    return k1_z, k1_m, k2_m
+
+
+def phase_golden_m(dev):
+    """Phase 13: golden-class 'm' through bsrsv_m: the c stage on the row
+    tiles (K3), the float64 residuals through K1."""
+    import tfqmrgpu_tpu_torch as tt
+    from tfqmrgpu_tpu_torch.ops.pairpanel import PairPlanMultiply
+    from tfqmrgpu_tpu_torch.ops.pallas_spmm import RowTileMultiply
+
+    a, x, b = golden_c_problem()
+    a = a.with_data(a.data.astype(np.complex128))
+    b = b.with_data(b.data.astype(np.complex128))
+    PairPlanMultiply.launches = RowTileMultiply.launches = 0
+    t0 = time.perf_counter()
+    xs, info = tt.bsrsv_m(a, x, b, tolerance=1e-9, max_iterations=500,
+                          device=dev)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    k1, k3 = PairPlanMultiply.launches, RowTileMultiply.launches
+    r = info.refinement
+    require(info.return_status == 0 and info.residuum_reached <= 1e-9,
+            f"golden 'm' status {info.return_status}, residuum "
+            f"{info.residuum_reached:.3e}")
+    require(r["c_engine"] == "pallas", f"golden 'm' c stage on {r['c_engine']}")
+    from tfqmrgpu_tpu_torch import create_plan
+
+    res = pattern_residual(create_plan(a, x, b, device=dev), xs.data, a, b,
+                           dev)
+    require(res < 1e-8, f"golden 'm' |AX-B|/|B| = {res:.3e}")
+    want_k1 = residual_checks(r["rounds"]) + fallback_k1(info)
+    require(k1 == want_k1, f"golden 'm': {k1} K1 launches, want {want_k1}")
+    require(k3 >= 2 * r["c_iterations"],
+            f"golden 'm': {k3} K3 launches for {r['c_iterations']} "
+            "c-iterations")
+    print(f"phase 13 golden-class bsrsv_m: c stage on {r['c_engine']} "
+          f"{r['c_iterations']} iterations (residuum {r['c_residuum']:.3e}) "
+          f"+ {r['iterations'] - r['c_iterations']} over {r['rounds']} "
+          f"rounds, 'z' fallback {'ran' if r['fallback'] else 'not needed'}, "
+          f"residuum {info.residuum_reached:.3e}, |AX-B|/|B| {res:.3e}, K3 "
+          f"launches {k3}, K1 launches {k1}, wall {wall_ms:.1f} ms (set-up "
+          f"included)", flush=True)
+    return k1, k3
+
+
+def phase_checkpoint(dev, fd, z_iterations: int):
+    """Phase 14: FD rtb=12.75 'z' through solve_checkpointed in chunks of
+    25 with a state file, interrupted after one chunk and resumed in a new
+    Solver (K1)."""
+    from tfqmrgpu_tpu_torch import Solver
+    from tfqmrgpu_tpu_torch.ops.pairpanel import PairPlanMultiply
+
+    a, b = fd.a_with_data(), fd.b_with_data()
+    ref = fd.x_reference.astype(np.float64)
+    PairPlanMultiply.launches = 0
+    with tempfile.TemporaryDirectory() as tmp:
+        state = os.path.join(tmp, "fd_state.npz")
+        t0 = time.perf_counter()
+        first = Solver(a, fd.x, b, precision="z", device=dev)
+        cut = first.solve_checkpointed(tolerance=1e-9, max_iterations=25,
+                                       chunk=25, state_path=state)
+        require(cut.return_status != 0 and os.path.exists(state),
+                f"interrupted chunk: status {cut.return_status}, state "
+                f"file {os.path.exists(state)}")
+        second = Solver(a, fd.x, b, precision="z", device=dev)
+        info = second.solve_checkpointed(tolerance=1e-9, max_iterations=2000,
+                                         chunk=25, state_path=state)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        left = os.path.exists(state)
+    launches = PairPlanMultiply.launches
+    maxdev = float(np.max(np.abs(second.get_matrix("X") - ref))
+                   / np.max(np.abs(ref)))
+    require(info.return_status == 0, f"checkpointed FD status "
+            f"{info.return_status} after {info.iterations_needed}")
+    require(not left, "the state file was not removed")
+    require(maxdev < 1e-5, f"checkpointed FD maxdev {maxdev:.3e} >= 1e-5")
+    require(launches >= 2 * info.iterations_needed,
+            f"{launches} K1 launches for {info.iterations_needed} iterations")
+    print(f"phase 14 FD rtb=12.75 solve_checkpointed 'z' (chunks of 25, cut "
+          f"after 25, resumed in a new Solver): {info.iterations_needed} "
+          f"iterations in all (uninterrupted, phase 3: {z_iterations}), "
+          f"maxdev {maxdev:.3e}, state file removed, K1 launches {launches}, "
+          f"wall {wall_ms:.1f} ms (set-up included)", flush=True)
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device; none is available")
@@ -951,7 +1135,7 @@ def main():
     card = phase_device()
     fd = generate_fd_problem(rtb=12.75, reference=True)
     timing = phase_kernel(dev, fd)
-    launches = phase_fd(dev, fd)
+    launches, fd_iterations = phase_fd(dev, fd)
     phase_golden(dev)
     k3 = phase_rowtile(dev)
     k3_launches = phase_golden_c(dev)
@@ -960,19 +1144,34 @@ def main():
     k2 = phase_packed(dev, fd)
     k2_launches = phase_golden_pairs_c(dev)
     phase_fd_c(dev, fd)
+    k1_file_z, k1_file_m, k2_file_m = phase_file_fd(dev, fd, fd_iterations)
+    k1_golden_m, k3_golden_m = phase_golden_m(dev)
+    k1_checkpoint = phase_checkpoint(dev, fd, fd_iterations)
     print(json.dumps({"kernels": [
         {"name": "pairpanel_spmm", "route": "cuda",
          "source": "tfqmrgpu_tpu_torch/csrc/pairpanel_spmm.cu",
          "replaces": "tfqmrgpu_tpu/ops/pairpanel.py:1770",
-         "launches": launches, **timing, "card": card},
+         "launches": launches, **timing, "card": card,
+         "launches_by_path": {
+             "phase 3 FD z bsrsv_z": launches,
+             "phase 12 FD z file": k1_file_z,
+             "phase 12 FD m file (residuals)": k1_file_m,
+             "phase 13 golden m (residuals)": k1_golden_m,
+             "phase 14 FD z solve_checkpointed": k1_checkpoint}},
         {"name": "rowtile_spmm", "route": "cuda",
          "source": "tfqmrgpu_tpu_torch/csrc/rowtile_spmm.cu",
          "replaces": "tfqmrgpu_tpu/ops/pallas_spmm.py:214",
-         "launches": k3_launches, **k3, "card": card},
+         "launches": k3_launches, **k3, "card": card,
+         "launches_by_path": {
+             "phase 6 golden c": k3_launches,
+             "phase 13 golden m (c stage, corrections)": k3_golden_m}},
         {"name": "pairpanel_tiles", "route": "cuda",
          "source": "tfqmrgpu_tpu_torch/csrc/pairpanel_tiles.cu",
          "replaces": "tfqmrgpu_tpu/ops/pairpanel.py:1706",
-         "launches": k2_launches, **k2, "card": card},
+         "launches": k2_launches, **k2, "card": card,
+         "launches_by_path": {
+             "phase 10 golden c pairs": k2_launches,
+             "phase 12 FD m file (c stage, corrections)": k2_file_m}},
         {"name": "dma_probe", "route": "cuda",
          "source": "tfqmrgpu_tpu_torch/csrc/dma_probe.cu",
          "replaces": "tools/dma_probe.py:39", **k4, "card": card},

@@ -138,7 +138,7 @@ def test_complex64_solve_and_layouts(engine):
 @pytest.mark.parametrize("kw,code", [
     (dict(engine="pallas"), Status.PRECISION_MISSMATCH),
     (dict(engine="ell"), Status.NO_IMPLEMENTATION),
-    (dict(precision="m"), Status.NO_IMPLEMENTATION),
+    (dict(precision="m"), Status.PRECISION_MISSMATCH),
     (dict(precision="q"), Status.PRECISION_MISSMATCH),
 ])
 def test_unported_options_raise(kw, code):
@@ -147,3 +147,84 @@ def test_unported_options_raise(kw, code):
     with pytest.raises(tt.TfqmrgpuError) as e:
         tt.Solver(*_port(a, x, b), device="cpu", **kw)
     assert e.value.code == code
+
+
+def _group_inputs(s):
+    """The arguments ``choose_group_size`` gets from a solver's plan."""
+    p = s.plan
+    pairs = p.pairs.numpy().astype(np.int64)
+    pair_y = np.repeat(np.arange(p.nnzb_x), np.diff(p.starts.numpy()))
+    row_of = np.repeat(np.arange(p.nrows), np.diff(p.rowptr_x))
+    return (pairs, pair_y, p.nnzb_x, s.lm, s.ln, row_of,
+            p.colindx.numpy().astype(np.int64), p.ncols)
+
+
+@pytest.mark.parametrize("where", ["grouping", "model"])
+def test_group_size_errors_fall_back_to_ungrouped(monkeypatch, where):
+    """A G whose grouping raises is skipped, and a model that raises means
+    G = 1, as in the JAX package: the Solver builds ungrouped and solves as
+    the ungrouped one does."""
+    from tfqmrgpu_tpu_torch import solver as tsolver
+    from tfqmrgpu_tpu_torch.ops import pairpanel as pp
+
+    a, x, b = _port(*make_random_problem(
+        np.random.default_rng(21), mb=12, lm=4, ln=4, ncols=4, x_fill=1.0,
+        dtype=np.complex64))
+    grouped = tt.Solver(a, x, b, precision="c", engine="pairs", device="cpu")
+    assert grouped._gp is not None         # the rule groups this pattern
+    picked = tsolver.choose_group_size(*_group_inputs(grouped))
+    assert picked > 1
+
+    def refuse(*args, **kw):
+        raise ValueError("this pattern does not group")
+
+    if where == "grouping":
+        monkeypatch.setattr(pp, "_choose_groups", refuse)
+        pairs, pair_y, nnzb, lm, ln, row_of, cols, _ = _group_inputs(grouped)
+        best, ests = pp.auto_group_size(pairs[:, 0], pairs[:, 1], pair_y,
+                                        nnzb, lm, ln, row_of=row_of,
+                                        col_of=cols)
+        assert best == 1 and list(ests) == [1]
+    else:
+        monkeypatch.setattr(pp, "auto_group_size", refuse)
+    assert tsolver.choose_group_size(*_group_inputs(grouped)) == 1
+    s = tt.Solver(a, x, b, precision="c", engine="pairs", device="cpu")
+    assert s._gp is None and s._pp_plan is not None
+    monkeypatch.undo()
+    monkeypatch.setattr(tsolver, "choose_group_size", lambda *a, **k: 1)
+    ref = tt.Solver(a, x, b, precision="c", engine="pairs", device="cpu")
+    infos = [v.solve(tolerance=1e-5, max_iterations=200) for v in (s, ref)]
+    assert infos[0].return_status == Status.SUCCESS
+    assert infos[0].iterations_needed == infos[1].iterations_needed
+    assert np.array_equal(s.get_matrix("X"), ref.get_matrix("X"))
+
+
+def test_pair_pack_failure_falls_back_under_auto(monkeypatch):
+    """A failing packed 'pairs' pack sends 'auto' to 'xla', as the JAX
+    solver does; an explicit engine='pairs' raises a TfqmrgpuError."""
+    from tfqmrgpu_tpu_torch import solver as tsolver
+    from tfqmrgpu_tpu_torch.ops import pairpanel as pp
+
+    a, x, b = _port(*make_random_problem(
+        np.random.default_rng(22), mb=24, lm=4, ln=4, ncols=2,
+        dtype=np.complex64))
+    # LM 4 rules out the row tiles, and no dense limit: 'auto' takes 'pairs'
+    monkeypatch.setattr(tsolver, "DENSE_A_BYTE_LIMIT", 0)
+    assert tt.Solver(a, x, b, precision="c", device="cpu").engine == "pairs"
+
+    def refuse(*args, **kw):
+        raise ValueError("no recoverable locality")
+
+    monkeypatch.setattr(pp, "pack_pair_plan", refuse)
+    s = tt.Solver(a, x, b, precision="c", device="cpu")
+    assert s.engine == "xla" and s._pp_plan is None
+    info = s.solve(tolerance=1e-5, max_iterations=200)
+    ref = tt.Solver(a, x, b, precision="c", engine="xla", device="cpu")
+    rinfo = ref.solve(tolerance=1e-5, max_iterations=200)
+    assert info.engine == "xla" and info.return_status == Status.SUCCESS
+    assert info.iterations_needed == rinfo.iterations_needed
+    assert np.array_equal(s.get_matrix("X"), ref.get_matrix("X"))
+    with pytest.raises(tt.TfqmrgpuError) as e:
+        tt.Solver(a, x, b, precision="c", engine="pairs", device="cpu")
+    assert e.value.code == Status.UNDOCUMENTED_ERROR
+    assert "no recoverable locality" in str(e.value)

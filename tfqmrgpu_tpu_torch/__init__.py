@@ -7,9 +7,12 @@ library's numerics.  The module names follow the JAX package's.
 
 * ``plan.py``      -- the analysis step: pair list, subset, column tables.
 * ``core.py``      -- the tfQMR iteration.
-* ``solver.py``    -- ``Solver`` and the one-call ``bsrsv_z`` / ``bsrsv_c``;
-                      engines 'dense', 'pallas' (row tiles), 'pairs', 'xla'
-                      and 'auto'.
+* ``solver.py``    -- ``Solver`` (with ``solve_checkpointed``) and the
+                      one-call ``bsrsv`` / ``bsrsv_z`` / ``bsrsv_c`` /
+                      ``bsrsv_m``; engines 'dense', 'pallas' (row tiles),
+                      'pairs', 'xla' and 'auto'; mixed precision 'm'
+                      through ``solve_mixed``.
+* ``refine.py``    -- the iterative-refinement loop of 'm'.
 * ``ops/``         -- vector ops, decisions, the plain block-sparse product,
                       the panel layout and the wrappers of the Hopper
                       kernels (``csrc/pairpanel_spmm.cu``,
@@ -20,7 +23,11 @@ library's numerics.  The module names follow the JAX package's.
 * ``dma_probe.py`` -- the device-memory stream probe
                       (``csrc/dma_probe.cu``).
 * ``convert.py``   -- hands a JAX plan's tables to this package.
-* ``generator.py`` -- the finite-difference example problem.
+* ``generator.py`` -- the finite-difference example problem and its XML
+                      export (``python -m tfqmrgpu_tpu_torch.generator``).
+* ``io/``          -- XML, legacy and pair-plan problem files.
+* ``bench.py``     -- the reference benchmark's ``tfQMR`` mode on a problem
+                      file (``python -m tfqmrgpu_tpu_torch.bench``).
 
 Every entry point runs on the CUDA card unless it is given
 ``device="cpu"``; without a card it raises.
@@ -30,7 +37,23 @@ from .bsr import Bsr
 from .errors import Status, TfqmrgpuError
 from .ops.pairpanel import KERNEL_BLOCK_SIZES as ALLOWED_BLOCK_SIZES
 from .plan import Plan, create_plan
-from .solver import Solver, bsrsv_c, bsrsv_z, solve
+from .solver import (Solver, bsrsv, bsrsv_c, bsrsv_m, bsrsv_z, solve,
+                     solve_mixed)
 
-__all__ = ["Bsr", "Plan", "create_plan", "Solver", "solve", "bsrsv_z",
-           "bsrsv_c", "TfqmrgpuError", "Status", "ALLOWED_BLOCK_SIZES"]
+__all__ = ["Bsr", "Plan", "create_plan", "Solver", "solve", "solve_mixed",
+           "bsrsv", "bsrsv_z", "bsrsv_c", "bsrsv_m", "TfqmrgpuError",
+           "Status", "ALLOWED_BLOCK_SIZES", "allowed_block_sizes",
+           "block_size_missing"]
+
+
+def allowed_block_sizes() -> list:
+    """The (LM, LN) pairs the reference library compiles, which are the
+    sizes the hand-written kernels take (tfqmrgpu.cu:75-90)."""
+    return list(ALLOWED_BLOCK_SIZES)
+
+
+def block_size_missing(ldA: int, ldB: int) -> int:
+    """0 if (ldA, ldB) is an allowed block-size pair, else the
+    BLOCKSIZE_MISSING status (tfqmrgpu.cu:93-106)."""
+    return 0 if (ldA, ldB) in ALLOWED_BLOCK_SIZES else int(
+        Status.BLOCKSIZE_MISSING)

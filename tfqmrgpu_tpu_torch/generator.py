@@ -14,7 +14,11 @@ solution is computed per right-hand side on the rows relevant to that RHS
 All orderings (row enumeration by packed uint8 coordinates, cluster
 iteration z-slow/x-fast, stencil block enumeration) match the reference.
 The module is numpy only and produces the same problems as
-``tfqmrgpu_tpu/generator.py``; its XML export is left to the I/O modules.
+``tfqmrgpu_tpu/generator.py``; ``main`` writes them to ``FD_example.xml``
+with ``io.xmlio.write_xml``, as the JAX package's does:
+
+    python -m tfqmrgpu_tpu_torch.generator [rsb] [rtb] [block_edge] [dim]
+        [energy] [reference y|n] [echo] [nfd]
 """
 
 from __future__ import annotations
@@ -298,3 +302,37 @@ def generate_fd_problem(
         params=dict(rsb=rsb, rtb=rtb, block_edge=be, dimension=dimension,
                     energy=energy, nfd=nfd, bs=bs),
     )
+
+
+def main(argv=None):
+    """CLI mirroring the reference generator's positional arguments
+    (tfqmrgpu_generate_FD_example.cxx:915-923): writes ``FD_example.xml``
+    in the working directory."""
+    import sys
+
+    from .io.xmlio import write_xml
+
+    args = list(sys.argv[1:] if argv is None else argv)
+
+    def pop(default, cast):
+        return cast(args.pop(0)) if args else default
+
+    rsb = abs(pop(1.75, float))
+    rtb = abs(pop(6.75, float))
+    be = pop(2, int)
+    dim = pop(3, int)
+    energy = pop(0.0, float)
+    ref = pop("n", str)
+    echo = pop(5, int)
+    nfd = pop(4, int)
+    prob = generate_fd_problem(rsb, rtb, be, dim, energy,
+                               reference=not ref.lower().startswith("n"),
+                               nfd=nfd, echo=echo)
+    write_xml(prob, "FD_example.xml")
+    if echo > 1:
+        print('# file "FD_example.xml" written')
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -898,7 +898,7 @@ def auto_group_size(pair_a, pair_x, pair_y, nnzb: int, lm: int, ln: int,
     the card's rates (``STREAM_BYTES_PER_S``, ``FP32_FLOPS_PER_S``): a
     multiply is the larger of its A stream and its product.  Estimates
     within ``GROUP_TIE`` of the best tie, and the larger G (fewer A bytes)
-    wins them."""
+    wins them.  A G whose grouping raises ``ValueError`` is skipped."""
     pa = np.asarray(pair_a, dtype=np.int64)
     py = np.asarray(pair_y, dtype=np.int64)
     row, col = _labels(pa, np.asarray(pair_x, dtype=np.int64), py, nnzb,
@@ -920,7 +920,10 @@ def auto_group_size(pair_a, pair_x, pair_y, nnzb: int, lm: int, ln: int,
             padded = int(np.count_nonzero(kcnt) * kcnt.max())
             cells = nnzb
         else:
-            groups = _choose_groups(pmb, rbool, g)
+            try:
+                groups = _choose_groups(pmb, rbool, g)
+            except ValueError:
+                continue    # as the JAX package: a G that cannot group
             g_of_col = np.zeros(ncol, np.int64)
             for gi, grp in enumerate(groups):
                 g_of_col[grp] = gi

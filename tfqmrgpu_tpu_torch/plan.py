@@ -16,7 +16,10 @@ The tables are computed with vectorized numpy on the host, exactly as
 ``tfqmrgpu_tpu.plan`` computes them (the same values in the same order), and
 then kept as int32 tensors on the plan's device.  The plan also keeps the
 zero-based patterns ``rowptr_a``, ``colind_a`` and ``rowptr_x`` on the host
-(numpy int64), which the panel layout and the row-tile packing read.
+(numpy int64), which the panel layout and the row-tile packing read, and,
+for ``Plan.save``, the rest of the JAX plan's arrays.  ``Plan.save`` and
+``Plan.load`` use the JAX package's ``.npz`` keys and dtypes, so a plan
+saved by either package loads in the other.
 
 Every entry point of the package runs on the CUDA card unless it is given
 ``device="cpu"`` (``resolve_device``); without a card it raises.
@@ -25,6 +28,7 @@ Every entry point of the package runs on the CUDA card unless it is given
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import numpy as np
 import torch
@@ -100,10 +104,58 @@ class Plan:
     iterations_needed: int = -1
     flops_performed: float = -1.0
     flops_performed_all: float = 0.0
+    # the JAX plan's other arrays (host, int64), kept for ``save``
+    colind_x: Optional[np.ndarray] = None
+    rowptr_b: Optional[np.ndarray] = None
+    colind_b: Optional[np.ndarray] = None
+    original_colind_x: Optional[np.ndarray] = None  # column id per ncols
 
     @property
     def n_pairs(self) -> int:
         return int(self.pairs.shape[0])
+
+    # ------------------------------------------------------ serialization
+    # the JAX package's .npz layout (tfqmrgpu_tpu/plan.py:108-124): its
+    # arrays in its dtypes, the counts and block dims as one int64 array
+
+    _ARRAY_DTYPES = (("starts", np.uint32), ("pairs", np.uint32),
+                     ("subset", np.uint32), ("colindx", np.uint16),
+                     ("original_colind_x", np.int32), ("rowptr_x", np.int32),
+                     ("colind_x", np.int32), ("rowptr_b", np.int32),
+                     ("colind_b", np.int32), ("rowptr_a", np.int32),
+                     ("colind_a", np.int32))
+    _SCALAR_FIELDS = ("nrows", "ncols", "nnzb_a", "nnzb_x", "nnzb_b",
+                      "lm", "ln")
+
+    def save(self, path: str):
+        """Write the analysis products to ``path`` (``.npz``), in the
+        layout the JAX package's ``Plan.save`` writes."""
+        payload = {}
+        for k, dt in self._ARRAY_DTYPES:
+            v = getattr(self, k)
+            if v is None:
+                raise ValueError(f"the plan has no {k!r} table to save; "
+                                 "build it with create_plan or Plan.load")
+            payload[k] = np.asarray(
+                v.cpu().numpy() if torch.is_tensor(v) else v).astype(dt)
+        payload["scalars"] = np.array(
+            [getattr(self, k) for k in self._SCALAR_FIELDS], dtype=np.int64)
+        payload["precision"] = np.array(self.precision)
+        np.savez_compressed(path, **payload)
+
+    @classmethod
+    def load(cls, path: str, device=None) -> "Plan":
+        """A plan written by ``save`` (of either package), on ``device``
+        (the CUDA card unless given)."""
+        with np.load(path, allow_pickle=False) as z:
+            arrays = {k: z[k] for k, _ in cls._ARRAY_DTYPES}
+            scalars = dict(zip(cls._SCALAR_FIELDS, z["scalars"].tolist()))
+            precision = str(z["precision"])
+        lm, ln = scalars.pop("lm"), scalars.pop("ln")
+        plan = plan_on_device(**arrays, **scalars,
+                              device=resolve_device(device))
+        plan.lm, plan.ln, plan.precision = int(lm), int(ln), precision
+        return plan
 
     @property
     def device(self) -> torch.device:
@@ -124,7 +176,8 @@ class Plan:
 
 def plan_on_device(*, nrows, ncols, nnzb_a, nnzb_x, nnzb_b, starts, pairs,
                    subset, colindx, rowptr_a, colind_a, rowptr_x,
-                   device) -> Plan:
+                   device, colind_x=None, rowptr_b=None, colind_b=None,
+                   original_colind_x=None) -> Plan:
     """Wrap host index tables (any integer dtype) into a ``Plan`` whose
     multiplication tables are int32 tensors on ``device`` and whose
     patterns stay numpy int64 on the host."""
@@ -133,13 +186,16 @@ def plan_on_device(*, nrows, ncols, nnzb_a, nnzb_x, nnzb_b, starts, pairs,
             np.ascontiguousarray(np.asarray(v).astype(np.int32))).to(device)
 
     def h(v):
-        return np.ascontiguousarray(np.asarray(v).astype(np.int64))
+        return (None if v is None else
+                np.ascontiguousarray(np.asarray(v).astype(np.int64)))
 
     return Plan(nrows=int(nrows), ncols=int(ncols), nnzb_a=int(nnzb_a),
                 nnzb_x=int(nnzb_x), nnzb_b=int(nnzb_b), starts=t(starts),
                 pairs=t(np.asarray(pairs).reshape(-1, 2)), subset=t(subset),
                 colindx=t(colindx), rowptr_a=h(rowptr_a),
-                colind_a=h(colind_a), rowptr_x=h(rowptr_x))
+                colind_a=h(colind_a), rowptr_x=h(rowptr_x),
+                colind_x=h(colind_x), rowptr_b=h(rowptr_b),
+                colind_b=h(colind_b), original_colind_x=h(original_colind_x))
 
 
 def create_plan(a: Bsr, x: Bsr, b: Bsr, index_offset: int = 0,
@@ -238,4 +294,7 @@ def create_plan(a: Bsr, x: Bsr, b: Bsr, index_offset: int = 0,
     return plan_on_device(nrows=mb, ncols=nb, nnzb_a=a.nnzb, nnzb_x=nnzb_x,
                           nnzb_b=b.nnzb, starts=starts, pairs=pairs,
                           subset=subset, colindx=colindx, rowptr_a=rowptr_a,
-                          colind_a=colind_a, rowptr_x=rowptr_x, device=device)
+                          colind_a=colind_a, rowptr_x=rowptr_x, device=device,
+                          colind_x=colind_x, rowptr_b=rowptr_b,
+                          colind_b=colind_b,
+                          original_colind_x=np.flatnonzero(occupied) + min_col)

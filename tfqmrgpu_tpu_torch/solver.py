@@ -35,11 +35,18 @@ The block-list engines keep vectors as (re, im) planes [nnzbX, LM, LN] in
 the plan's block order, the panel engines as [mb*LM, ncc, LN] panels, and
 the packed 'pairs' engine as one fused panel [n_slots*LM, 2*G*LN].
 Everything runs on the CUDA card unless ``device="cpu"`` is given.
+
+Mixed precision 'm' is no ``Solver`` precision: ``solve(precision='m')``,
+``solve_mixed`` and ``bsrsv_m`` run a 'c' solve, refine it against a
+float64 residual (``refine_mixed``, ``refine.py``) and fall back to 'z'
+only when the refinement stalls.  ``Solver.solve_checkpointed`` solves in
+restart chunks with a state file.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Optional
 
 import numpy as np
@@ -77,13 +84,18 @@ def choose_group_size(pairs: np.ndarray, pair_y: np.ndarray, nnzb_x: int,
     """The column group size of the packed 'pairs' engine, and the only
     place it is chosen: ``auto_group_size``'s full-iteration model (2
     multiplies and 15 vector passes at the card's rates) over G in
-    (1, 2, 4, 8) with G*LN <= ``GROUP_LANE_LIMIT``; 1 for a single column."""
+    (1, 2, 4, 8) with G*LN <= ``GROUP_LANE_LIMIT``; 1 for a single column,
+    and 1 where the model raises ``ValueError`` (the JAX solver's "do not
+    group", its solver.py:357-374)."""
     if ncols < 2:
         return 1
     cands = tuple(g for g in (1, 2, 4, 8) if g * ln <= GROUP_LANE_LIMIT)
-    g, _ = pp_ops.auto_group_size(pairs[:, 0], pairs[:, 1], pair_y, nnzb_x,
-                                  lm, ln, row_of=row_of, col_of=colindx,
-                                  candidates=cands)
+    try:
+        g, _ = pp_ops.auto_group_size(pairs[:, 0], pairs[:, 1], pair_y,
+                                      nnzb_x, lm, ln, row_of=row_of,
+                                      col_of=colindx, candidates=cands)
+    except ValueError:
+        return 1
     return g
 
 
@@ -93,8 +105,10 @@ def _dtype_for(precision: str) -> torch.dtype:
     if precision == "c":
         return torch.float32
     if precision == "m":
-        raise TfqmrgpuError(encode_status(Status.NO_IMPLEMENTATION),
-                            "mixed precision 'm' is not ported yet")
+        raise TfqmrgpuError(
+            encode_status(Status.PRECISION_MISSMATCH),
+            "a Solver runs 'z' or 'c'; mixed precision 'm' runs through "
+            "solve(precision='m'), solve_mixed or bsrsv_m")
     raise TfqmrgpuError(encode_status(Status.PRECISION_MISSMATCH),
                         f"precision must be 'z' or 'c', got {precision!r}")
 
@@ -112,6 +126,10 @@ class SolveInfo:
     rhs_status: Optional[np.ndarray] = None
     n_probes: int = 0
     engine: str = ""
+    # mixed precision ('m'): the c stage's engine, iterations and residuum,
+    # the refinement rounds, the iterations before any 'z' fallback, and
+    # whether it ran
+    refinement: Optional[dict] = None
 
 
 class Solver:
@@ -164,7 +182,17 @@ class Solver:
         self._pp_plan: Optional[pp_ops.PairPanelPlan] = None
         self._gp: Optional[pp_ops.GroupedPairs] = None
         if self._packed:
-            self._pack_pairs(echo)
+            try:
+                self._pack_pairs(echo)
+            except ValueError as e:
+                # the JAX solver's fallback (its solver.py:229-239)
+                if engine != "auto":
+                    raise TfqmrgpuError(
+                        encode_status(Status.UNDOCUMENTED_ERROR),
+                        f"the packed 'pairs' engine cannot pack this "
+                        f"pattern ({e}); use engine='xla'") from e
+                self.engine, self._packed = "xla", False
+                self._pp_plan = self._gp = None
 
         self._panel = self.engine in PANEL_ENGINES
         self._layout = (panel_ops.PanelLayout.from_plan(self.plan)
@@ -172,8 +200,10 @@ class Solver:
         self._cols = linalg.columns(self.plan.colindx, self.plan.ncols)
         self._multiply = None          # the engine's y = A @ x
         self._b: Optional[tuple] = None
+        self._bn2: Optional[np.ndarray] = None   # B's column norms^2
         self._x0: Optional[tuple] = None
         self._x_result: Optional[tuple] = None
+        self._info: Optional[SolveInfo] = None
         if v3 is None:
             # the panel and packed engines pack v3 on the host before its
             # one upload
@@ -290,14 +320,9 @@ class Solver:
         if any(tuple(v.shape) != shape for v in (re, im)):
             raise ValueError(f"v3 must have shape {shape}")
         if self._panel or self._packed:
-            host = [np.asarray(v.cpu() if torch.is_tensor(v) else v,
-                               dtype=np.float32) for v in (re, im)]
-            if self._packed:
-                self._v3 = torch.from_numpy(
-                    self._pairs_permute(*host)).to(self.device)
-            else:
-                self._v3 = self._upload(*(self._layout.pack_x(h)
-                                          for h in host))
+            self._v3 = self._upload_x(*(
+                np.asarray(v.cpu() if torch.is_tensor(v) else v,
+                           dtype=np.float32) for v in (re, im)))
         else:
             self._v3 = tuple((v if torch.is_tensor(v) else torch.from_numpy(
                 np.array(v, dtype=np.float32))).to(self.device, torch.float32)
@@ -306,6 +331,27 @@ class Solver:
     def _upload(self, re: np.ndarray, im: np.ndarray) -> tuple:
         return (torch.from_numpy(re).to(self.device),
                 torch.from_numpy(im).to(self.device))
+
+    def _upload_x(self, re: np.ndarray, im: np.ndarray):
+        """X-shaped host planes [nnzbX, LM, LN] -> the engine's vector
+        layout on the device."""
+        if self._packed:
+            return torch.from_numpy(self._pairs_permute(re, im)).to(
+                self.device)
+        if self._panel:
+            return self._upload(self._layout.pack_x(re),
+                                self._layout.pack_x(im))
+        return self._upload(re, im)
+
+    def _unpack_x(self, x_engine) -> tuple:
+        """The engine's vector layout -> X-shaped host planes
+        (re, im) [nnzbX, LM, LN]."""
+        if self._packed:
+            return self._pairs_unpermute(x_engine.cpu().numpy())
+        re, im = (t.cpu().numpy() for t in x_engine)
+        if self._panel:
+            return self._layout.unpack_x(re), self._layout.unpack_x(im)
+        return re, im
 
     def set_matrix(self, var: str, val, *, trans: str = "n",
                    layout: int = layout_ops.LAYOUT_RIRIRIRI,
@@ -335,15 +381,19 @@ class Solver:
             else:
                 self._b = (self._upload(lay.pack_b(re), lay.pack_b(im))
                            if self._panel else self._upload(re, im))
+            # per-(column, RHS) squared norms of B, float64 on the host as
+            # in the JAX package (its solver.py:694-700): the normalization
+            # of restarts and of the refinement rounds
+            cols_b = self.plan.colindx[self.plan.subset].cpu().numpy()
+            bn2 = np.zeros((self.plan.ncols, self.ln))
+            np.add.at(bn2, cols_b.astype(np.int64),
+                      (re.astype(np.float64) ** 2
+                       + im.astype(np.float64) ** 2).sum(axis=1))
+            self._bn2 = bn2
         else:
             # initial guess X0: solve A*dX == B - A*X0 and return X0 + dX
             # (the reference always starts from zero, tfqmrgpu_core.hxx:125)
-            if self._packed:
-                self._x0 = torch.from_numpy(
-                    self._pairs_permute(re, im)).to(self.device)
-            else:
-                self._x0 = (self._upload(lay.pack_x(re), lay.pack_x(im))
-                            if self._panel else self._upload(re, im))
+            self._x0 = self._upload_x(re, im)
 
     def _make_multiply(self, re: np.ndarray, im: np.ndarray):
         """The engine's y = A @ x over A's (re, im) block planes."""
@@ -380,12 +430,7 @@ class Solver:
         if self._x_result is None:
             raise TfqmrgpuError(encode_status(Status.NO_INFO_PASSED),
                                 "solve() has not been called")
-        if self._packed:
-            re, im = self._pairs_unpermute(self._x_result.cpu().numpy())
-        else:
-            re, im = (t.cpu().numpy() for t in self._x_result)
-        if self._panel:
-            re, im = self._layout.unpack_x(re), self._layout.unpack_x(im)
+        re, im = self._unpack_x(self._x_result)
         if layout is not None:
             return layout_ops.from_planes(re, im, trans=trans, layout=layout,
                                           conjugate=conjugate)
@@ -406,7 +451,9 @@ class Solver:
         if self._b is None and not rhs_trivial:
             raise TfqmrgpuError(encode_status(Status.NO_INFO_PASSED),
                                 "matrix 'B' has not been set")
-        if self._panel:
+        if self._x0 is not None and not rhs_trivial:
+            result = self._solve_shifted(tolerance, max_iterations)
+        elif self._panel:
             result = self._solve_panel(tolerance, max_iterations, rhs_trivial)
         elif self._packed:
             result = self._solve_fused(tolerance, max_iterations, rhs_trivial)
@@ -416,48 +463,20 @@ class Solver:
         return self._finish_solve(result, max_iterations)
 
     def _solve_blocks(self, tolerance, max_iterations, rhs_trivial):
-        """The block-list engines ('pairs', 'xla')."""
-        multiply = self._multiply
-        plan = self.plan
-        kw = dict(lm=self.lm, ln=self.ln)
-        if self._x0 is not None and not rhs_trivial:
-            x0 = self._x0
-            z = torch.zeros_like(x0[0])
-            bx = linalg.add_rhs((z, z), self._b, 1.0, plan.subset)
-            ax0 = multiply(x0)
-            bp = (bx[0] - ax0[0], bx[1] - ax0[1])
-            # keep the convergence target relative to the original |B|
-            inv = core.inverse_norms(linalg.nrm2(bx, self._cols))
-            ident = torch.arange(plan.nnzb_x, dtype=torch.int32,
-                                 device=self.device)
-            result = core.solve_core(multiply, bp, self._v3, self._cols, ident,
-                                     tolerance, max_iterations, inv, **kw)
-            return result._replace(x=(result.x[0] + x0[0],
-                                      result.x[1] + x0[1]))
+        """The block-list engines ('pairs' in 'z', 'xla')."""
         b = self._b
         if b is None:          # trivial RHS: a shape placeholder
-            z = torch.zeros((plan.nnzb_b, self.lm, self.ln),
+            z = torch.zeros((self.plan.nnzb_b, self.lm, self.ln),
                             dtype=self.dtype, device=self.device)
             b = (z, z)
-        return core.solve_core(multiply, b, self._v3, self._cols,
-                               plan.subset, tolerance, max_iterations,
-                               rhs_trivial=rhs_trivial, **kw)
+        return core.solve_core(self._multiply, b, self._v3, self._cols,
+                               self.plan.subset, tolerance, max_iterations,
+                               rhs_trivial=rhs_trivial, lm=self.lm,
+                               ln=self.ln)
 
     def _solve_panel(self, tolerance, max_iterations, rhs_trivial):
         """The panel engines ('dense', 'pallas'), as the JAX package's
-        _solve_panel and _solve_shifted."""
-        multiply = self._multiply
-        if self._x0 is not None and not rhs_trivial:
-            x0, b = self._x0, self._b
-            ax0 = multiply(x0)
-            bp = (b[0] - ax0[0], b[1] - ax0[1])
-            # keep the convergence target relative to the original |B|
-            inv = core.inverse_norms(
-                (b[0].double() ** 2 + b[1].double() ** 2).sum(dim=0))
-            result = core.solve_core_panel(multiply, bp, self._v3, tolerance,
-                                           max_iterations, inv)
-            return result._replace(x=(result.x[0] + x0[0],
-                                      result.x[1] + x0[1]))
+        _solve_panel."""
         if rhs_trivial:
             lay = self._layout
             npdt = np.float64 if self.dtype == torch.float64 else np.float32
@@ -465,34 +484,80 @@ class Solver:
             b = self._upload(lay.pack_b(unit), lay.pack_b(np.zeros_like(unit)))
         else:
             b = self._b
-        return core.solve_core_panel(multiply, b, self._v3, tolerance,
+        return core.solve_core_panel(self._multiply, b, self._v3, tolerance,
                                      max_iterations, rhs_trivial=rhs_trivial)
 
+    def _fused_primitives(self, b: torch.Tensor) -> core.TfqmrPrimitives:
+        return pp_ops.fused_primitives(self._multiply, self._pp_plan,
+                                       self.plan.ncols, b, self._gp)
+
     def _solve_fused(self, tolerance, max_iterations, rhs_trivial):
-        """The packed 'pairs' engine, as the JAX package's _solve_pairs and
-        _solve_shifted."""
-        plan, ncc = self._pp_plan, self.plan.ncols
-
-        def run(b, inv=None):
-            prim = pp_ops.fused_primitives(self._multiply, plan, ncc, b,
-                                           self._gp)
-            return core.solve_core_fused(prim, b, self._v3, ncc, self.ln,
-                                         tolerance, max_iterations, inv,
-                                         rhs_trivial=rhs_trivial)
-
-        if self._x0 is not None and not rhs_trivial:
-            x0, b = self._x0, self._b
-            prim = pp_ops.fused_primitives(self._multiply, plan, ncc, b,
-                                           self._gp)
-            # keep the convergence target relative to the original |B|
-            result = run(b - prim.multiply(x0),
-                         core.inverse_norms(prim.nrm2(b)))
-            return result._replace(x=result.x + x0)
+        """The packed 'pairs' engine, as the JAX package's _solve_pairs."""
         if rhs_trivial:
             unit = linalg.set_unit_blocks(self.plan.nnzb_b, self.lm, self.ln,
                                           torch.float32)[0].numpy()
-            return run(self._pairs_b_panel(unit, np.zeros_like(unit)))
-        return run(self._b)
+            b = self._pairs_b_panel(unit, np.zeros_like(unit))
+        else:
+            b = self._b
+        return core.solve_core_fused(self._fused_primitives(b), b, self._v3,
+                                     self.plan.ncols, self.ln, tolerance,
+                                     max_iterations, rhs_trivial=rhs_trivial)
+
+    def _solve_x(self, b, tolerance, max_iterations, inv_bn2):
+        """Solve A @ dX == b for an X-shaped ``b`` in the engine's vector
+        layout, with the convergence normalization ``inv_bn2`` [ncols, LN]
+        (float64 on the device)."""
+        if self._panel:
+            return core.solve_core_panel(self._multiply, b, self._v3,
+                                         tolerance, max_iterations, inv_bn2)
+        if self._packed:
+            return core.solve_core_fused(self._fused_primitives(b), b,
+                                         self._v3, self.plan.ncols, self.ln,
+                                         tolerance, max_iterations, inv_bn2)
+        ident = torch.arange(self.plan.nnzb_x, dtype=torch.int32,
+                             device=self.device)
+        return core.solve_core(self._multiply, b, self._v3, self._cols, ident,
+                               tolerance, max_iterations, inv_bn2,
+                               lm=self.lm, ln=self.ln)
+
+    def _solve_shifted(self, tolerance, max_iterations):
+        """The restart from the initial guess X0, as the JAX package's
+        _solve_shifted: solve A @ dX == B - A @ X0, with the convergence
+        target relative to the original |B|, and return X0 + dX."""
+        x0 = self._x0
+        inv = core.inverse_norms(torch.from_numpy(self._bn2).to(self.device))
+        if self._packed:
+            b = self._b - self._fused_primitives(self._b).multiply(x0)
+            result = self._solve_x(b, tolerance, max_iterations, inv)
+            return result._replace(x=result.x + x0)
+        bx = self._b                  # the panels hold B in X's shape
+        if not self._panel:
+            z = torch.zeros_like(x0[0])
+            bx = linalg.add_rhs((z, z), self._b, 1.0, self.plan.subset)
+        ax0 = self._multiply(x0)
+        result = self._solve_x((bx[0] - ax0[0], bx[1] - ax0[1]), tolerance,
+                               max_iterations, inv)
+        return result._replace(x=(result.x[0] + x0[0], result.x[1] + x0[1]))
+
+    def _solve_xshaped(self, r, inv_bn2, tolerance: float,
+                       max_iterations: int) -> core.SolveResult:
+        """Solve A @ dX == r for an X-shaped right-hand side ``r`` (the
+        correction step of iterative refinement): (re, im) planes
+        [nnzbX, LM, LN], tensors or arrays, in any precision; ``inv_bn2``
+        [ncols, LN] replaces the normalization by |r|.  Returns the raw
+        ``SolveResult`` (x in the engine's layout) and leaves the solver's
+        stored result alone."""
+        if self._panel or self._packed:
+            # the layout change runs on the host, as set_matrix('X') does
+            npdt = np.float64 if self.dtype == torch.float64 else np.float32
+            b = self._upload_x(*(np.ascontiguousarray(
+                v.to(self.dtype).cpu().numpy() if torch.is_tensor(v)
+                else np.asarray(v, dtype=npdt)) for v in r))
+        else:
+            b = tuple(torch.as_tensor(v).to(self.device, self.dtype)
+                      .contiguous() for v in r)
+        inv = torch.as_tensor(inv_bn2).to(self.device, torch.float64)
+        return self._solve_x(b, tolerance, max_iterations, inv)
 
     def _finish_solve(self, result: core.SolveResult,
                       max_iterations: int) -> SolveInfo:
@@ -524,15 +589,203 @@ class Solver:
         p.iterations_needed = iters
         p.flops_performed = flops
         p.flops_performed_all += flops
-        return SolveInfo(
+        self._info = SolveInfo(
             residuum_reached=result.residuum, iterations_needed=iters,
             flops_performed=flops, flops_performed_all=p.flops_performed_all,
             return_status=result.return_status,
             rhs_status=result.rhs_status.cpu().numpy(),
             n_probes=result.n_probes, engine=self.engine)
+        return self._info
+
+    def solve_checkpointed(self, tolerance: float = 1e-6,
+                           max_iterations: int = 999, chunk: int = 50,
+                           state_path: Optional[str] = None) -> SolveInfo:
+        """Chunked solve with restart-based checkpointing, as the JAX
+        package's (its solver.py:1077-1133).
+
+        Runs chunks of ``chunk`` iterations; after each chunk the iterate X
+        is saved to ``state_path`` (``.npz``: ``x_re``, ``x_im``,
+        ``iterations``), if given, and installed as the initial guess of the
+        next chunk.  A call with the same ``state_path`` resumes from the
+        file; on success the file is removed.  A restart drops the Krylov
+        space, so the total can exceed an uninterrupted solve's.  The
+        convergence target stays relative to the original |B|.  The last
+        chunk's initial guess stays installed (``clear_initial_guess`` drops
+        it)."""
+        if state_path and not state_path.endswith(".npz"):
+            state_path += ".npz"      # np.savez appends it
+        if state_path and os.path.exists(state_path):
+            with np.load(state_path) as st:
+                self.set_matrix("X", st["x_re"] + 1j * st["x_im"])
+                done = int(st["iterations"])
+        else:
+            done = 0
+        if done >= max_iterations:
+            self._info = SolveInfo(
+                residuum_reached=float("nan"), iterations_needed=done,
+                flops_performed=0.0,
+                flops_performed_all=self.plan.flops_performed_all,
+                return_status=int(Status.MAX_ITERATIONS), engine=self.engine)
+            return self._info
+        total = done
+        info = None
+        flops_total = 0.0
+        while total < max_iterations:
+            it = min(chunk, max_iterations - total)
+            info = self.solve(tolerance=tolerance, max_iterations=it)
+            total += info.iterations_needed if info.return_status == 0 else it
+            flops_total += info.flops_performed
+            x = self.get_matrix("X")
+            if state_path:
+                np.savez(state_path, x_re=x.real, x_im=x.imag,
+                         iterations=total)
+            if info.return_status == int(Status.SUCCESS):
+                break
+            self.set_matrix("X", x)
+        if info is not None:
+            info.iterations_needed = total
+            info.flops_performed = flops_total
+            if (state_path and info.return_status == int(Status.SUCCESS)
+                    and os.path.exists(state_path)):
+                os.remove(state_path)
+        return info
+
+    def clear_initial_guess(self):
+        """Drop the initial guess X0: the next solve starts from zero, as
+        the reference's always does (tfqmrgpu_core.hxx:125)."""
+        self._x0 = None
+
+    def get_info(self) -> SolveInfo:
+        """The last solve's statistics (getInfo, tfqmrgpu.cu:663-679)."""
+        if self._info is None:
+            raise TfqmrgpuError(encode_status(Status.NO_INFO_PASSED),
+                                "solve() has not been called")
+        return self._info
 
 
 # ------------------------------------------------------------- one-callers
+
+def refine_mixed(sc: Solver, a_re64: np.ndarray, a_im64: np.ndarray,
+                 bx64: np.ndarray, tolerance: float, max_iterations: int,
+                 info_c: SolveInfo, echo: int = 0, max_rounds: int = 12):
+    """Mixed-precision iterative refinement over a 'c' Solver that has
+    solved once (JAX: its solver.py:1151-1217).
+
+    Each round measures the float64 residual B - A @ X with the pair-plan
+    product over the plan in float64 (``PairPlanMultiply``: K1 on the card,
+    the plain ``spmm_pairs`` on the CPU) and solves the correction
+    A @ dX == r with the 'c' solver (``refine.refinement_loop``).
+
+    Args:
+      sc: the 'c' Solver; its iterate is the start.
+      a_re64, a_im64: float64 planes of A [nnzbA, LM, LM].
+      bx64: B scattered into X's shape, complex128 [nnzbX, LM, LN].
+      info_c: the c stage's SolveInfo (the accounting's base).
+
+    Returns (X complex128 [nnzbX, LM, LN], SolveInfo, converged).
+    """
+    from .refine import refinement_loop
+
+    plan, dev, f64 = sc.plan, sc.device, torch.float64
+    if sc._bn2 is None:
+        raise TfqmrgpuError(encode_status(Status.NO_INFO_PASSED),
+                            "matrix 'B' has not been set")
+    apply = pp_ops.PairPlanMultiply(
+        plan, *(torch.from_numpy(np.ascontiguousarray(v, np.float64)).to(dev)
+                for v in (a_re64, a_im64)), sc.ln)
+
+    def correction(r, res2, stall, inner_max):
+        result = sc._solve_xshaped(r, core.inverse_norms(res2), stall,
+                                   inner_max)
+        dx = result.x
+        if sc._panel or sc._packed:
+            dx = tuple(torch.from_numpy(v).to(dev) for v in sc._unpack_x(dx))
+        inner = (result.iterations
+                 if result.return_status == int(Status.SUCCESS)
+                 else inner_max)
+        return (dx[0].to(f64), dx[1].to(f64)), inner
+
+    res = refinement_loop(
+        apply64=lambda xr, xi: apply((xr, xi)), bx64=bx64,
+        colindx=plan.colindx, bn2=sc._bn2,
+        x0=sc.get_matrix("X").astype(np.complex128), tolerance=tolerance,
+        max_iterations=max_iterations, total_iters=info_c.iterations_needed,
+        inner_base=info_c.iterations_needed, solve_correction=correction,
+        stall_seed=info_c.residuum_reached,
+        flops_per_round=core.flops_per_probe(plan.n_pairs, plan.nnzb_x,
+                                             sc.lm, sc.ln),
+        flops_per_iteration=core.flops_per_iteration(
+            plan.n_pairs, plan.nnzb_x, sc.lm, sc.ln),
+        echo=echo, max_rounds=max_rounds, label="refine", device=dev)
+    info = SolveInfo(
+        residuum_reached=res["ratio"], iterations_needed=res["total_iters"],
+        flops_performed=info_c.flops_performed + res["flops"],
+        flops_performed_all=plan.flops_performed_all,
+        return_status=int(Status.SUCCESS) if res["converged"]
+        else int(Status.MAX_ITERATIONS), engine=sc.engine,
+        refinement=dict(c_engine=sc.engine,
+                        c_iterations=info_c.iterations_needed,
+                        c_residuum=info_c.residuum_reached,
+                        rounds=res["rounds"], iterations=res["total_iters"],
+                        fallback=False))
+    return res["x"], info, res["converged"]
+
+
+def _scatter_to_x(plan, b_data: np.ndarray, lm: int, ln: int) -> np.ndarray:
+    """B blocks [nnzbB, LM, LN] -> X-shaped complex128 [nnzbX, LM, LN]."""
+    bx = np.zeros((plan.nnzb_x, lm, ln), np.complex128)
+    np.add.at(bx, plan.subset.cpu().numpy().astype(np.int64),
+              np.asarray(b_data, np.complex128))
+    return bx
+
+
+def solve_mixed(a: Bsr, x: Bsr, b: Bsr, *, tolerance: float = 1e-9,
+                max_iterations: int = 999, c_tolerance: float = 1e-4,
+                engine: str = "auto", index_offset: int = 0, echo: int = 0,
+                device=None) -> tuple[Bsr, SolveInfo]:
+    """Mixed precision ('m'), as the JAX package's ``solve_mixed``: a
+    complex64 solve (to ``c_tolerance``, at most max(150,
+    max_iterations // 4) iterations), then iterative refinement against a
+    float64 residual (``refine_mixed``), and, only if refinement stalls
+    within the budget, a complex128 solve restarted from the refined
+    iterate.  The reference declares this mode and disables it
+    (tfqmrgpu.cu:42).
+
+    One difference is kept on purpose: the JAX fallback maps an explicit
+    'pairs' or 'pallas' engine to 'dense', since its 'pairs' 'z' needed
+    LM >= 16; here only 'pallas' (float32-only) maps to 'dense', and 'pairs'
+    stays, since K1 runs 'z' at every block size."""
+    sc = Solver(a, x, b, precision="c", engine=engine,
+                index_offset=index_offset, echo=echo, device=device)
+    # when float32 stalls above c_tolerance, more c iterations are waste:
+    # the refinement needs only a decent start
+    maxit_c = min(max_iterations, max(150, max_iterations // 4))
+    info_c = sc.solve(tolerance=max(c_tolerance, tolerance),
+                      max_iterations=maxit_c)
+    a_re64 = np.ascontiguousarray(a.data.real, dtype=np.float64)
+    a_im64 = np.ascontiguousarray(a.data.imag, dtype=np.float64)
+    bx64 = _scatter_to_x(sc.plan, b.data, sc.lm, sc.ln)
+    xm, info, converged = refine_mixed(sc, a_re64, a_im64, bx64, tolerance,
+                                       max_iterations, info_c, echo=echo)
+    if echo > 0:
+        print(f"# mixed: {info_c.iterations_needed} c-iterations + "
+              f"{info.iterations_needed - info_c.iterations_needed} "
+              f"refine-iterations -> residuum {info.residuum_reached:.3e}"
+              f"{'' if converged else ' (stalled)'}")
+    if not converged and info.iterations_needed < max_iterations:
+        sz = Solver(a, x, b, precision="z",
+                    engine="dense" if engine == "pallas" else engine,
+                    index_offset=index_offset, echo=echo, device=device)
+        sz.set_matrix("X", xm)
+        info_z = sz.solve(tolerance=tolerance,
+                          max_iterations=max_iterations
+                          - info.iterations_needed)
+        info_z.iterations_needed += info.iterations_needed
+        info_z.flops_performed += info.flops_performed
+        info_z.refinement = dict(info.refinement, fallback=True)
+        return x.with_data(sz.get_matrix("X")), info_z
+    return x.with_data(xm), info
+
 
 def solve(a: Bsr, x: Bsr, b: Bsr, *, precision: str = "z",
           tolerance: float = 1e-6, max_iterations: int = 999,
@@ -540,20 +793,39 @@ def solve(a: Bsr, x: Bsr, b: Bsr, *, precision: str = "z",
           device=None) -> tuple[Bsr, SolveInfo]:
     """One-call solve: returns (X with data attached, SolveInfo)
     (tfqmrgpu_bsrsv, tfqmrgpu.cu:700-791), on the CUDA card unless
-    ``device`` is given."""
+    ``device`` is given.  precision 'm' runs ``solve_mixed``."""
+    if precision == "m":
+        return solve_mixed(a, x, b, tolerance=tolerance,
+                           max_iterations=max_iterations, engine=engine,
+                           index_offset=index_offset, echo=echo,
+                           device=device)
     s = Solver(a, x, b, precision=precision, engine=engine,
                index_offset=index_offset, echo=echo, device=device)
     info = s.solve(tolerance=tolerance, max_iterations=max_iterations)
     return x.with_data(s.get_matrix("X")), info
 
 
+def bsrsv(a: Bsr, x: Bsr, b: Bsr, **kw) -> tuple[Bsr, SolveInfo]:
+    """The one-call solve in 'z' (default), 'c' or 'm' (tfqmrgpu_bsrsv,
+    tfqmrgpu.cu:700-791); the keywords are ``solve``'s."""
+    return solve(a, x, b, **kw)
+
+
 def bsrsv_z(a, x, b, **kw):
     """complex128 one-call solve (tfqmrgpu_bsrsv_z, tfqmrgpu.cu:796-809)."""
     kw.setdefault("precision", "z")
-    return solve(a, x, b, **kw)
+    return bsrsv(a, x, b, **kw)
 
 
 def bsrsv_c(a, x, b, **kw):
     """complex64 one-call solve (tfqmrgpu_bsrsv_c, tfqmrgpu.cu:812-822)."""
     kw.setdefault("precision", "c")
-    return solve(a, x, b, **kw)
+    return bsrsv(a, x, b, **kw)
+
+
+def bsrsv_m(a, x, b, **kw):
+    """Mixed-precision one-call solve: complex64 iterations refined against
+    a float64 residual (the reference's declared, disabled 'm' mode,
+    tfqmrgpu.cu:42)."""
+    kw.setdefault("precision", "m")
+    return bsrsv(a, x, b, **kw)
