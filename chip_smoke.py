@@ -72,7 +72,19 @@ two for each:
 14. FD rtb=12.75 'z' through ``Solver.solve_checkpointed`` in chunks of 25
    with a state file: cut after one chunk, resumed in a new Solver, which
    must converge to 1e-9, remove the state file and match the reference
-   to 1e-5.
+   to 1e-5;
+15. the C API: ``libtfqmrgpu_tpu_torch.so`` built with g++ and called by
+   ctypes in this process: (a) FD rtb=12.75 through ``tfqmrgpu_bsrsv_z``
+   (phase 3's iterations, every multiply through K1, maxdev < 1e-5), (b)
+   the golden-class 'z' system through the ten-step workflow (X equal to
+   ``Solver(engine='auto')``'s with the C path's v3 to 1e-12, every
+   multiply through K1, ``bufferSize`` beside the peak device memory), (c)
+   golden-class 'c' through ``tfqmrgpu_bsrsv_c`` (every multiply through
+   K3, residual < 1e-4), (d) golden-class 'm' through ``tfqmrgpu_bsrsv_m``
+   (SUCCESS, residual < 1e-8, one K1 launch per float64 residual, the c
+   stage on K3), each C path's wall beside the Python path's; (e) the C
+   example built with gcc and run as its own process, whose embedded
+   interpreter imports the port and solves on the card.
 
 Then one JSON line on the kernels (time, launches on their path, bound,
 plain and library times; the launches of every path that runs the kernel
@@ -216,6 +228,43 @@ def library_product(plan, a_blocks: np.ndarray, xp: tuple, cdtype,
     rel, _ = _maxdev((y.real, y.imag), tuple(w.reshape(nr, -1) for w in want))
     require(rel <= gate, f"library product maxdev {rel:.3e} > {gate}")
     return (lambda: torch.sparse.mm(a, x)), None
+
+
+def riri(c: np.ndarray, dtype=np.float64) -> np.ndarray:
+    """Complex blocks [nnzb, d1, d2] -> the C caller's RIRIRIRI array."""
+    return np.ascontiguousarray(np.stack([c.real, c.imag], axis=-1),
+                                dtype=dtype)
+
+
+def c_onecall(lib, precision: str, a, x, b, threshold: float,
+              max_iterations: int, index_offset: int = 0):
+    """``tfqmrgpu_bsrsv_{precision}`` of the port's C library by ctypes, on
+    operands with data on A and B (float arrays for 'c', double for 'z' and
+    'm').  Returns (status, X complex [nnzbX, LM, LN], iterations,
+    residual, host ms of the C call alone: the arrays a C caller holds are
+    made before it, X's complex view after it)."""
+    import ctypes
+
+    lm, ln = a.data.shape[1], b.data.shape[2]
+    dt = np.float32 if precision == "c" else np.float64
+    rpa, cia, rpx, cix, rpb, cib = (
+        np.ascontiguousarray(np.asarray(v, np.int32) + index_offset)
+        for v in (a.rowptr, a.colind, x.rowptr, x.colind, b.rowptr,
+                  b.colind))
+    amat, bmat = riri(a.data, dt), riri(b.data, dt)
+    xmat = np.zeros((x.nnzb, lm, ln, 2), dt)
+    iters = ctypes.c_int32(max_iterations)     # in: the cap, out: achieved
+    resid = ctypes.c_float(threshold)          # in: the target, out: reached
+    t0 = time.perf_counter()
+    st = getattr(lib, f"tfqmrgpu_bsrsv_{precision}")(
+        a.nrows, lm, ln,
+        rpa.ctypes.data, a.nnzb, cia.ctypes.data, amat.ctypes.data, b"n",
+        rpx.ctypes.data, x.nnzb, cix.ctypes.data, xmat.ctypes.data, b"n",
+        rpb.ctypes.data, b.nnzb, cib.ctypes.data, bmat.ctypes.data, b"n",
+        ctypes.byref(iters), ctypes.byref(resid), index_offset, 0)
+    ms = (time.perf_counter() - t0) * 1e3
+    return (st, xmat[..., 0] + 1j * xmat[..., 1], iters.value, resid.value,
+            ms)
 
 
 # --------------------------------------------------------------- phases
@@ -486,14 +535,21 @@ def phase_fd(dev, fd):
     return launches, info.iterations_needed
 
 
-def phase_golden(dev, mb: int = 281, ncols: int = 16, deg: int = 11,
-                 lm: int = 32, timed_iterations: int = 20):
-    from tfqmrgpu_tpu_torch import Solver
-
+def golden_z_problem(mb: int = 281, ncols: int = 16, deg: int = 11,
+                     lm: int = 32):
+    """The golden-class 'z' system of phases 4 and 15: seeded random
+    complex128 blocks, A diagonally dominant."""
     rng = np.random.default_rng(281)
     a, x, b = golden_class_patterns(mb, deg, ncols)
     a = a.with_data(dominant_fill(rng, a.nnzb, deg, lm))
     b = b.with_data(rng.standard_normal((b.nnzb, lm, lm, 2)) @ [1, 1j])
+    return a, x, b
+
+
+def phase_golden(dev, timed_iterations: int = 20):
+    from tfqmrgpu_tpu_torch import Solver
+
+    a, x, b = golden_z_problem()
     s = Solver(a, x, b, precision="z", engine="auto", device=dev)
     require(s.engine == "pairs", f"auto picked {s.engine}")
     t0 = time.perf_counter()
@@ -1123,6 +1179,307 @@ def phase_checkpoint(dev, fd, z_iterations: int):
     return launches
 
 
+def _walls_ms(fn, reps: int = 3) -> list:
+    """Host walls (ms) of ``reps`` calls of ``fn``, each ending in a
+    synchronize."""
+    walls = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    return walls
+
+
+def _c_walls_ms(fn, reps: int = 3) -> list:
+    """The C calls' own host walls (ms) of ``reps`` calls of ``fn``, which
+    returns them last."""
+    return [fn()[-1] for _ in range(reps)]
+
+
+def _timed(fn):
+    """(fn(), host ms of the call, ending in a synchronize)."""
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def _c_ok(lib, st: int, what: str):
+    require(st == 0, f"{what}: status {st} "
+            f"({lib.tfqmrgpuGetErrorString(st).decode()})")
+
+
+def c_ten_steps(lib, a, x, b, threshold: float, max_iterations: int,
+                precision: bytes = b"z"):
+    """The reference's ten-step workflow through the port's C library by
+    ctypes: createHandle, setStream, createPlan, bufferSize,
+    createWorkspace, setBuffer, setMatrix('A', 'B'), solve, getInfo,
+    getMatrix('X'), destroy*.  Returns (X complex, iterations, bufferSize,
+    peak device bytes the workflow added, the plan's api state read before
+    destroyPlan, {step: host ms}, host ms of all the C calls)."""
+    import ctypes
+
+    from tfqmrgpu_tpu_torch import api
+
+    lm, ln = a.data.shape[1], b.data.shape[2]
+    rpa, cia, rpx, cix, rpb, cib = (
+        np.ascontiguousarray(v, np.int32)
+        for v in (a.rowptr, a.colind, x.rowptr, x.colind, b.rowptr,
+                  b.colind))
+    amat, bmat = riri(a.data), riri(b.data)
+    xmat = np.zeros((x.nnzb, lm, ln, 2))
+    h, p = ctypes.c_int64(0), ctypes.c_int64(0)
+    size, buf = ctypes.c_size_t(0), ctypes.c_void_p(0)
+    resid, iters = ctypes.c_double(0), ctypes.c_int32(0)
+    flops, flops_all = ctypes.c_double(0), ctypes.c_double(0)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    clock = [time.perf_counter()]
+    steps = {}
+
+    def lap(step):
+        clock.append(time.perf_counter())
+        steps[step] = steps.get(step, 0.0) + (clock[-1] - clock[-2]) * 1e3
+
+    _c_ok(lib, lib.tfqmrgpuCreateHandle(ctypes.byref(h)), "createHandle")
+    _c_ok(lib, lib.tfqmrgpuSetStream(h, 0), "setStream")
+    lap("handle")
+    _c_ok(lib, lib.tfqmrgpu_bsrsv_createPlan(
+        h, ctypes.byref(p), a.nrows, rpa.ctypes.data, a.nnzb,
+        cia.ctypes.data, rpx.ctypes.data, x.nnzb, cix.ctypes.data,
+        rpb.ctypes.data, b.nnzb, cib.ctypes.data, 0, 0), "createPlan")
+    lap("createPlan")
+    _c_ok(lib, lib.tfqmrgpu_bsrsv_bufferSize(
+        h, p, lm, lm, ln, ln, precision, ctypes.byref(size)), "bufferSize")
+    _c_ok(lib, lib.tfqmrgpuCreateWorkspace(ctypes.byref(buf), size.value,
+                                           b"d"), "createWorkspace")
+    _c_ok(lib, lib.tfqmrgpu_bsrsv_setBuffer(h, p, buf), "setBuffer")
+    lap("setBuffer")
+    for var, val, d2 in ((b"A", amat, lm), (b"B", bmat, ln)):
+        _c_ok(lib, lib.tfqmrgpu_bsrsv_setMatrix(
+            h, p, var, val.ctypes.data, precision, lm, d2, b"n", 0x55),
+            f"setMatrix {var.decode()}")
+    lap("setMatrix")
+    _c_ok(lib, lib.tfqmrgpu_bsrsv_solve(h, p, threshold, max_iterations),
+          "solve")
+    torch.cuda.synchronize()
+    lap("solve")
+    peak = torch.cuda.max_memory_allocated() - base
+    _c_ok(lib, lib.tfqmrgpu_bsrsv_getInfo(
+        h, p, ctypes.byref(resid), ctypes.byref(iters), ctypes.byref(flops),
+        ctypes.byref(flops_all)), "getInfo")
+    _c_ok(lib, lib.tfqmrgpu_bsrsv_getMatrix(
+        h, p, b"X", xmat.ctypes.data, precision, lm, ln, b"n", 0x55),
+        "getMatrix")
+    lap("getMatrix")
+    state = api._PLANS[p.value]
+    _c_ok(lib, lib.tfqmrgpu_bsrsv_destroyPlan(h, p), "destroyPlan")
+    _c_ok(lib, lib.tfqmrgpuDestroyWorkspace(buf), "destroyWorkspace")
+    _c_ok(lib, lib.tfqmrgpuDestroyHandle(h), "destroyHandle")
+    lap("destroy")
+    return (xmat[..., 0] + 1j * xmat[..., 1], iters.value, size.value, peak,
+            state, steps, sum(steps.values()))
+
+
+def phase_capi(dev, fd, card: str, fd_iterations: int, fd_probes: int):
+    """Phase 15: the C API.  Builds libtfqmrgpu_tpu_torch.so and drives the
+    solver through it by ctypes in this process (its C functions run the
+    bridge in this interpreter): (a) FD rtb=12.75 'z' through the one-call
+    tfqmrgpu_bsrsv_z (K1), (b) the golden-class 'z' system through the
+    ten-step workflow (K1), (c) golden-class 'c' through tfqmrgpu_bsrsv_c
+    (K3), (d) golden-class 'm' through tfqmrgpu_bsrsv_m (K3, float64
+    residuals on K1); then (e) the C example, built with gcc and run as its
+    own process.  Each step's C path is timed beside the direct Python path
+    on the same problem (medians of 3 host walls, the checked call the
+    first of them)."""
+    import sys
+
+    import tfqmrgpu_tpu_torch as tt
+    from tfqmrgpu_tpu_torch import Solver, create_plan, native
+    from tfqmrgpu_tpu_torch.ops.pairpanel import (PairPanelMultiply,
+                                                  PairPlanMultiply)
+    from tfqmrgpu_tpu_torch.ops.pallas_spmm import RowTileMultiply
+
+    t_phase = time.perf_counter()
+    path, build_s = native.build()
+    lib = native.load()
+    print(f"phase 15 C API: {path.name} built in {build_s:.1f} s (g++, "
+          f"-Wl,-Bsymbolic; walls below are medians of 3 host walls on "
+          f"{card})", flush=True)
+    counters = (PairPlanMultiply, RowTileMultiply, PairPanelMultiply)
+    k2_launches = []
+
+    def drive(fn):
+        """Counts zeroed just before ``fn`` and read just after: (result,
+        (K1, K3, K2) launches)."""
+        for c in counters:
+            c.launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        k2_launches.append(PairPanelMultiply.launches)
+        return out, tuple(c.launches for c in counters)
+
+    f32 = lambda v: float(np.float32(v))    # the C threshold is a float
+
+    # (a) FD rtb=12.75 'z', one-call
+    a, b = fd.a_with_data(), fd.b_with_data()
+    ref = fd.x_reference.astype(np.float64)
+    run_a = lambda: c_onecall(lib, "z", a, fd.x, b, 1e-9, 2000)
+    (st, xc, iters, resid, ms0), (k1a, k3, k2) = drive(run_a)
+    _c_ok(lib, st, "FD tfqmrgpu_bsrsv_z")
+    maxdev = float(np.max(np.abs(xc - ref)) / np.max(np.abs(ref)))
+    require(iters == fd_iterations, f"FD C one-call: {iters} iterations, "
+            f"phase 3: {fd_iterations}")
+    require((k1a, k3, k2) == (2 * iters + fd_probes, 0, 0),
+            f"FD C one-call: K1, K3, K2 launches {(k1a, k3, k2)} for {iters} "
+            f"iterations and {fd_probes} probes")
+    require(maxdev < 1e-5, f"FD C one-call maxdev {maxdev:.3e} >= 1e-5")
+    c_ms = statistics.median([ms0] + _c_walls_ms(run_a, 2))
+    py_ms = statistics.median(_walls_ms(lambda: tt.bsrsv_z(
+        a, fd.x, b, tolerance=f32(1e-9), max_iterations=2000, device=dev)))
+    print(f"phase 15 (a) FD rtb=12.75 tfqmrgpu_bsrsv_z: status 0, {iters} "
+          f"iterations (phase 3: {fd_iterations}), residual {resid:.3e}, "
+          f"maxdev {maxdev:.3e}, K1 launches {k1a}; wall C {c_ms:.1f} ms, "
+          f"Python bsrsv_z {py_ms:.1f} ms", flush=True)
+
+    # (b) golden-class 'z', the ten steps
+    a, x, b = golden_z_problem()
+    run_b = lambda: c_ten_steps(lib, a, x, b, 1e-10, 500)
+    first_b, (k1b, k3, k2) = drive(run_b)
+    xc, iters, nbytes, peak, state, _, _ = first_b
+    info_c = state.solver.get_info()
+    require(state.solver.engine == "pairs",
+            f"golden C ten-step engine {state.solver.engine}")
+    require((k1b, k3, k2) == (2 * iters + info_c.n_probes, 0, 0),
+            f"golden C ten-step: K1, K3, K2 launches {(k1b, k3, k2)} for "
+            f"{iters} iterations and {info_c.n_probes} probes")
+
+    def direct_b():
+        """The same steps in Python: (Solver, SolveInfo, X, {step: ms})."""
+        t = [time.perf_counter()]
+        s = Solver(a, x, b, precision="z", engine="auto", device=dev,
+                   v3=state.solver._v3)   # 'z' keeps v3 unpacked
+        t.append(time.perf_counter())
+        info = s.solve(tolerance=1e-10, max_iterations=500)
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        xs = s.get_matrix("X")
+        t.append(time.perf_counter())
+        return s, info, xs, dict(zip(("Solver", "solve", "get_matrix"),
+                                     np.diff(t) * 1e3))
+
+    first_direct_b = direct_b()
+    s, info, xs, _ = first_direct_b
+    rel = float(np.max(np.abs(xc - xs)) / np.max(np.abs(xs)))
+    require(info.return_status == 0 and info.iterations_needed == iters,
+            f"golden Solver: status {info.return_status}, "
+            f"{info.iterations_needed} iterations, C path {iters}")
+    require(rel <= 1e-12, f"golden C ten-step X vs Solver: {rel:.3e} > 1e-12")
+    c_runs = [first_b] + [run_b() for _ in range(2)]
+    py_runs = [first_direct_b[-1]] + [direct_b()[-1] for _ in range(2)]
+    c_ms = statistics.median(r[-1] for r in c_runs)
+    py_ms = statistics.median(sum(r.values()) for r in py_runs)
+    c_steps = {k: statistics.median(r[-2][k] for r in c_runs)
+               for k in c_runs[0][-2]}
+    py_steps = {k: statistics.median(r[k] for r in py_runs)
+                for k in py_runs[0]}
+    print(f"phase 15 (b) golden-class 'z' ten-step C workflow -> "
+          f"{state.solver.engine}: {iters} iterations, X vs "
+          f"Solver(engine='auto') {rel:.3e}, K1 launches {k1b}; bufferSize "
+          f"{nbytes / 1e6:.2f} MB, max_memory_allocated over the workflow "
+          f"{peak / 1e6:.2f} MB; wall C {c_ms:.1f} ms ("
+          + ", ".join(f"{k} {v:.1f}" for k, v in c_steps.items())
+          + f"), Python Solver {py_ms:.1f} ms ("
+          + ", ".join(f"{k} {v:.1f}" for k, v in py_steps.items()) + ")",
+          flush=True)
+
+    # (c) golden-class 'c', one-call
+    a, x, b = golden_c_problem()
+    plan = create_plan(a, x, b, device=dev)
+    run_c = lambda: c_onecall(lib, "c", a, x, b, 1e-5, 500)
+    (st, xc, iters, resid, ms0), (k1, k3c, k2) = drive(run_c)
+    _c_ok(lib, st, "golden tfqmrgpu_bsrsv_c")
+    direct_c = lambda: tt.bsrsv_c(a, x, b, tolerance=f32(1e-5),
+                                  max_iterations=500, device=dev)
+    (_, info), py0 = _timed(direct_c)
+    require(info.engine == "pallas" and info.iterations_needed == iters,
+            f"golden 'c': Python path on {info.engine} in "
+            f"{info.iterations_needed} iterations, C path {iters}")
+    require((k1, k3c, k2) == (0, 2 * iters + info.n_probes, 0),
+            f"golden C 'c': K1, K3, K2 launches {(k1, k3c, k2)} for {iters} "
+            f"iterations and {info.n_probes} probes")
+    res = pattern_residual(plan, xc, a, b, dev)
+    require(res < 1e-4, f"golden C 'c' |AX-B|/|B| = {res:.3e}")
+    c_ms = statistics.median([ms0] + _c_walls_ms(run_c, 2))
+    py_ms = statistics.median([py0] + _walls_ms(direct_c, 2))
+    print(f"phase 15 (c) golden-class tfqmrgpu_bsrsv_c -> {info.engine}: "
+          f"{iters} iterations, residual {resid:.3e}, |AX-B|/|B| {res:.3e}, "
+          f"K3 launches {k3c}; wall C {c_ms:.1f} ms, Python bsrsv_c "
+          f"{py_ms:.1f} ms", flush=True)
+
+    # (d) golden-class 'm', one-call
+    a = a.with_data(a.data.astype(np.complex128))
+    b = b.with_data(b.data.astype(np.complex128))
+    run_d = lambda: c_onecall(lib, "m", a, x, b, 1e-9, 500)
+    (st, xc, iters, resid, ms0), (k1d, k3d, k2) = drive(run_d)
+    _c_ok(lib, st, "golden tfqmrgpu_bsrsv_m")
+    direct_d = lambda: tt.bsrsv_m(a, x, b, tolerance=f32(1e-9),
+                                  max_iterations=500, device=dev)
+    (_, info), py0 = _timed(direct_d)
+    r = info.refinement
+    require(info.iterations_needed == iters and r["c_engine"] == "pallas",
+            f"golden 'm': Python path {info.iterations_needed} iterations, "
+            f"c stage on {r['c_engine']}; C path {iters}")
+    want_k1 = residual_checks(r["rounds"]) + fallback_k1(info)
+    require(k1d == want_k1 and k3d >= 2 * r["c_iterations"] and k2 == 0,
+            f"golden C 'm': K1, K3, K2 launches {(k1d, k3d, k2)}, want K1 "
+            f"{want_k1}, K3 >= {2 * r['c_iterations']}")
+    res = pattern_residual(plan, xc, a, b, dev)
+    require(res < 1e-8, f"golden C 'm' |AX-B|/|B| = {res:.3e}")
+    c_ms = statistics.median([ms0] + _c_walls_ms(run_d, 2))
+    py_ms = statistics.median([py0] + _walls_ms(direct_d, 2))
+    print(f"phase 15 (d) golden-class tfqmrgpu_bsrsv_m: status 0, {iters} "
+          f"iterations ({r['c_iterations']} in the c stage on K3, "
+          f"{r['rounds']} rounds), residual {resid:.3e}, |AX-B|/|B| "
+          f"{res:.3e}, K1 launches {k1d} (one a float64 residual), K3 "
+          f"{k3d}; wall C {c_ms:.1f} ms, Python bsrsv_m {py_ms:.1f} ms",
+          flush=True)
+
+    # (e) the C example as its own process
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as tmp:
+        exe = os.path.join(tmp, "c_example")
+        cc = subprocess.run(
+            ["gcc", "-std=c99", os.path.join(
+                root, "tfqmrgpu_tpu_torch", "examples",
+                "tfqmrgpu_c_example.c"), *native.link_flags(), "-o", exe],
+            capture_output=True, text=True, timeout=120)
+        require(cc.returncode == 0, f"gcc: {cc.stderr.strip()}")
+        # the embedded interpreter gets this interpreter's path: the card
+        # machine's torch may live in a virtual environment
+        env = dict(os.environ, LD_LIBRARY_PATH=str(path.parent),
+                   PYTHONPATH=os.pathsep.join(
+                       [root] + [os.path.abspath(p) for p in sys.path if p]))
+        t0 = time.perf_counter()
+        run = subprocess.run([exe], capture_output=True, text=True, env=env,
+                             cwd=tmp, timeout=300)
+        wall_s = time.perf_counter() - t0
+    require(run.returncode == 0 and "tfqmrgpu_c_example: OK" in run.stdout,
+            f"C example exit {run.returncode}: {run.stdout}{run.stderr}")
+    print(f"phase 15 (e) C example (gcc, its own process and interpreter): "
+          f"{run.stdout.strip().splitlines()[0]}; OK in {wall_s:.1f} s; "
+          f"phase 15 took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return {"k1": {"phase 15 FD z C one-call": k1a,
+                   "phase 15 golden z C ten-step": k1b,
+                   "phase 15 golden m C one-call (residuals)": k1d},
+            "k3": {"phase 15 golden c C one-call": k3c,
+                   "phase 15 golden m C one-call (c stage, corrections)":
+                       k3d},
+            "k2": {"phase 15 C paths (a)-(d)": sum(k2_launches)}}
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device; none is available")
@@ -1147,6 +1504,8 @@ def main():
     k1_file_z, k1_file_m, k2_file_m = phase_file_fd(dev, fd, fd_iterations)
     k1_golden_m, k3_golden_m = phase_golden_m(dev)
     k1_checkpoint = phase_checkpoint(dev, fd, fd_iterations)
+    capi = phase_capi(dev, fd, card, fd_iterations,
+                      launches - 2 * fd_iterations)
     print(json.dumps({"kernels": [
         {"name": "pairpanel_spmm", "route": "cuda",
          "source": "tfqmrgpu_tpu_torch/csrc/pairpanel_spmm.cu",
@@ -1157,21 +1516,24 @@ def main():
              "phase 12 FD z file": k1_file_z,
              "phase 12 FD m file (residuals)": k1_file_m,
              "phase 13 golden m (residuals)": k1_golden_m,
-             "phase 14 FD z solve_checkpointed": k1_checkpoint}},
+             "phase 14 FD z solve_checkpointed": k1_checkpoint,
+             **capi["k1"]}},
         {"name": "rowtile_spmm", "route": "cuda",
          "source": "tfqmrgpu_tpu_torch/csrc/rowtile_spmm.cu",
          "replaces": "tfqmrgpu_tpu/ops/pallas_spmm.py:214",
          "launches": k3_launches, **k3, "card": card,
          "launches_by_path": {
              "phase 6 golden c": k3_launches,
-             "phase 13 golden m (c stage, corrections)": k3_golden_m}},
+             "phase 13 golden m (c stage, corrections)": k3_golden_m,
+             **capi["k3"]}},
         {"name": "pairpanel_tiles", "route": "cuda",
          "source": "tfqmrgpu_tpu_torch/csrc/pairpanel_tiles.cu",
          "replaces": "tfqmrgpu_tpu/ops/pairpanel.py:1706",
          "launches": k2_launches, **k2, "card": card,
          "launches_by_path": {
              "phase 10 golden c pairs": k2_launches,
-             "phase 12 FD m file (c stage, corrections)": k2_file_m}},
+             "phase 12 FD m file (c stage, corrections)": k2_file_m,
+             **capi["k2"]}},
         {"name": "dma_probe", "route": "cuda",
          "source": "tfqmrgpu_tpu_torch/csrc/dma_probe.cu",
          "replaces": "tools/dma_probe.py:39", **k4, "card": card},

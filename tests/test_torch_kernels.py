@@ -1,5 +1,6 @@
 """The hand-written kernels (pair-plan K1, packed pair-plan K2, row-tile
-K3, stream probe K4) and their build.
+K3, stream probe K4) and their build, and K1 driven from C through the
+port's C library.
 
 Imports neither JAX nor tests/conftest.py, so that the card-only tests run
 on a machine without JAX:
@@ -13,11 +14,11 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (STAGED_SHAPES, _rowtile_multiply, check_staged,
-                        golden_class_patterns, packed_multiply, planes,
-                        random_problem)
+from chip_smoke import (STAGED_SHAPES, _rowtile_multiply, c_onecall,
+                        check_staged, dominant_fill, golden_class_patterns,
+                        packed_multiply, planes, random_problem)
 from tfqmrgpu_tpu_torch import (ALLOWED_BLOCK_SIZES, Solver, _build,
-                                create_plan, dma_probe)
+                                create_plan, dma_probe, native)
 from tfqmrgpu_tpu_torch.ops import pairpanel as pp
 from tfqmrgpu_tpu_torch.ops import paneltiles as pt
 from tfqmrgpu_tpu_torch.ops.pairpanel import PairPanelMultiply, PairPlanMultiply
@@ -276,3 +277,33 @@ def test_stream_probe_matches_plain_on_card():
         assert dma_probe.StreamProbe.launches == before + 1
         assert float((got - want).abs().max()) <= 1e-4 * float(
             want.abs().max()), stage
+
+
+@pytest.mark.cuda
+def test_c_one_call_runs_k1_on_card(monkeypatch):
+    """A small 'z' one-call solve through the port's C library
+    (``tfqmrgpu_bsrsv_z`` by ctypes, in this interpreter): 'auto' takes the
+    'pairs' engine and every multiply goes through K1."""
+    _needs_card()
+    infos = []
+    solve = Solver.solve
+
+    def recorded(self, *args, **kwargs):
+        infos.append(solve(self, *args, **kwargs))
+        return infos[-1]
+
+    monkeypatch.setattr(Solver, "solve", recorded)
+    rng = np.random.default_rng(4)
+    # 2048 rows of 4 x 4 blocks: the dense planes exceed the 'auto' limit
+    a, x, b = golden_class_patterns(mb=512, deg=4, ncols=4)
+    a = a.with_data(dominant_fill(rng, a.nnzb, 4, 4))
+    b = b.with_data(rng.standard_normal((b.nnzb, 4, 4, 2)) @ [1, 1j])
+    lib = native.load()
+    PairPlanMultiply.launches = 0
+    st, xc, iters, resid, _ = c_onecall(lib, "z", a, x, b, 1e-10, 500)
+    launches = PairPlanMultiply.launches
+    assert st == 0 and 0 < iters and resid <= 1e-10
+    (info,) = infos
+    assert info.engine == "pairs" and info.iterations_needed == iters
+    assert launches == 2 * iters + info.n_probes
+    assert np.isfinite(xc).all()

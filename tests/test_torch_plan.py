@@ -139,7 +139,9 @@ def test_port_imports_no_jax():
     code = ("import sys, tfqmrgpu_tpu_torch, tfqmrgpu_tpu_torch.convert, "
             "tfqmrgpu_tpu_torch.generator, tfqmrgpu_tpu_torch.refine, "
             "tfqmrgpu_tpu_torch.bench, tfqmrgpu_tpu_torch.io.xmlio, "
-            "tfqmrgpu_tpu_torch.io.legacy, tfqmrgpu_tpu_torch.io.planfile; "
+            "tfqmrgpu_tpu_torch.io.legacy, tfqmrgpu_tpu_torch.io.planfile, "
+            "tfqmrgpu_tpu_torch.api, tfqmrgpu_tpu_torch.capi_bridge, "
+            "tfqmrgpu_tpu_torch.native; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
             " or m.startswith('tfqmrgpu_tpu.') or m == 'tfqmrgpu_tpu']; "
             "assert not bad, bad")

@@ -28,19 +28,27 @@ library's numerics.  The module names follow the JAX package's.
 * ``io/``          -- XML, legacy and pair-plan problem files.
 * ``bench.py``     -- the reference benchmark's ``tfQMR`` mode on a problem
                       file (``python -m tfqmrgpu_tpu_torch.bench``).
+* ``api.py``       -- the reference's plan-handle C API in Python (handles,
+                      plans, bufferSize, setMatrix, solve, getInfo,
+                      getMatrix, the one-call ``bsrsv_z/_c/_m``).
+* ``capi_bridge.py``, ``native.py``, ``capi/`` -- the C library
+                      ``libtfqmrgpu_tpu_torch.so`` (embedded CPython over
+                      ``api``), its build, Fortran wrappers and module, and
+                      the C++ analysis step; ``examples/`` drive it from C,
+                      Fortran, Julia and Python.
 
 Every entry point runs on the CUDA card unless it is given
 ``device="cpu"``; without a card it raises.
 """
 
-from .bsr import Bsr
+from .bsr import BlockSparseMatrix, Bsr
 from .errors import Status, TfqmrgpuError
 from .ops.pairpanel import KERNEL_BLOCK_SIZES as ALLOWED_BLOCK_SIZES
 from .plan import Plan, create_plan
 from .solver import (Solver, bsrsv, bsrsv_c, bsrsv_m, bsrsv_z, solve,
                      solve_mixed)
 
-__all__ = ["Bsr", "Plan", "create_plan", "Solver", "solve", "solve_mixed",
+__all__ = ["Bsr", "BlockSparseMatrix", "Plan", "create_plan", "Solver", "solve", "solve_mixed",
            "bsrsv", "bsrsv_z", "bsrsv_c", "bsrsv_m", "TfqmrgpuError",
            "Status", "ALLOWED_BLOCK_SIZES", "allowed_block_sizes",
            "block_size_missing"]

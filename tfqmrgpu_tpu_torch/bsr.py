@@ -84,9 +84,58 @@ class Bsr:
         return np.repeat(np.arange(self.nrows, dtype=np.int32),
                          np.diff(self.rowptr))
 
+    # ------------------------------------------------------ scipy interop
+
+    @classmethod
+    def from_scipy_bsr(cls, m, name: str = "?") -> "Bsr":
+        """Build from a ``scipy.sparse.bsr_matrix`` / ``bsr_array`` (or any
+        scipy sparse matrix with ``tobsr``)."""
+        m = m.tobsr() if hasattr(m, "tobsr") else m
+        br, bc = m.blocksize
+        return cls(nrows=m.shape[0] // br, ncols=m.shape[1] // bc,
+                   rowptr=np.asarray(m.indptr), colind=np.asarray(m.indices),
+                   data=np.asarray(m.data), name=name)
+
+    def to_scipy_bsr(self):
+        """The matrix as a ``scipy.sparse.bsr_matrix`` (needs data)."""
+        from scipy.sparse import bsr_matrix
+
+        if self.data is None:
+            raise ValueError("no block data attached")
+        br, bc = self.data.shape[1], self.data.shape[2]
+        return bsr_matrix((self.data, self.colind, self.rowptr),
+                          shape=(self.nrows * br, self.ncols * bc))
+
+    # ------------------------------------------------------------- helpers
+
     def with_data(self, data: np.ndarray) -> "Bsr":
         data = np.asarray(data)
         if data.shape[0] != self.nnzb:
             raise ValueError(f"data has {data.shape[0]} blocks, "
                              f"pattern has {self.nnzb}")
         return dataclasses.replace(self, data=data)
+
+    def pattern_key(self) -> bytes:
+        """SHA-256 of the sparsity pattern (the plan cache's key): the same
+        bytes as the JAX package's ``Bsr.pattern_key`` for the same
+        pattern."""
+        import hashlib
+
+        h = hashlib.sha256()
+        h.update(np.int64([self.nrows, self.ncols, self.nnzb]).tobytes())
+        h.update(self.rowptr.tobytes())
+        h.update(self.colind.tobytes())
+        return h.digest()
+
+
+# the reference's name for the container ("BlockSparseMatrix" XML tag)
+BlockSparseMatrix = Bsr
+
+
+def make_bsr(nrows: int, ncols: int, rowptr, colind, data=None,
+             name: str = "?") -> Bsr:
+    """A validated ``Bsr``."""
+    b = Bsr(nrows=nrows, ncols=ncols, rowptr=np.asarray(rowptr),
+            colind=np.asarray(colind), data=data, name=name)
+    b.validate()
+    return b

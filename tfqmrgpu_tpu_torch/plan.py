@@ -167,6 +167,26 @@ class Plan:
         return torch.repeat_interleave(
             torch.arange(self.nnzb_x, device=self.device), counts)
 
+    def memory_requirement_bytes(self, lm: int, ln: int,
+                                 precision: str = "z") -> int:
+        """Device-memory estimate of one solve, the analogue of
+        tfqmrgpu_bsrsv_bufferSize's memcount mode (tfqmrgpu_core.hxx:49-99)
+        and the same formula as the JAX package's.  PyTorch's caching
+        allocator allocates for real, so the number is informational."""
+        rsize = 8 if precision == "z" else 4
+        nX, nB, nC = self.nnzb_x, self.nnzb_b, self.ncols
+        vec = 2 * lm * ln * rsize
+        total = 7 * nX * vec                      # v1, v4..v9
+        total += nX * 2 * lm * ln * 4             # v3 shadow (always float32)
+        total += nB * vec                         # v2 = B
+        total += 5 * nC * 2 * ln * rsize          # rho, alfa, beta, c67, eta
+        total += nC * 2 * ln * 8 + nC * ln * 8    # zvv/dvv result slots
+        total += 2 * nC * ln * 8                  # tau, var
+        total += nX * 2 + nB * 4 + nC * ln        # colindx, subset, status
+        total += self.starts.nbytes + self.pairs.nbytes
+        total += self.nnzb_a * 2 * lm * lm * rsize
+        return int(total)
+
     def to(self, device) -> "Plan":
         """The same plan with its tables on ``device``."""
         return dataclasses.replace(
@@ -198,15 +218,50 @@ def plan_on_device(*, nrows, ncols, nnzb_a, nnzb_x, nnzb_b, starts, pairs,
                 colind_b=h(colind_b), original_colind_x=h(original_colind_x))
 
 
+_PLAN_CACHE: dict = {}
+_PLAN_CACHE_MAX = 16
+
+
+def _device_key(device: torch.device) -> str:
+    """``device`` with its index filled in, so that 'cuda' and the current
+    'cuda:N' share cache entries."""
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return str(device)
+
+
 def create_plan(a: Bsr, x: Bsr, b: Bsr, index_offset: int = 0,
                 echo: int = 0, device=None) -> Plan:
     """Build the multiplication, subset and column-compression tables on
     ``device`` (the CUDA card unless given, see ``resolve_device``).
 
     Mirrors tfqmrgpu_bsrsv_createPlan (tfqmrgpu.cu:136-351), including its
-    validation rules and error codes.
+    validation rules and error codes.  As in the JAX package, results are
+    kept for the last 16 pattern triples (first in, first out); a hit
+    returns a shallow copy with fresh statistics.  The key holds the
+    device, so a plan is only ever handed out on the device it was built
+    for.
     """
     device = resolve_device(device)
+    key = (a.pattern_key(), x.pattern_key(), b.pattern_key(),
+           int(index_offset), _device_key(device))
+    hit = _PLAN_CACHE.get(key)
+    if hit is not None:
+        if echo > 5:
+            print("# create_plan: pattern-cache hit")
+        return dataclasses.replace(
+            hit, residuum_reached=-1.0, iterations_needed=-1,
+            flops_performed=-1.0, flops_performed_all=0.0)
+    plan = _build_plan(a, x, b, index_offset, echo, device)
+    if len(_PLAN_CACHE) >= _PLAN_CACHE_MAX:
+        _PLAN_CACHE.pop(next(iter(_PLAN_CACHE)))
+    _PLAN_CACHE[key] = plan
+    return dataclasses.replace(plan)
+
+
+def _build_plan(a: Bsr, x: Bsr, b: Bsr, index_offset: int, echo: int,
+                device: torch.device) -> Plan:
+    """``create_plan``'s tables, built anew on ``device``."""
     mb = a.nrows
     # static plausibility checks (tfqmrgpu.cu:166-172)
     if mb < 1:

@@ -757,14 +757,37 @@ def solve_mixed(a: Bsr, x: Bsr, b: Bsr, *, tolerance: float = 1e-9,
     stays, since K1 runs 'z' at every block size."""
     sc = Solver(a, x, b, precision="c", engine=engine,
                 index_offset=index_offset, echo=echo, device=device)
+    a_re64 = np.ascontiguousarray(a.data.real, dtype=np.float64)
+    a_im64 = np.ascontiguousarray(a.data.imag, dtype=np.float64)
+    bx64 = _scatter_to_x(sc.plan, b.data, sc.lm, sc.ln)
+    xm, info = mixed_stages(
+        sc, a_re64, a_im64, bx64, tolerance=tolerance,
+        max_iterations=max_iterations, c_tolerance=c_tolerance,
+        make_z=lambda: Solver(a, x, b, precision="z",
+                              engine="dense" if engine == "pallas" else engine,
+                              index_offset=index_offset, echo=echo,
+                              device=device),
+        echo=echo)
+    return x.with_data(xm), info
+
+
+def mixed_stages(sc: Solver, a_re64: np.ndarray, a_im64: np.ndarray,
+                 bx64: np.ndarray, *, tolerance: float, max_iterations: int,
+                 c_tolerance: float, make_z, echo: int = 0):
+    """The stages of 'm' over a built 'c' Solver ``sc`` that holds A and
+    B: a complex64 solve (to ``c_tolerance``, at most max(150,
+    max_iterations // 4) iterations), refinement against a float64
+    residual (``refine_mixed``; the arguments are its), and, only if
+    refinement stalls within the budget, a complex128 solve restarted from
+    the refined iterate on the 'z' Solver that ``make_z()`` returns with A
+    and B set.  Shared by ``solve_mixed`` and the plan API.
+
+    Returns (X complex128 [nnzbX, LM, LN], SolveInfo)."""
     # when float32 stalls above c_tolerance, more c iterations are waste:
     # the refinement needs only a decent start
     maxit_c = min(max_iterations, max(150, max_iterations // 4))
     info_c = sc.solve(tolerance=max(c_tolerance, tolerance),
                       max_iterations=maxit_c)
-    a_re64 = np.ascontiguousarray(a.data.real, dtype=np.float64)
-    a_im64 = np.ascontiguousarray(a.data.imag, dtype=np.float64)
-    bx64 = _scatter_to_x(sc.plan, b.data, sc.lm, sc.ln)
     xm, info, converged = refine_mixed(sc, a_re64, a_im64, bx64, tolerance,
                                        max_iterations, info_c, echo=echo)
     if echo > 0:
@@ -772,19 +795,16 @@ def solve_mixed(a: Bsr, x: Bsr, b: Bsr, *, tolerance: float = 1e-9,
               f"{info.iterations_needed - info_c.iterations_needed} "
               f"refine-iterations -> residuum {info.residuum_reached:.3e}"
               f"{'' if converged else ' (stalled)'}")
-    if not converged and info.iterations_needed < max_iterations:
-        sz = Solver(a, x, b, precision="z",
-                    engine="dense" if engine == "pallas" else engine,
-                    index_offset=index_offset, echo=echo, device=device)
-        sz.set_matrix("X", xm)
-        info_z = sz.solve(tolerance=tolerance,
-                          max_iterations=max_iterations
-                          - info.iterations_needed)
-        info_z.iterations_needed += info.iterations_needed
-        info_z.flops_performed += info.flops_performed
-        info_z.refinement = dict(info.refinement, fallback=True)
-        return x.with_data(sz.get_matrix("X")), info_z
-    return x.with_data(xm), info
+    if converged or info.iterations_needed >= max_iterations:
+        return xm, info
+    sz = make_z()
+    sz.set_matrix("X", xm)
+    info_z = sz.solve(tolerance=tolerance,
+                      max_iterations=max_iterations - info.iterations_needed)
+    info_z.iterations_needed += info.iterations_needed
+    info_z.flops_performed += info.flops_performed
+    info_z.refinement = dict(info.refinement, fallback=True)
+    return sz.get_matrix("X"), info_z
 
 
 def solve(a: Bsr, x: Bsr, b: Bsr, *, precision: str = "z",
