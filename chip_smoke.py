@@ -84,7 +84,18 @@ two for each:
    (SUCCESS, residual < 1e-8, one K1 launch per float64 residual, the c
    stage on K3), each C path's wall beside the Python path's; (e) the C
    example built with gcc and run as its own process, whose embedded
-   interpreter imports the port and solves on the card.
+   interpreter imports the port and solves on the card;
+16. the sharded layer (``tfqmrgpu_tpu_torch.parallel``) at world size 1 on
+   NCCL (one card; the multi-rank semantics are held by the gloo tests on
+   the CPU): (a) FD rtb=12.75 'z' through ``sharded_solve`` (K1 per shard:
+   phase 3's iterations and K1 launches, X within 1e-10 of phase 3's), (b)
+   golden-class 'c' through ``solve_sharded(engine='auto')`` -> 'rowtile'
+   (K3; within one iteration of phase 6, residual < 1e-4), (c)
+   golden-class 'm' through ``solve_sharded(precision='m')`` (converged to
+   1e-9, residual < 1e-8, K3 in the c stage, one K1 launch per float64
+   residual), (d) FD rtb=6.75 'z' through ``ShardedPanelSolver`` (phase
+   7's iterations), each with its collectives checked and printed per
+   iteration and its wall; (e) the sharded example as its own process.
 
 Then one JSON line on the kernels (time, launches on their path, bound,
 plain and library times; the launches of every path that runs the kernel
@@ -532,7 +543,7 @@ def phase_fd(dev, fd):
           f"{info.n_probes} probes, residuum {info.residuum_reached:.3e}, "
           f"maxdev {maxdev:.3e}, wall {wall_ms:.1f} ms (second run "
           f"{runs[1][1]:.1f} ms), kernel launches {launches}", flush=True)
-    return launches, info.iterations_needed
+    return launches, info.iterations_needed, xs.data
 
 
 def golden_z_problem(mb: int = 281, ncols: int = 16, deg: int = 11,
@@ -755,7 +766,7 @@ def phase_golden_c(dev, timed_iterations: int = 10):
           f"|AX-B|/|B| {res:.3e}, K3 launches {launches}, wall "
           f"{wall_ms:.1f} ms; {per_it:.3f} ms per iteration over "
           f"{timed_iterations} iterations", flush=True)
-    return launches
+    return launches, info.iterations_needed
 
 
 def phase_dense(dev):
@@ -777,6 +788,7 @@ def phase_dense(dev):
           f"{info.iterations_needed} iterations, {info.n_probes} probes, "
           f"residuum {info.residuum_reached:.3e}, maxdev {maxdev:.3e}, wall "
           f"{wall_ms:.1f} ms (set-up included)", flush=True)
+    return info.iterations_needed
 
 
 def phase_probe(dev):
@@ -1480,6 +1492,189 @@ def phase_capi(dev, fd, card: str, fd_iterations: int, fd_probes: int):
             "k2": {"phase 15 C paths (a)-(d)": sum(k2_launches)}}
 
 
+def _sharded_calls(mesh, its: int, probes: int, gathers: int) -> str:
+    """Check a sharded solve's collectives: one halo all_gather a multiply
+    and ``gathers`` for the result; per iteration four column sums and two
+    convergence reductions, per probe three, and one for |B|.  Returns
+    them per iteration."""
+    ag, ar = mesh.calls["all_gather"], mesh.calls["all_reduce"]
+    require(ag == 2 * its + probes + gathers,
+            f"{ag} all_gathers for {its} iterations and {probes} probes")
+    require(ar == 6 * its + 3 * probes + 1,
+            f"{ar} all_reduces for {its} iterations and {probes} probes")
+    return (f"{ag / its:.2f} all_gather + {ar / its:.2f} all_reduce per "
+            f"iteration")
+
+
+def phase_sharded(dev, fd, fd_x, fd_iterations: int, fd_launches: int,
+                  golden_c_iterations: int, dense_iterations: int,
+                  golden_m: tuple):
+    """Phase 16: the sharded layer (``tfqmrgpu_tpu_torch.parallel``) at
+    world size 1 on NCCL: every halo all_gather and all_reduce goes through
+    NCCL on the card, and each count is checked."""
+    import sys
+
+    import torch.distributed as dist
+
+    from tfqmrgpu_tpu_torch import create_plan
+    from tfqmrgpu_tpu_torch.generator import generate_fd_problem
+    from tfqmrgpu_tpu_torch.ops.pairpanel import PairPlanMultiply
+    from tfqmrgpu_tpu_torch.ops.pallas_spmm import RowTileMultiply
+    from tfqmrgpu_tpu_torch.parallel import (ShardedPanelSolver, make_mesh,
+                                             multihost, partition_plan,
+                                             sharded_solve, solve_sharded)
+
+    t_phase = time.perf_counter()
+    multihost.initialize(device=dev)
+    require(dist.get_backend() == "nccl" and dist.get_world_size() == 1,
+            f"process group {dist.get_backend()} of "
+            f"{dist.get_world_size()} ranks")
+    mesh = make_mesh(1, 1, device=dev)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    # (a) FD rtb=12.75 'z' through sharded_solve: K1 per shard
+    a, b = fd.a_with_data(), fd.b_with_data()
+    plan = create_plan(a, fd.x, b, device=dev)
+    plan.lm, plan.ln = a.slow_block_dim, b.fast_block_dim
+    part = partition_plan(plan, 1, 1)
+    mesh.calls.clear()
+    PairPlanMultiply.launches = 0
+    (xr, xi, info), wall_a = timed(lambda: sharded_solve(
+        plan, part, mesh, a.data.real, a.data.imag, b.data.real,
+        b.data.imag, tolerance=1e-9, max_iterations=2000))
+    k1_a = PairPlanMultiply.launches
+    its, probes = info["iterations"], info["n_probes"]
+    xdev = float(np.max(np.abs(xr + 1j * xi - fd_x)))
+    ref = fd.x_reference.astype(np.float64)
+    maxdev = float(np.max(np.abs(xr + 1j * xi - ref)) / np.max(np.abs(ref)))
+    require(info["return_status"] == 0, f"sharded FD status "
+            f"{info['return_status']}")
+    require(its == fd_iterations and k1_a == fd_launches,
+            f"sharded FD: {its} iterations, {k1_a} K1 launches; phase 3: "
+            f"{fd_iterations}, {fd_launches}")
+    require(xdev <= 1e-10, f"sharded FD X {xdev:.3e} from phase 3's")
+    require(maxdev < 1e-5, f"sharded FD maxdev {maxdev:.3e} >= 1e-5")
+    calls_a = _sharded_calls(mesh, its, probes, 2)
+    print(f"phase 16 (a) FD rtb=12.75 'z' sharded_solve (1 x 1 on NCCL): "
+          f"{its} iterations, {probes} probes (phase 3: {fd_iterations}), K1 "
+          f"launches {k1_a}, X {xdev:.1e} from phase 3's, maxdev "
+          f"{maxdev:.3e}, wall {wall_a:.1f} ms (set-up included), {calls_a}",
+          flush=True)
+
+    # (b) golden-class 'c' through solve_sharded(engine='auto'): K3
+    a, x, b = golden_c_problem()
+    mesh.calls.clear()
+    RowTileMultiply.launches = 0
+    (xs, info), wall_b = timed(lambda: solve_sharded(
+        a, x, b, mesh=mesh, engine="auto", tolerance=1e-5,
+        max_iterations=500))
+    k3_b = RowTileMultiply.launches
+    its, probes = info["iterations"], info["n_probes"]
+    require(info["engine"] == "rowtile" and info["return_status"] == 0,
+            f"sharded golden 'c': {info['engine']}, status "
+            f"{info['return_status']}")
+    require(abs(its - golden_c_iterations) <= 1,
+            f"sharded golden 'c' {its} iterations, phase 6 "
+            f"{golden_c_iterations}")
+    require(k3_b == 2 * its + probes > 0,
+            f"{k3_b} K3 launches for {its} iterations, {probes} probes")
+    res_b = pattern_residual(create_plan(a, x, b, device=dev), xs, a, b, dev)
+    require(res_b < 1e-4, f"sharded golden 'c' |AX-B|/|B| = {res_b:.3e}")
+    calls_b = _sharded_calls(mesh, its, probes, 1)
+    print(f"phase 16 (b) golden-class 'c' solve_sharded -> {info['engine']}: "
+          f"{its} iterations, {probes} probes (phase 6: "
+          f"{golden_c_iterations}), K3 launches {k3_b}, |AX-B|/|B| "
+          f"{res_b:.3e}, wall {wall_b:.1f} ms (set-up included), {calls_b}",
+          flush=True)
+
+    # (c) golden-class 'm': K3 in the c stage, K1 for the residuals
+    a = a.with_data(a.data.astype(np.complex128))
+    b = b.with_data(b.data.astype(np.complex128))
+    mesh.calls.clear()
+    PairPlanMultiply.launches = RowTileMultiply.launches = 0
+    (xm, info), wall_c = timed(lambda: solve_sharded(
+        a, x, b, mesh=mesh, precision="m", tolerance=1e-9,
+        max_iterations=500))
+    k1_c, k3_c = PairPlanMultiply.launches, RowTileMultiply.launches
+    res_c = pattern_residual(create_plan(a, x, b, device=dev), xm, a, b, dev)
+    require(info["converged"] and info["residuum"] <= 1e-9,
+            f"sharded golden 'm' residuum {info['residuum']:.3e}")
+    require(res_c < 1e-8, f"sharded golden 'm' |AX-B|/|B| = {res_c:.3e}")
+    require(k1_c == residual_checks(info["refine_rounds"]) and k3_c > 0,
+            f"sharded golden 'm': {k1_c} K1, {k3_c} K3 launches for "
+            f"{info['refine_rounds']} rounds")
+    # each row-tile solve (the c stage and one a round) issues 2 all_gathers
+    # an iteration, 1 a probe and 1 for X, and 6 all_reduces an iteration, 3
+    # a probe and 1 for |B|: all_reduce - 3 all_gather = -2 a solve
+    solves = 1 + info["refine_rounds"]
+    ag, ar = mesh.calls["all_gather"], mesh.calls["all_reduce"]
+    require(ar - 3 * ag == -2 * solves
+            and ag >= 2 * info["iterations"] + 2 * solves,
+            f"sharded golden 'm': {ag} all_gathers, {ar} all_reduces for "
+            f"{solves} solves of {info['iterations']} iterations")
+    print(f"phase 16 (c) golden-class 'm' solve_sharded: "
+          f"{info['c_iterations']} c-iterations + "
+          f"{info['iterations'] - info['c_iterations']} over "
+          f"{info['refine_rounds']} rounds, residuum {info['residuum']:.3e}, "
+          f"|AX-B|/|B| {res_c:.3e}, K3 launches {k3_c}, K1 launches {k1_c} "
+          f"(phase 13: K3 {golden_m[1]}, K1 {golden_m[0]}), wall "
+          f"{wall_c:.1f} ms (set-up included), "
+          f"{ag / info['iterations']:.2f} all_gather + "
+          f"{ar / info['iterations']:.2f} all_reduce per iteration",
+          flush=True)
+
+    # (d) FD rtb=6.75 'z' through ShardedPanelSolver (torch.matmul)
+    fd6 = generate_fd_problem(rtb=6.75, reference=True)
+    a, b = fd6.a_with_data(), fd6.b_with_data()
+    plan = create_plan(a, fd6.x, b, device=dev)
+    plan.lm, plan.ln = a.slow_block_dim, b.fast_block_dim
+    mesh.calls.clear()
+    (xd, info), wall_d = timed(lambda: ShardedPanelSolver(
+        plan, mesh, precision="z").solve(
+            a.data.real, a.data.imag, b.data.real, b.data.imag,
+            tolerance=1e-9, max_iterations=2000))
+    its, probes = info["iterations"], info["n_probes"]
+    ref = fd6.x_reference.astype(np.float64)
+    maxdev = float(np.max(np.abs(xd - ref)) / np.max(np.abs(ref)))
+    require(info["return_status"] == 0 and its == dense_iterations,
+            f"sharded panel FD: status {info['return_status']}, {its} "
+            f"iterations, phase 7 {dense_iterations}")
+    require(maxdev < 1e-5, f"sharded panel FD maxdev {maxdev:.3e}")
+    calls_d = _sharded_calls(mesh, its, probes, 2)
+    print(f"phase 16 (d) FD rtb=6.75 'z' ShardedPanelSolver: {its} "
+          f"iterations (phase 7: {dense_iterations}), maxdev {maxdev:.3e}, "
+          f"wall {wall_d:.1f} ms (set-up included), {calls_d}", flush=True)
+    dist.destroy_process_group()
+
+    # (e) the sharded example as its own process, a world of one on NCCL
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    run = subprocess.run(
+        [sys.executable, os.path.join(root, "tfqmrgpu_tpu_torch", "examples",
+                                      "tfqmrgpu_sharded_example.py")],
+        capture_output=True, text=True, timeout=300,
+        env=dict(os.environ, PYTHONPATH=root))
+    wall_e = time.perf_counter() - t0
+    require(run.returncode == 0
+            and "tfqmrgpu_sharded_example: OK" in run.stdout,
+            f"sharded example exit {run.returncode}: {run.stdout}"
+            f"{run.stderr[-3000:]}")
+    print(f"phase 16 (e) sharded example (its own process): "
+          f"{run.stdout.strip().splitlines()[-1]} in {wall_e:.1f} s; phase "
+          f"16 took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return {"k1": {"phase 16 (a) FD z sharded_solve": k1_a,
+                   "phase 16 (c) golden m sharded (residuals)": k1_c},
+            "k3": {"phase 16 (b) golden c solve_sharded rowtile": k3_b,
+                   "phase 16 (c) golden m sharded (c stage, corrections)":
+                       k3_c}}
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device; none is available")
@@ -1492,11 +1687,11 @@ def main():
     card = phase_device()
     fd = generate_fd_problem(rtb=12.75, reference=True)
     timing = phase_kernel(dev, fd)
-    launches, fd_iterations = phase_fd(dev, fd)
+    launches, fd_iterations, fd_x = phase_fd(dev, fd)
     phase_golden(dev)
     k3 = phase_rowtile(dev)
-    k3_launches = phase_golden_c(dev)
-    phase_dense(dev)
+    k3_launches, golden_c_iterations = phase_golden_c(dev)
+    dense_iterations = phase_dense(dev)
     k4 = phase_probe(dev)
     k2 = phase_packed(dev, fd)
     k2_launches = phase_golden_pairs_c(dev)
@@ -1506,6 +1701,9 @@ def main():
     k1_checkpoint = phase_checkpoint(dev, fd, fd_iterations)
     capi = phase_capi(dev, fd, card, fd_iterations,
                       launches - 2 * fd_iterations)
+    sharded = phase_sharded(dev, fd, fd_x, fd_iterations, launches,
+                            golden_c_iterations, dense_iterations,
+                            (k1_golden_m, k3_golden_m))
     print(json.dumps({"kernels": [
         {"name": "pairpanel_spmm", "route": "cuda",
          "source": "tfqmrgpu_tpu_torch/csrc/pairpanel_spmm.cu",
@@ -1517,7 +1715,7 @@ def main():
              "phase 12 FD m file (residuals)": k1_file_m,
              "phase 13 golden m (residuals)": k1_golden_m,
              "phase 14 FD z solve_checkpointed": k1_checkpoint,
-             **capi["k1"]}},
+             **capi["k1"], **sharded["k1"]}},
         {"name": "rowtile_spmm", "route": "cuda",
          "source": "tfqmrgpu_tpu_torch/csrc/rowtile_spmm.cu",
          "replaces": "tfqmrgpu_tpu/ops/pallas_spmm.py:214",
@@ -1525,7 +1723,7 @@ def main():
          "launches_by_path": {
              "phase 6 golden c": k3_launches,
              "phase 13 golden m (c stage, corrections)": k3_golden_m,
-             **capi["k3"]}},
+             **capi["k3"], **sharded["k3"]}},
         {"name": "pairpanel_tiles", "route": "cuda",
          "source": "tfqmrgpu_tpu_torch/csrc/pairpanel_tiles.cu",
          "replaces": "tfqmrgpu_tpu/ops/pairpanel.py:1706",

@@ -307,3 +307,77 @@ def test_c_one_call_runs_k1_on_card(monkeypatch):
     assert info.engine == "pairs" and info.iterations_needed == iters
     assert launches == 2 * iters + info.n_probes
     assert np.isfinite(xc).all()
+
+
+@pytest.fixture
+def nccl_mesh():
+    """A world of one rank on NCCL (the card) and its 1 x 1 mesh; the
+    process group is torn down after the test."""
+    _needs_card()
+    import torch.distributed as dist
+
+    from tfqmrgpu_tpu_torch.parallel import make_mesh, multihost
+
+    started = not dist.is_initialized()
+    multihost.initialize(device="cuda:0")
+    try:
+        yield make_mesh(1, 1, device="cuda:0")
+    finally:
+        if started:
+            dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_sharded_blocklist_multiply_runs_k1_on_card(nccl_mesh):
+    """The block-list sharded multiply (halo all_gather over NCCL, then K1
+    over the shard's pair table) against its plain version and the plan's
+    whole product, in 'z' and 'c'."""
+    from tfqmrgpu_tpu_torch.ops.blocksparse import spmm_pairs
+    from tfqmrgpu_tpu_torch.parallel import ShardedAction, partition_plan
+
+    rng = np.random.default_rng(5)
+    plan = create_plan(*random_problem(rng, mb=40, lm=8, ln=8, ncols=4),
+                       device="cuda")
+    plan.lm = plan.ln = 8
+    part = partition_plan(plan, 1, 1)
+    av = rng.standard_normal((plan.nnzb_a, 8, 8, 2)) @ [1, 1j]
+    xv = rng.standard_normal((plan.nnzb_x, 8, 8, 2)) @ [1, 1j]
+    for precision in ("z", "c"):
+        dtype, gate = GATES[precision]
+        npdt = np.float64 if precision == "z" else np.float32
+        act = ShardedAction.from_plan(plan, part, nccl_mesh,
+                                      av.real.astype(npdt),
+                                      av.imag.astype(npdt))
+        x = planes(xv, dtype, "cuda")
+        before = PairPlanMultiply.launches
+        gathers = nccl_mesh.calls["all_gather"]
+        y = act(x)
+        torch.cuda.synchronize()
+        assert PairPlanMultiply.launches == before + 1
+        assert nccl_mesh.calls["all_gather"] == gathers + 1
+        assert _maxdev(y, act.k1.plain(act.halo(x))) <= gate
+        whole = spmm_pairs(planes(av, dtype, "cuda"), x, plan.pairs[:, 0],
+                           plan.pairs[:, 1], plan.pair_y(), plan.nnzb_x)
+        assert _maxdev(y, whole) <= gate
+
+
+@pytest.mark.cuda
+def test_sharded_rowtile_multiply_runs_k3_on_card(nccl_mesh):
+    """The row-tile sharded multiply (halo all_gather of the panel over
+    NCCL, then K3 on the gathered panel) against its plain version."""
+    from tfqmrgpu_tpu_torch.parallel import ShardedRowTileSolver
+
+    rng = np.random.default_rng(6)
+    a, x, b = golden_class_patterns(mb=60, deg=5, ncols=4)
+    plan = create_plan(a, x, b, device="cuda")
+    plan.lm = plan.ln = 16
+    sp = ShardedRowTileSolver(plan, nccl_mesh)
+    av = rng.standard_normal((plan.nnzb_a, 16, 16, 2)) @ [1, 1j]
+    sp.set_matrix_a(av.real, av.imag)
+    xp = planes(rng.standard_normal((sp.nrl, sp.ncc, 16, 2)) @ [1, 1j],
+                torch.float32, "cuda")
+    before = RowTileMultiply.launches
+    y = sp.multiply(xp)
+    torch.cuda.synchronize()
+    assert RowTileMultiply.launches == before + 1
+    assert _maxdev(y, sp._k3.plain(sp._halo(xp))) <= 1e-4

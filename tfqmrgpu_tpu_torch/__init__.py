@@ -36,6 +36,11 @@ library's numerics.  The module names follow the JAX package's.
                       ``api``), its build, Fortran wrappers and module, and
                       the C++ analysis step; ``examples/`` drive it from C,
                       Fortran, Julia and Python.
+* ``parallel/``    -- the sharded solvers over ``torch.distributed`` (one
+                      rank per process and device: NCCL on the cards, gloo
+                      on the CPU): ``solve_sharded``, block lists on K1,
+                      row tiles on K3, dense slabs, 'm', the scaling
+                      harness.
 
 Every entry point runs on the CUDA card unless it is given
 ``device="cpu"``; without a card it raises.

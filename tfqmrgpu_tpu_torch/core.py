@@ -55,9 +55,17 @@ class SolveResult(NamedTuple):
     tau: torch.Tensor            # f64[nCols, LN] final squared-norm recurrence
 
 
+def _identity(t: torch.Tensor) -> torch.Tensor:
+    return t
+
+
 @dataclasses.dataclass(frozen=True)
 class TfqmrPrimitives:
-    """The operations the loop body needs, bound to the plan's tables."""
+    """The operations the loop body needs, bound to the plan's tables.
+
+    ``allmax`` and ``alland`` reduce a host-decision scalar (a float64 max,
+    a bool "all") over the other ranks of a sharded solve before the host
+    reads it (``parallel/``); on one device they are the identity."""
 
     multiply: Callable[[Pair], Pair]          # y = A @ x
     dotp: Callable[[Pair, Pair], Pair]        # per-column <x, y>  (f64)
@@ -65,6 +73,8 @@ class TfqmrPrimitives:
     axpy: Callable[[Pair, Pair, Pair], Pair]  # y + a[col]*x
     xpay: Callable[[Pair, Pair, Pair], Pair]  # x + a[col]*y   (y, a, x)
     add_rhs: Callable[[Pair, Pair, float], Pair]
+    allmax: Callable[[torch.Tensor], torch.Tensor] = _identity
+    alland: Callable[[torch.Tensor], torch.Tensor] = _identity
 
 
 def make_shadow_vector(nnzb_x: int, lm: int, ln: int, *, device,
@@ -150,7 +160,8 @@ def tfqmr_loop(prim: TfqmrPrimitives, v2: Pair, v3: Pair, v5_init: Pair,
         # ---- convergence control on the host (tfqmrgpu_core.hxx:235-304)
         broke = (status == -1) | (status == -2)
         max_ub, all_broke = torch.stack(
-            [(tau * inv_bn2).max(), broke.all().to(f64)]).tolist()
+            [prim.allmax((tau * inv_bn2).max()),
+             prim.alland(broke.all()).to(f64)]).tolist()
         max_bound2 = max_ub * float(2 * it + 1)
         if all_broke:
             stop_code = 2
@@ -160,9 +171,10 @@ def tfqmr_loop(prim: TfqmrPrimitives, v2: Pair, v3: Pair, v5_init: Pair,
             res2 = prim.nrm2(y) * inv_bn2
             # isDone is evaluated with the status BEFORE the res2 <= 0
             # update, as in the reference's loop (tfqmrgpu_core.hxx:276-286)
-            done = ((res2 <= tol2) | (status != 0)).all()
+            done = prim.alland(((res2 <= tol2) | (status != 0)).all())
             status = torch.where(res2 <= 0, torch.ones_like(status), status)
-            max_res2, is_done = torch.stack([res2.max(), done.to(f64)]).tolist()
+            max_res2, is_done = torch.stack(
+                [prim.allmax(res2.max()), done.to(f64)]).tolist()
             # underflow guard (1.4e-76 in the reference)
             residual2 = max(max_res2, decisions.EPSILON)
             target_bound2 = (max_bound2 / residual2) * tol2

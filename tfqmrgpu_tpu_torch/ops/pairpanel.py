@@ -49,6 +49,7 @@ import functools
 import itertools
 from collections import deque
 from math import comb
+from typing import Optional
 
 import numpy as np
 import torch
@@ -188,13 +189,17 @@ def tile_shapes(lm: int, ln: int, nrows: int, ncols: int) -> list:
 
 
 def build_tile_schedule(rowptr_x, colindx, starts, pairs, lm: int, ln: int,
-                        shape: tuple) -> TileSchedule:
+                        shape: tuple, x_rows=None,
+                        x_cols=None) -> TileSchedule:
     """K1's tile schedule for the warp grid ``shape`` = (warps_m, warps_n).
 
-    ``rowptr_x`` and ``colindx`` give every Y (= X) block's row and
-    compressed column; ``starts`` and ``pairs`` are the plan's pair table.
-    Raises ValueError for a grid that does not fit (LM, LN) or a pair table
-    that is not the full intersection create_plan builds."""
+    ``rowptr_x`` and ``colindx`` give every Y block's row and compressed
+    column; ``starts`` and ``pairs`` are the pair table.  ``x_rows`` and
+    ``x_cols`` give every X block's row and column where the X side is not
+    the Y side (a shard reads a gathered X: ``PairTable``); by default X is
+    Y, as in a plan.  Raises ValueError for a grid that does not fit
+    (LM, LN) or a pair table that is not the full intersection create_plan
+    builds."""
     warps_m, warps_n = (int(v) for v in shape)
     if (warps_m, warps_n) not in warp_grids(lm, ln):
         raise ValueError(f"warp grid {shape} does not fit ({lm}, {ln})")
@@ -208,6 +213,10 @@ def build_tile_schedule(rowptr_x, colindx, starts, pairs, lm: int, ln: int,
     row = np.repeat(np.arange(nrows, dtype=np.int64), np.diff(rowptr_x))
     if row.shape[0] != nnzb or starts.shape[0] != nnzb + 1:
         raise ValueError("rowptr_x, colindx and starts disagree on nnzb")
+    row_x = row if x_rows is None else np.asarray(x_rows, np.int64)
+    col_x = col if x_cols is None else np.asarray(x_cols, np.int64)
+    if row_x.shape != col_x.shape:
+        raise ValueError("x_rows and x_cols disagree on the X blocks")
     ntc = -(-(int(col.max()) + 1 if nnzb else 0) // w_)
 
     _, tile_of_y = np.unique((row // r_) * ntc + col // w_,
@@ -220,9 +229,9 @@ def build_tile_schedule(rowptr_x, colindx, starts, pairs, lm: int, ln: int,
 
     pa, px = pairs[:, 0], pairs[:, 1]
     py = np.repeat(np.arange(nnzb, dtype=np.int64), np.diff(starts))
-    if np.any(col[px] != col[py]):
+    if np.any(col_x[px] != col[py]):
         raise ValueError("a pair's X block lies outside its Y block's column")
-    steps, step_of = np.unique(tile_of_y[py] * nrows + row[px],
+    steps, step_of = np.unique(tile_of_y[py] * nrows + row_x[px],
                                return_inverse=True)
     nsteps = steps.shape[0]
     step_tile = steps // nrows
@@ -252,21 +261,67 @@ def build_tile_schedule(rowptr_x, colindx, starts, pairs, lm: int, ln: int,
         staged_bytes=staged)
 
 
+@dataclasses.dataclass
+class PairTable:
+    """The tables K1 reads: a pair table and the patterns of its two sides.
+
+    A plan's table multiplies X into the Y of X's own pattern
+    (``from_plan``).  A shard's table (``parallel/sharded.py``) writes the
+    shard's own Y blocks from X blocks of every row shard, gathered into
+    one array, so its X side has its own count, rows and columns.
+    ``starts`` and ``pairs`` live on the device, the patterns on the host.
+    """
+
+    starts: torch.Tensor      # int32[nnzb_y + 1]
+    pairs: torch.Tensor       # int32[nPairs, 2]: (A block, X block), Y order
+    nnzb_a: int
+    nnzb_x: int
+    nrows: int                # block rows of the operator
+    rowptr_y: np.ndarray      # int64[nrows + 1]: the Y blocks, by row
+    y_cols: np.ndarray        # int[nnzb_y]: each Y block's compressed column
+    x_rows: Optional[np.ndarray] = None   # int[nnzb_x]; None: X is Y
+    x_cols: Optional[np.ndarray] = None
+
+    @classmethod
+    def from_plan(cls, plan) -> "PairTable":
+        return cls(starts=plan.starts, pairs=plan.pairs, nnzb_a=plan.nnzb_a,
+                   nnzb_x=plan.nnzb_x, nrows=plan.nrows,
+                   rowptr_y=plan.rowptr_x,
+                   y_cols=plan.colindx.cpu().numpy())
+
+    @property
+    def nnzb_y(self) -> int:
+        return int(self.starts.shape[0]) - 1
+
+    @property
+    def device(self) -> torch.device:
+        return self.starts.device
+
+    def pair_y(self) -> torch.Tensor:
+        """int64[nPairs]: the Y block of every pair (ascending)."""
+        counts = (self.starts[1:] - self.starts[:-1]).to(torch.int64)
+        return torch.repeat_interleave(
+            torch.arange(self.nnzb_y, device=self.device), counts)
+
+
 def tile_schedule(plan, lm: int, ln: int, grid: tuple = None,
                   sm_count: int = SM_COUNT) -> TileSchedule:
-    """The schedule K1 runs for ``plan`` in 'z': under the warp grid
-    ``grid`` if one is given, else by the rule.  The rule: the most warps
-    per tile whose tiles still fill every one of ``sm_count`` SMs twice, the
-    fewest if none does; of the grids of that many warps (tiles of the same
-    area), the one with the fewest steps, that is the least padded product
-    work, then the fewest staged bytes."""
-    col = plan.colindx.cpu().numpy()
-    args = (plan.rowptr_x, col, plan.starts.cpu().numpy(),
-            plan.pairs.cpu().numpy(), lm, ln)
+    """The schedule K1 runs for ``plan`` (a plan or a ``PairTable``) in
+    'z': under the warp grid ``grid`` if one is given, else by the rule.
+    The rule: the most warps per tile whose tiles still fill every one of
+    ``sm_count`` SMs twice, the fewest if none does; of the grids of that
+    many warps (tiles of the same area), the one with the fewest steps,
+    that is the least padded product work, then the fewest staged bytes."""
+    t = plan if isinstance(plan, PairTable) else PairTable.from_plan(plan)
+    col = t.y_cols
+    args = (t.rowptr_y, col, t.starts.cpu().numpy(), t.pairs.cpu().numpy(),
+            lm, ln)
+    sides = dict(x_rows=t.x_rows, x_cols=t.x_cols)
     if grid is not None:
-        return build_tile_schedule(*args, grid)
-    cands = [build_tile_schedule(*args, shape)
-             for shape in tile_shapes(lm, ln, plan.nrows, int(col.max()) + 1)]
+        return build_tile_schedule(*args, grid, **sides)
+    ncols = int(col.max()) + 1 if col.size else 0
+    cands = [build_tile_schedule(*args, shape, **sides)
+             for shape in tile_shapes(lm, ln, t.nrows, ncols)]
     warps = max((s.warps_m * s.warps_n for s in cands
                  if s.ntiles >= 2 * sm_count),
                 default=min(s.warps_m * s.warps_n for s in cands))
@@ -289,11 +344,13 @@ def spmm_schedule(a: Pair, x: Pair, sched: TileSchedule, nnzb_y: int) -> Pair:
 class PairPlanMultiply:
     """``y = A @ x`` over a plan's pair table, with A held on the device.
 
-    In 'z' (float64) the kernel runs the plan's tile schedule, built once
-    here by ``tile_schedule`` (under the warp grid ``grid``, by default the
-    rule's, for the SMs of A's device) and uploaded; in 'c' (float32) it
-    walks the pair table itself.  On a CPU tensor the plain version
-    (``spmm_pairs``) runs instead.
+    ``plan`` is a plan, or a ``PairTable`` whose X side differs from its Y
+    side (x then has ``nnzb_x`` blocks and y ``nnzb_y``).  In 'z' (float64)
+    the kernel runs the table's tile schedule, built once here by
+    ``tile_schedule`` (under the warp grid ``grid``, by default the rule's,
+    for the SMs of A's device) and uploaded; in 'c' (float32) it walks the
+    pair table itself.  On a CPU tensor the plain version (``spmm_pairs``)
+    runs instead.
 
     ``launches`` counts the kernel's launches by every instance in this
     process, so that a run can show that its multiplies went through the
@@ -304,9 +361,11 @@ class PairPlanMultiply:
 
     def __init__(self, plan, a_re: torch.Tensor, a_im: torch.Tensor, ln: int,
                  grid: tuple = None):
+        if not isinstance(plan, PairTable):
+            plan = PairTable.from_plan(plan)
         self.lm = int(a_re.shape[1])
         self.ln = int(ln)
-        self.nnzb_x = plan.nnzb_x
+        self.nnzb_x, self.nnzb_y = plan.nnzb_x, plan.nnzb_y
         dev = a_re.device
         if a_re.dtype not in _ENTRY or a_im.dtype != a_re.dtype:
             raise TfqmrgpuError(encode_status(Status.PRECISION_MISSMATCH),
@@ -361,12 +420,14 @@ class PairPlanMultiply:
     def plain(self, x: Pair) -> Pair:
         """The plain PyTorch version on the same tables, on any device."""
         return spmm_pairs((self.a_re, self.a_im), x, self.pair_a,
-                          self.pair_x, self.pair_y, self.nnzb_x)
+                          self.pair_x, self.pair_y, self.nnzb_y)
 
     def __call__(self, x: Pair) -> Pair:
         self._check(x)
         if self.device.type == "cpu":
             return self.plain(x)
+        if self.nnzb_y == 0:                  # a shard without Y blocks
+            return tuple(t.new_empty((0, self.lm, self.ln)) for t in x)
         if self.device.type != "cuda":
             raise TfqmrgpuError(encode_status(Status.NO_IMPLEMENTATION),
                                 f"no pair-plan kernel for {self.device}")
@@ -376,8 +437,8 @@ class PairPlanMultiply:
         from .._build import load_kernels
 
         fn = getattr(load_kernels(), _ENTRY[self.a_re.dtype])
-        y_re = torch.empty_like(x[0])
-        y_im = torch.empty_like(x[1])
+        y_re = x[0].new_empty((self.nnzb_y, self.lm, self.ln))
+        y_im = x[1].new_empty((self.nnzb_y, self.lm, self.ln))
         planes = (self.a_re, self.a_im, x[0], x[1])
         with torch.cuda.device(self.device):
             stream = torch.cuda.current_stream(self.device).cuda_stream
@@ -386,7 +447,7 @@ class PairPlanMultiply:
                 rc = fn(*(t.data_ptr() for t in planes),
                         self.starts.data_ptr(), self.pair_a.data_ptr(),
                         self.pair_x.data_ptr(), y_re.data_ptr(),
-                        y_im.data_ptr(), self.nnzb_x, self.lm, self.ln,
+                        y_im.data_ptr(), self.nnzb_y, self.lm, self.ln,
                         stream)
             elif any(t.data_ptr() % 16 for t in planes):
                 raise ValueError("the 'z' kernel copies A and x in 16-byte "

@@ -139,18 +139,21 @@ class RowTileMultiply:
     layout the kernel stages from); ``a_fused`` is then a transposed view
     of them.  ``slots`` overrides the CTAs the work list is dealt to (by
     default what the card holds at once); the result does not depend on it.
-    ``launches`` counts the kernel's launches by every instance in this
-    process; the plain version never adds to it.
+    ``x_rows`` is the block rows of the X panel that ``xcols`` index, where
+    it is not the mask's (a shard reads a gathered panel); y has the
+    mask's rows.  ``launches`` counts the kernel's launches by every
+    instance in this process; the plain version never adds to it.
     """
 
     launches: int = 0
 
     def __init__(self, pack: RowTilePack, a_re: torch.Tensor,
                  a_im: torch.Tensor, mask: np.ndarray, ln: int,
-                 slots: int = None):
+                 slots: int = None, x_rows: int = None):
         self.ntiles, self.ku, self.lm = pack.ntiles, pack.ku, pack.lm
         self.rlm = pack.r_tile * pack.lm
         self.mb, self.ncc = (int(s) for s in mask.shape)
+        self.x_mb = self.mb if x_rows is None else int(x_rows)
         self.ln = int(ln)
         self.nr, self.c = self.mb * self.lm, self.ncc * self.ln
         dev = a_re.device
@@ -163,8 +166,8 @@ class RowTileMultiply:
             if tuple(t.shape) != shape or t.device != dev:
                 raise ValueError(f"{name} must be a {shape} tensor on {dev}, "
                                  f"got {tuple(t.shape)} on {t.device}")
-        if pack.xcols.size and int(pack.xcols.max()) >= self.mb:
-            raise ValueError("xcols names a block row outside the mask")
+        if pack.xcols.size and int(pack.xcols.max()) >= self.x_mb:
+            raise ValueError("xcols names a block row outside the X panel")
         if dev.type == "cuda" and self.lm % 4:
             raise TfqmrgpuError(encode_status(Status.BLOCKSIZE_MISSING),
                                 f"the row-tile kernel takes LM in multiples "
@@ -195,7 +198,7 @@ class RowTileMultiply:
         return self.a_fused.device
 
     def _check(self, x: Pair):
-        shape = (self.nr, self.ncc, self.ln)
+        shape = (self.x_mb * self.lm, self.ncc, self.ln)
         for t in x:
             if (t.device != self.device or t.dtype != torch.float32
                     or tuple(t.shape) != shape or not t.is_contiguous()):
@@ -212,8 +215,8 @@ class RowTileMultiply:
 
         nt, rlm, c = self.ntiles, self.rlm, self.c
         kulm = self.ku * self.lm
-        xs = torch.cat([x[0].reshape(self.mb, self.lm, c),
-                        x[1].reshape(self.mb, self.lm, c)], dim=2)
+        xs = torch.cat([x[0].reshape(self.x_mb, self.lm, c),
+                        x[1].reshape(self.x_mb, self.lm, c)], dim=2)
         xs = xs[self.xcols.to(torch.int64)].reshape(nt, kulm, 2 * c)
         d = torch.bmm(self.a_fused, xs)          # [nt, 2*rlm, 2*c]
         d_r, d_i = d[..., :c], d[..., c:]        # [ar; ai] @ xr, [ar; ai] @ xi
@@ -240,8 +243,8 @@ class RowTileMultiply:
     def launch_with(self, lib, x: Pair) -> Pair:
         """Launch through the kernel library ``lib``: the built one, or
         another build of the sources (``tools/kernel_compare.py``)."""
-        y_re = torch.empty_like(x[0])
-        y_im = torch.empty_like(x[1])
+        shape = (self.nr, self.ncc, self.ln)
+        y_re, y_im = x[0].new_empty(shape), x[1].new_empty(shape)
         lt = self.launch_tables
         with torch.cuda.device(self.device):
             tables, nctas = lt.args(lib.tfq_rowtile_spmm_slots)
