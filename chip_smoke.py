@@ -95,7 +95,23 @@ two for each:
    1e-9, residual < 1e-8, K3 in the c stage, one K1 launch per float64
    residual), (d) FD rtb=6.75 'z' through ``ShardedPanelSolver`` (phase
    7's iterations), each with its collectives checked and printed per
-   iteration and its wall; (e) the sharded example as its own process.
+   iteration and its wall; (e) the sharded example as its own process
+   (row tiles, packed pairs and 'm'), run after phase 17;
+17. the sharded packed-pairs engine (``parallel/sharded_pairs.py``, K2 per
+   shard) at world size 1 on phase 16's process group: (a) the golden-class
+   'c' system of phase 10 through ``solve_sharded(engine='pairs')``, every
+   tile local (phase 10's iterations, probes and K2 launches, X equal to
+   phase 10's to the bit), (b) the same through
+   ``ShardedPairsSolver(overlap=False)``, every tile remote and read
+   through the asynchronous all_gather (X equal to (a)'s to the bit), (c)
+   golden 'm' through the packed pairs (c stage on K2, float64 residuals on
+   K1, converged to 1e-9, residual < 1e-8), (d) the golden-class pattern
+   with 48 block columns, whose X panel passes the row tiles' limit,
+   through ``solve_sharded(engine='auto')`` -> 'pairs' (residual < 1e-4
+   over X's pattern; the iterations and X of ``Solver(engine='pairs')`` to
+   the bit), each with its collectives checked; (e) the comm
+   model (``parallel/comm_model.py``) for the golden class at pr 1, 2, 4
+   and 8, from layouts alone.
 
 Then one JSON line on the kernels (time, launches on their path, bound,
 plain and library times; the launches of every path that runs the kernel
@@ -969,7 +985,8 @@ def phase_golden_pairs_c(dev, timed_iterations: int = 10):
     require(launches == 2 * info.iterations_needed + info.n_probes,
             f"{launches} K2 launches for {info.iterations_needed} iterations "
             f"and {info.n_probes} probes")
-    res = pattern_residual(s.plan, s.get_matrix("X"), a, b, dev)
+    x_solved = s.get_matrix("X")
+    res = pattern_residual(s.plan, x_solved, a, b, dev)
     require(res < 1e-4, f"golden 'c' pairs |AX-B|/|B| = {res:.3e}")
     # 10 fixed iterations, as in phase 6
     t0 = time.perf_counter()
@@ -985,7 +1002,7 @@ def phase_golden_pairs_c(dev, timed_iterations: int = 10):
           f"|AX-B|/|B| {res:.3e}, K2 launches {launches}, wall {wall_ms:.1f} "
           f"ms; {per_it:.3f} ms per iteration over {timed_iterations} "
           f"iterations", flush=True)
-    return launches
+    return launches, x_solved, info.iterations_needed, info.n_probes
 
 
 def phase_fd_c(dev, fd):
@@ -1511,9 +1528,8 @@ def phase_sharded(dev, fd, fd_x, fd_iterations: int, fd_launches: int,
                   golden_m: tuple):
     """Phase 16: the sharded layer (``tfqmrgpu_tpu_torch.parallel``) at
     world size 1 on NCCL: every halo all_gather and all_reduce goes through
-    NCCL on the card, and each count is checked."""
-    import sys
-
+    NCCL on the card, and each count is checked.  Returns the 1 x 1 mesh,
+    whose process group phase 17 goes on with, and the launches."""
     import torch.distributed as dist
 
     from tfqmrgpu_tpu_torch import create_plan
@@ -1649,10 +1665,20 @@ def phase_sharded(dev, fd, fd_x, fd_iterations: int, fd_launches: int,
     calls_d = _sharded_calls(mesh, its, probes, 2)
     print(f"phase 16 (d) FD rtb=6.75 'z' ShardedPanelSolver: {its} "
           f"iterations (phase 7: {dense_iterations}), maxdev {maxdev:.3e}, "
-          f"wall {wall_d:.1f} ms (set-up included), {calls_d}", flush=True)
-    dist.destroy_process_group()
+          f"wall {wall_d:.1f} ms (set-up included), {calls_d}; phase 16 (a)-"
+          f"(d) took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return mesh, {"k1": {"phase 16 (a) FD z sharded_solve": k1_a,
+                         "phase 16 (c) golden m sharded (residuals)": k1_c},
+                  "k3": {"phase 16 (b) golden c solve_sharded rowtile": k3_b,
+                         "phase 16 (c) golden m sharded (c stage, "
+                         "corrections)": k3_c}}
 
-    # (e) the sharded example as its own process, a world of one on NCCL
+
+def phase_sharded_example():
+    """Phase 16 (e): the sharded example as its own process, a world of
+    one on NCCL (the row tiles, the packed pairs and 'm')."""
+    import sys
+
     root = os.path.dirname(os.path.abspath(__file__))
     t0 = time.perf_counter()
     run = subprocess.run(
@@ -1666,13 +1692,190 @@ def phase_sharded(dev, fd, fd_x, fd_iterations: int, fd_launches: int,
             f"sharded example exit {run.returncode}: {run.stdout}"
             f"{run.stderr[-3000:]}")
     print(f"phase 16 (e) sharded example (its own process): "
-          f"{run.stdout.strip().splitlines()[-1]} in {wall_e:.1f} s; phase "
-          f"16 took {time.perf_counter() - t_phase:.1f} s", flush=True)
-    return {"k1": {"phase 16 (a) FD z sharded_solve": k1_a,
-                   "phase 16 (c) golden m sharded (residuals)": k1_c},
-            "k3": {"phase 16 (b) golden c solve_sharded rowtile": k3_b,
-                   "phase 16 (c) golden m sharded (c stage, corrections)":
-                       k3_c}}
+          f"{run.stdout.strip().splitlines()[-1]} in {wall_e:.1f} s",
+          flush=True)
+
+
+def _pairs_calls(mesh, its: int, probes: int, gathers: int) -> str:
+    """Check a sharded packed-pairs solve's collectives: ``gathers``
+    all_gathers in all (one a multiply when every tile is remote, and one
+    for X), no edge exchange at one rank, and per iteration four column
+    sums and two convergence reductions, per probe three, and one for |B|.
+    Returns them per iteration."""
+    ag, ar = mesh.calls["all_gather"], mesh.calls["all_reduce"]
+    require(ag == gathers and mesh.calls["neighbour_exchange"] == 0,
+            f"{ag} all_gathers (want {gathers}), "
+            f"{mesh.calls['neighbour_exchange']} edge exchanges")
+    require(ar == 6 * its + 3 * probes + 1,
+            f"{ar} all_reduces for {its} iterations and {probes} probes")
+    return (f"{ag / its:.2f} all_gather + {ar / its:.2f} all_reduce per "
+            f"iteration")
+
+
+def phase_sharded_pairs(dev, mesh, golden_pairs: tuple):
+    """Phase 17: the sharded packed-pairs engine at world size 1 on NCCL,
+    over phase 16's process group; ``golden_pairs`` is phase 10's (K2
+    launches, X, iterations, probes)."""
+    from tfqmrgpu_tpu_torch import Solver, create_plan
+    from tfqmrgpu_tpu_torch.ops.pairpanel import (PairPanelMultiply,
+                                                  PairPlanMultiply)
+    from tfqmrgpu_tpu_torch.parallel import (ShardedPairsLayout,
+                                             ShardedPairsSolver, comm_model,
+                                             solve_sharded)
+
+    t_phase = time.perf_counter()
+    k2_10, x_10, its_10, probes_10 = golden_pairs
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    # (a) golden 'c' through solve_sharded(engine='pairs'): every tile local
+    a, x, b = golden_c_problem()
+    mesh.calls.clear()
+    PairPanelMultiply.launches = 0
+    (xa, info), wall_a = timed(lambda: solve_sharded(
+        a, x, b, mesh=mesh, engine="pairs", tolerance=1e-5,
+        max_iterations=500))
+    k2_a = PairPanelMultiply.launches
+    its, probes = info["iterations"], info["n_probes"]
+    require(info["engine"] == "pairs" and info["return_status"] == 0,
+            f"sharded pairs golden 'c': {info['engine']}, status "
+            f"{info['return_status']}")
+    require((its, probes, k2_a) == (its_10, probes_10, k2_10),
+            f"sharded pairs golden 'c': {its} iterations, {probes} probes, "
+            f"{k2_a} K2 launches; phase 10: {its_10}, {probes_10}, {k2_10}")
+    require(np.array_equal(xa, x_10), "sharded pairs golden 'c' X differs "
+            f"from phase 10's by {np.max(np.abs(xa - x_10)):.3e}")
+    calls_a = _pairs_calls(mesh, its, probes, 1)
+    print(f"phase 17 (a) golden-class 'c' solve_sharded(engine='pairs') (1 x "
+          f"1 on NCCL, every tile local): {its} iterations, {probes} probes, "
+          f"K2 launches {k2_a} (phase 10: {its_10}, {probes_10}, {k2_10}), X "
+          f"equal to phase 10's to the bit, wall {wall_a:.1f} ms (set-up "
+          f"included), {calls_a}", flush=True)
+
+    # (b) every tile remote, read through the gathered panel
+    def all_remote():
+        plan = create_plan(a, x, b, device=dev)
+        plan.lm, plan.ln = 32, 32
+        sp = ShardedPairsSolver(plan, mesh, overlap=False)
+        return sp.layout, sp.solve(a.data.real, a.data.imag, b.data.real,
+                                   b.data.imag, tolerance=1e-5,
+                                   max_iterations=500)
+
+    mesh.calls.clear()
+    PairPanelMultiply.launches = 0
+    (lay, (xb, info)), wall_b = timed(all_remote)
+    require(lay.group_size == 8 and lay.n_loc == 0
+            and lay.p == lay.tiles_local,
+            f"overlap=False layout: G {lay.group_size}, p {lay.p}, n_loc "
+            f"{lay.n_loc}")
+    k2_b = PairPanelMultiply.launches
+    its, probes = info["iterations"], info["n_probes"]
+    require(info["return_status"] == 0 and k2_b == k2_a == 2 * its + probes,
+            f"all-remote golden 'c': status {info['return_status']}, {k2_b} "
+            f"K2 launches for {its} iterations, {probes} probes")
+    require(np.array_equal(xb, xa), "all-remote golden 'c' X differs from "
+            f"(a)'s by {np.max(np.abs(xb - xa)):.3e}")
+    calls_b = _pairs_calls(mesh, its, probes, 2 * its + probes + 1)
+    print(f"phase 17 (b) golden-class 'c' ShardedPairsSolver(overlap=False): "
+          f"G {lay.group_size}, {lay.tiles_local} tiles all remote, {its} "
+          f"iterations, K2 launches {k2_b}, X equal to (a)'s to the bit, "
+          f"wall {wall_b:.1f} ms (set-up included), {calls_b}", flush=True)
+
+    # (c) golden 'm': the c stage and the corrections on K2, residuals on K1
+    a = a.with_data(a.data.astype(np.complex128))
+    b = b.with_data(b.data.astype(np.complex128))
+    mesh.calls.clear()
+    PairPlanMultiply.launches = PairPanelMultiply.launches = 0
+    (xm, info), wall_c = timed(lambda: solve_sharded(
+        a, x, b, mesh=mesh, engine="pairs", precision="m", tolerance=1e-9,
+        max_iterations=500))
+    k1_c, k2_c = PairPlanMultiply.launches, PairPanelMultiply.launches
+    res_c = pattern_residual(create_plan(a, x, b, device=dev), xm, a, b, dev)
+    require(info["engine"] == "pairs" and info["converged"]
+            and info["residuum"] <= 1e-9,
+            f"sharded pairs golden 'm': {info['engine']}, residuum "
+            f"{info['residuum']:.3e}")
+    require(res_c < 1e-8, f"sharded pairs golden 'm' |AX-B|/|B| = "
+            f"{res_c:.3e}")
+    require(k1_c == residual_checks(info["refine_rounds"])
+            and k2_c >= 2 * info["iterations"],
+            f"sharded pairs golden 'm': {k1_c} K1, {k2_c} K2 launches for "
+            f"{info['refine_rounds']} rounds, {info['iterations']} iterations")
+    print(f"phase 17 (c) golden-class 'm' solve_sharded(engine='pairs'): "
+          f"{info['c_iterations']} c-iterations + "
+          f"{info['iterations'] - info['c_iterations']} over "
+          f"{info['refine_rounds']} rounds, residuum {info['residuum']:.3e}, "
+          f"|AX-B|/|B| {res_c:.3e}, K2 launches {k2_c}, K1 launches {k1_c}, "
+          f"wall {wall_c:.1f} ms (set-up included)", flush=True)
+
+    # (d) 48 block columns: an X panel past the row tiles' limit -> 'pairs'
+    from tfqmrgpu_tpu_torch.solver import PALLAS_X_BYTE_LIMIT
+
+    a, x, b = golden_c_problem(ncols=48)
+    panel_mb = 2 * x.nrows * 32 * x.ncols * 32 * 4 / 1e6
+    require(panel_mb * 1e6 > PALLAS_X_BYTE_LIMIT, f"X panel {panel_mb} MB")
+    mesh.calls.clear()
+    PairPanelMultiply.launches = 0
+    (xd, info), wall_d = timed(lambda: solve_sharded(
+        a, x, b, mesh=mesh, engine="auto", tolerance=1e-5,
+        max_iterations=500))
+    k2_d = PairPanelMultiply.launches
+    its, probes = info["iterations"], info["n_probes"]
+    require(info["engine"] == "pairs" and info["return_status"] == 0
+            and k2_d == 2 * its + probes,
+            f"48-column golden 'c': {info['engine']}, status "
+            f"{info['return_status']}, {k2_d} K2 launches for {its} "
+            f"iterations, {probes} probes")
+    res_d = pattern_residual(create_plan(a, x, b, device=dev), xd, a, b, dev)
+    require(res_d < 1e-4, f"48-column golden 'c' |AX-B|/|B| = {res_d:.3e}")
+    calls_d = _pairs_calls(mesh, its, probes, 1)
+    # the single-device packed engine on the same system: at one rank every
+    # tile is local, so the same iterations and X to the bit
+    s = Solver(a, x, b, precision="c", engine="pairs", device=dev)
+    one = s.solve(tolerance=1e-5, max_iterations=500)
+    require(one.iterations_needed == its
+            and np.array_equal(s.get_matrix("X"), xd),
+            f"48-column golden 'c': {its} iterations sharded, "
+            f"{one.iterations_needed} on one device, X differs by "
+            f"{np.max(np.abs(s.get_matrix('X') - xd)):.3e}")
+    pd = s._pp_plan
+    print(f"phase 17 (d) golden-class pattern, 48 block columns (X panel "
+          f"{panel_mb:.1f} MB > {PALLAS_X_BYTE_LIMIT / 1e6:.1f} MB) "
+          f"solve_sharded(engine='auto') -> {info['engine']} (G "
+          f"{s._gp.group_size if s._gp else 1}, {pd.ntiles} tiles, ku "
+          f"{pd.ku}): {its} iterations, {probes} probes, K2 launches {k2_d}, "
+          f"|AX-B|/|B| {res_d:.3e}, X equal to Solver(engine='pairs')'s to "
+          f"the bit, wall {wall_d:.1f} ms (set-up included), {calls_d}",
+          flush=True)
+    del s
+
+    # (e) the comm model at the golden class: layouts only, no ranks
+    plan = create_plan(*golden_class_patterns(), device="cpu")
+    plan.lm, plan.ln = 32, 32
+    for pr in (1, 2, 4, 8):
+        r = comm_model.pairs_comm_report(ShardedPairsLayout(plan, pr))
+        print(f"phase 17 (e) comm model golden class pr {pr}: {r['mode']}, "
+              f"local tiles {r['local_tile_fraction']}, gather "
+              f"{r['gather_bytes_per_multiply']} B a multiply, reductions "
+              f"{r['reduction_bytes_per_iteration']} B an iteration; K2 "
+              f"bound {r['t_multiply_ms']:.4f} ms a multiply, compute "
+              f"{r['t_compute_ms']:.4f} ms, link {r['t_link_ms']:.4f} ms "
+              f"({r['t_link_exposed_ms']:.4f} exposed) an iteration, "
+              f"modelled efficiency {r['modeled_efficiency']:.4f} (NVLink "
+              f"{r['assumptions']['nvlink_bytes_per_s'] / 1e9:.0f} GB/s, "
+              f"data sheet)", flush=True)
+    print(f"phase 17 took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return {"k1": {"phase 17 (c) golden m sharded pairs (residuals)": k1_c},
+            "k2": {"phase 17 (a) golden c solve_sharded pairs": k2_a,
+                   "phase 17 (b) golden c sharded pairs all remote": k2_b,
+                   "phase 17 (c) golden m sharded pairs (c stage, "
+                   "corrections)": k2_c,
+                   "phase 17 (d) golden 48 columns auto -> pairs": k2_d}}
 
 
 def main():
@@ -1694,16 +1897,20 @@ def main():
     dense_iterations = phase_dense(dev)
     k4 = phase_probe(dev)
     k2 = phase_packed(dev, fd)
-    k2_launches = phase_golden_pairs_c(dev)
+    golden_pairs = phase_golden_pairs_c(dev)
+    k2_launches = golden_pairs[0]
     phase_fd_c(dev, fd)
     k1_file_z, k1_file_m, k2_file_m = phase_file_fd(dev, fd, fd_iterations)
     k1_golden_m, k3_golden_m = phase_golden_m(dev)
     k1_checkpoint = phase_checkpoint(dev, fd, fd_iterations)
     capi = phase_capi(dev, fd, card, fd_iterations,
                       launches - 2 * fd_iterations)
-    sharded = phase_sharded(dev, fd, fd_x, fd_iterations, launches,
-                            golden_c_iterations, dense_iterations,
-                            (k1_golden_m, k3_golden_m))
+    mesh, sharded = phase_sharded(dev, fd, fd_x, fd_iterations, launches,
+                                  golden_c_iterations, dense_iterations,
+                                  (k1_golden_m, k3_golden_m))
+    pairs = phase_sharded_pairs(dev, mesh, golden_pairs)
+    torch.distributed.destroy_process_group()
+    phase_sharded_example()
     print(json.dumps({"kernels": [
         {"name": "pairpanel_spmm", "route": "cuda",
          "source": "tfqmrgpu_tpu_torch/csrc/pairpanel_spmm.cu",
@@ -1715,7 +1922,7 @@ def main():
              "phase 12 FD m file (residuals)": k1_file_m,
              "phase 13 golden m (residuals)": k1_golden_m,
              "phase 14 FD z solve_checkpointed": k1_checkpoint,
-             **capi["k1"], **sharded["k1"]}},
+             **capi["k1"], **sharded["k1"], **pairs["k1"]}},
         {"name": "rowtile_spmm", "route": "cuda",
          "source": "tfqmrgpu_tpu_torch/csrc/rowtile_spmm.cu",
          "replaces": "tfqmrgpu_tpu/ops/pallas_spmm.py:214",
@@ -1731,7 +1938,7 @@ def main():
          "launches_by_path": {
              "phase 10 golden c pairs": k2_launches,
              "phase 12 FD m file (c stage, corrections)": k2_file_m,
-             **capi["k2"]}},
+             **capi["k2"], **pairs["k2"]}},
         {"name": "dma_probe", "route": "cuda",
          "source": "tfqmrgpu_tpu_torch/csrc/dma_probe.cu",
          "replaces": "tools/dma_probe.py:39", **k4, "card": card},

@@ -1,6 +1,6 @@
 """The hand-written kernels (pair-plan K1, packed pair-plan K2, row-tile
-K3, stream probe K4) and their build, and K1 driven from C through the
-port's C library.
+K3, stream probe K4) and their build, K1 driven from C through the port's
+C library, and K1, K2 and K3 under the sharded engines at one rank.
 
 Imports neither JAX nor tests/conftest.py, so that the card-only tests run
 on a machine without JAX:
@@ -381,3 +381,75 @@ def test_sharded_rowtile_multiply_runs_k3_on_card(nccl_mesh):
     torch.cuda.synchronize()
     assert RowTileMultiply.launches == before + 1
     assert _maxdev(y, sp._k3.plain(sp._halo(xp))) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_packed_kernel_tile_list_on_card():
+    """K2 over a part of a plan (a tile-id list with pad tiles, rebased X
+    rows of its own, written at a row offset into one Y) against its plain
+    version on the card: the parts of every shard of a 3-shard layout."""
+    _needs_card()
+    from tfqmrgpu_tpu_torch.parallel import ShardedPairsLayout
+    from tfqmrgpu_tpu_torch.parallel.dryrun import banded_problem
+
+    rng = np.random.default_rng(7)
+    plan = create_plan(*banded_problem(61, 1, 8, 8), device="cuda")
+    plan.lm = plan.ln = 8
+    lay = ShardedPairsLayout(plan, 3)
+    assert lay.n_loc and lay.p + lay.q and lay.ntiles_pad > lay.pp_plan.ntiles
+    p0, rows = lay.pp_plan, lay.vrows_local
+    av = planes(rng.standard_normal((plan.nnzb_a, 8, 8, 2)) @ [1, 1j],
+                torch.float32, "cuda")
+    xg = torch.from_numpy(rng.standard_normal(
+        (lay.vec_rows_pad, 2 * lay.ln)).astype(np.float32)).cuda()
+    whole = lay.pr * lay.blocks_local
+    for s, t in enumerate(lay.shards):
+        xs = xg[s * rows:(s + 1) * rows].contiguous()
+        y = torch.full((rows, 2 * lay.ln), float("nan"), device="cuda")
+        want = torch.full_like(y, float("nan"))
+        for tiles, xx, base, span, row0 in (
+                (t.local, xs, t.local_base, lay.blocks_local, lay.p * 8),
+                (t.prefix, xg, 0, whole, 0),
+                (t.suffix, xg, 0, whole, (lay.tiles_local - lay.q) * 8)):
+            if not tiles.size:
+                continue
+            k2 = pp.PairPanelMultiply(
+                p0, pp.build_a_panels_device(p0, *av, tiles=tiles),
+                tiles=tiles, src_base=base, span=span)
+            before = PairPanelMultiply.launches
+            k2(xx, y, row0)
+            torch.cuda.synchronize()
+            assert PairPanelMultiply.launches == before + 1
+            want[row0:row0 + k2.n_rows] = k2.plain(xx)
+        assert not torch.isnan(y).any()
+        assert _maxdev((y,), (want,)) <= 1e-4, s
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("overlap", [True, False])
+def test_sharded_pairs_multiply_runs_k2_on_card(nccl_mesh, overlap):
+    """The sharded packed-pairs multiply at one rank on NCCL: every tile
+    local, or every tile remote through the asynchronous all_gather; one
+    K2 launch a multiply, against the plan's whole product."""
+    from tfqmrgpu_tpu_torch.parallel import ShardedPairsSolver
+
+    rng = np.random.default_rng(8)
+    a, x, b = golden_class_patterns(mb=60, deg=5, ncols=4)
+    plan = create_plan(a, x, b, device="cuda")
+    plan.lm = plan.ln = 16
+    sp = ShardedPairsSolver(plan, nccl_mesh, overlap=overlap)
+    av = rng.standard_normal((plan.nnzb_a, 16, 16, 2)) @ [1, 1j]
+    sp.set_matrix_a(av.real, av.imag)
+    lay = sp.layout
+    xv = rng.standard_normal((plan.nnzb_x, 16, 16, 2)) @ [1, 1j]
+    xf = torch.from_numpy(lay.pack_vec(xv.real.astype(np.float32),
+                                       xv.imag.astype(np.float32))[0]).cuda()
+    before = PairPanelMultiply.launches
+    gathers = nccl_mesh.calls["all_gather"]
+    y = sp.multiply(xf)
+    torch.cuda.synchronize()
+    assert PairPanelMultiply.launches == before + 1
+    assert nccl_mesh.calls["all_gather"] == gathers + (0 if overlap else 1)
+    whole = pp.PairPanelMultiply(lay.pp_plan, pp.build_a_panels_device(
+        lay.pp_plan, *planes(av, torch.float32, "cuda")))
+    assert _maxdev((y,), (whole.plain(xf),)) <= 1e-4

@@ -6,8 +6,8 @@ single-device engine and a dense residual.
 
 The ranks run as spawned processes over gloo on the CPU
 (``torch_sharded_worker.run_ranks``), where the row-tile multiply is the
-plain version of K3 and the float64 residual of 'm' the plain version of
-K1."""
+plain version of K3, the packed-pairs multiply the plain version of K2 and
+the float64 residual of 'm' the plain version of K1."""
 
 import numpy as np
 import pytest
@@ -107,21 +107,35 @@ def test_mixed_rowtile_reaches_f64_residuals(rng, tmp_path):
     assert rel_m < 1e-3 * max(rel_c, 1e-30) or rel_m < 1e-10
 
 
-def test_pairs_engine_is_refused(rng, tmp_path):
-    """The sharded 'pairs' engine is not ported: an explicit 'pairs' and an
-    'auto' that picks it (LM < 8) raise, and no row-tile solver is built or
-    run in its place."""
+@pytest.mark.parametrize("world", [1, 2, 4])
+def test_solve_sharded_pairs_and_auto(rng, tmp_path, world):
+    """The sharded packed-pairs engine through ``solve_sharded``: an
+    explicit 'pairs', an 'auto' that picks it (LM < 8) and 'pairs' in 'm'
+    solve to the JAX package's gates (iterations within one of the
+    single-device 'pairs' solve, a dense residual below 50*tol; 'm' to
+    float64 residuals), and no row-tile solver is built or run."""
     lm = ln = 4
-    a, x, b = make_random_problem(rng, mb=8, lm=lm, ln=ln, ncols=2,
-                                  x_fill=1.0, dtype=np.complex64)
-    got = run_ranks("solve_sharded", 2, dict(
-        pack_problem(a, x, b), runs=[["pairs", "c", 1e-4, 100],
-                                     ["auto", "c", 1e-4, 100],
-                                     ["pairs", "m", 1e-9, 100]]), tmp_path)
+    a, x, b = make_random_problem(rng, mb=12, lm=lm, ln=ln, ncols=3,
+                                  x_fill=1.0, dtype=np.complex128)
+    tol = 1e-4
+    s0 = tt.Solver(*_port(a, x, b), precision="c", engine="pairs",
+                   device="cpu")
+    i0 = s0.solve(tolerance=tol, max_iterations=300)
+    got = run_ranks("solve_sharded", world, dict(
+        pack_problem(a, x, b), runs=[["pairs", "c", tol, 300],
+                                     ["auto", "c", tol, 300],
+                                     ["pairs", "m", 1e-9, 600]]), tmp_path)
+    assert int(got["world"]) == world
     for i in range(3):
-        assert "sharded_pairs" in str(got[f"{i}_error"])
+        assert f"{i}_error" not in got, str(got.get(f"{i}_error"))
+        assert str(got[f"{i}_engine"]) == "pairs"
+        assert int(got[f"{i}_return_status"]) == 0
         assert int(got[f"{i}_built"]) == 0 and int(got[f"{i}_k3"]) == 0
-    assert "'auto' picked it" in str(got["1_error"])
+    for i in range(2):
+        assert abs(int(got[f"{i}_iterations"]) - i0.iterations_needed) <= 1
+        assert _dense_rel(a, x, b, got[f"{i}_x"], lm, ln) < 50 * tol
+    assert bool(got["2_converged"]) and got["2_x"].dtype == np.complex128
+    assert _dense_rel(a, x, b, got["2_x"], lm, ln, "fro") < 1e-8
 
 
 def test_plain_z_is_refused():

@@ -38,6 +38,12 @@ def pack_problem(a, x, b) -> dict:
     return out
 
 
+def pack_problems(**problems) -> dict:
+    """Several named problems (name -> (a, x, b)) in one npz-ready dict."""
+    return {f"{name}.{k}": v for name, abx in problems.items()
+            for k, v in pack_problem(*abx).items()}
+
+
 def run_ranks(case: str, world: int, inputs: dict, tmp_path,
               timeout: float = TIME_LIMIT) -> dict:
     """Run CASE on ``world`` spawned ranks; rank 0's output as a dict."""
@@ -89,11 +95,13 @@ def run_ranks(case: str, world: int, inputs: dict, tmp_path,
 
 # ------------------------------------------------------------ rank side
 
-def _problem(d: dict):
+def _problem(d: dict, name: str = ""):
     from tfqmrgpu_tpu_torch.bsr import Bsr
 
-    return [Bsr(int(d[f"{k}_shape"][0]), int(d[f"{k}_shape"][1]),
-                d[f"{k}_rowptr"], d[f"{k}_colind"], d.get(f"{k}_data"), k)
+    pre = f"{name}." if name else ""
+    return [Bsr(int(d[f"{pre}{k}_shape"][0]), int(d[f"{pre}{k}_shape"][1]),
+                d[f"{pre}{k}_rowptr"], d[f"{pre}{k}_colind"],
+                d.get(f"{pre}{k}_data"), k)
             for k in ("a", "x", "b")]
 
 
@@ -209,7 +217,10 @@ def case_panel(d: dict) -> dict:
 def case_solve_sharded(d: dict) -> dict:
     """``solve_sharded`` once per entry of ``runs`` (engine, precision,
     tolerance, max_iterations); an error is returned, not raised, with the
-    row-tile solvers built and K3 launches made in its call."""
+    row-tile solvers built and K3 launches made in its call, and the
+    grid's size."""
+    import torch.distributed as dist
+
     from tfqmrgpu_tpu_torch.errors import TfqmrgpuError
     from tfqmrgpu_tpu_torch.ops.pallas_spmm import RowTileMultiply
     from tfqmrgpu_tpu_torch.parallel import ShardedRowTileSolver, solve_sharded
@@ -239,7 +250,60 @@ def case_solve_sharded(d: dict) -> dict:
             out[f"{i}_error"] = np.array(str(e))
         out[f"{i}_built"] = np.array(len(built))
         out[f"{i}_k3"] = np.array(RowTileMultiply.launches - launches)
+    out["world"] = np.array(dist.get_world_size())
     return out
+
+
+LAYOUT_FIELDS = ("tiles_local", "p", "q", "n_loc", "overlap", "halo",
+                 "h_lo", "h_hi", "group_size")
+
+
+def case_pairs(d: dict) -> dict:
+    """The sharded packed-pairs engine over all ranks, once per row of
+    ``runs``: (problem, overlap, halo, group_size, tolerance,
+    max_iterations, v3: a key of ``d`` holding (re, im) or "").  At world
+    size 1 each run also solves with ``Solver(engine='pairs')`` (the same
+    v3) in this process, for the bits."""
+    import torch.distributed as dist
+
+    import tfqmrgpu_tpu_torch as tt
+    from tfqmrgpu_tpu_torch.parallel import ShardedPairsSolver, make_mesh
+
+    world = dist.get_world_size()
+    mesh = make_mesh(world, 1, device="cpu")
+    out = {}
+    for i, (name, overlap, halo, group, tol, maxit, v3) in enumerate(
+            d["runs"].tolist()):
+        a, x, b = _problem(d, name)
+        plan = _plan(dict(lm=a.data.shape[1], ln=b.data.shape[2]), a, x, b)
+        v3 = (d[f"{v3}_re"], d[f"{v3}_im"]) if v3 else None
+        sp = ShardedPairsSolver(plan, mesh, overlap=overlap == "1",
+                                halo=halo == "1", group_size=int(group))
+        mesh.calls.clear()
+        got, info = sp.solve(a.data.real, a.data.imag, b.data.real,
+                             b.data.imag, tolerance=float(tol),
+                             max_iterations=int(maxit), v3=v3)
+        out[f"{i}_x"] = got
+        out.update({f"{i}_{k}": v for k, v in _info(info).items()})
+        out.update({f"{i}_{k}": np.asarray(getattr(sp.layout, k))
+                    for k in LAYOUT_FIELDS})
+        out.update({f"{i}_{k}": np.asarray(mesh.calls[k]) for k in
+                    ("all_gather", "all_reduce", "neighbour_exchange")})
+        if world == 1:
+            s = tt.Solver(a, x, b, precision="c", engine="pairs",
+                          device="cpu", v3=v3)
+            si = s.solve(tolerance=float(tol), max_iterations=int(maxit))
+            out[f"{i}_x1"] = s.get_matrix("X")
+            out[f"{i}_iterations1"] = np.asarray(si.iterations_needed)
+    return out
+
+
+def case_dryrun(d: dict) -> dict:
+    from tfqmrgpu_tpu_torch.parallel.dryrun import dryrun_multichip
+
+    res = dryrun_multichip(device="cpu")
+    return {f"{tag}.{k}": np.asarray(v) for tag, r in res.items()
+            for k, v in r.items()}
 
 
 def case_scaling(d: dict) -> dict:

@@ -3,9 +3,10 @@
 The port's counterpart of ``examples/tfqmrgpu_sharded_example.py``.  The
 reference library is single-GPU (tfqmrgpu_handle.hxx:4-6).  This example
 shards block rows of A, X, B over the ranks with ``solve_sharded`` (one
-rank per card), then refines the float32 sharded solve to float64
-residuals with ``precision='m'``, and checks the result against a dense
-residual.
+rank per card): a float32 solve on the row tiles ('auto'), one on the
+packed pairs ('pairs', K2 with the halo-overlap tile split), then a
+refinement of the float32 sharded solve to float64 residuals with
+``precision='m'``; it checks the results against a dense residual.
 
 Run alone (a world of one, on the card unless ``--device cpu``):
   PYTHONPATH=. python tfqmrgpu_tpu_torch/examples/tfqmrgpu_sharded_example.py
@@ -67,6 +68,14 @@ if rank0:
           f"engine={info['engine']} iters={info['iterations']} "
           f"residuum={info['residuum']:.2e}")
 
+# the same through the sharded packed pairs (K2 on every rank)
+xp, info_p = solve_sharded(a, x, b, engine="pairs", tolerance=1e-5,
+                           max_iterations=300, device=args.device)
+if rank0:
+    print(f"sharded c over {dist.get_world_size()} rank(s): "
+          f"engine={info_p['engine']} iters={info_p['iterations']} "
+          f"residuum={info_p['residuum']:.2e}")
+
 # float64-residual mixed solve on the same ranks
 xm, info_m = solve_sharded(a, x, b, precision="m", tolerance=1e-10,
                            max_iterations=600, device=args.device)
@@ -83,11 +92,21 @@ for r in range(mb):
             a_blocks[k]
 bd = np.zeros((mb * lm, ncols * ln), complex)
 bd[0:lm * 1, :] = np.hstack([b_data[c] for c in range(ncols)])
-xd = np.vstack([np.hstack([np.asarray(xm)[r * ncols + c]
-                           for c in range(ncols)]) for r in range(mb)])
-rel = np.linalg.norm(ad @ xd - bd) / np.linalg.norm(bd)
+
+
+def dense_x(xb):
+    return np.vstack([np.hstack([np.asarray(xb)[r * ncols + c]
+                                 for c in range(ncols)]) for r in range(mb)])
+
+
+rel = np.linalg.norm(ad @ dense_x(xm) - bd) / np.linalg.norm(bd)
 if not rel < 1e-9:
     raise SystemExit(f"dense residual {rel:.2e} >= 1e-9")
+rel_p = np.linalg.norm(ad @ dense_x(xp) - bd) / np.linalg.norm(bd)
+if info_p["engine"] != "pairs" or not rel_p < 1e-4:
+    raise SystemExit(f"packed pairs: {info_p['engine']}, dense residual "
+                     f"{rel_p:.2e}")
 if rank0:
-    print(f"tfqmrgpu_sharded_example: OK (dense residual {rel:.2e})")
+    print(f"tfqmrgpu_sharded_example: OK (dense residual {rel:.2e}, packed "
+          f"pairs {rel_p:.2e})")
 dist.destroy_process_group()

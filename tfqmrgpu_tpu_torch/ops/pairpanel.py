@@ -654,19 +654,56 @@ def build_a_panels(plan: PairPanelPlan, a_re: np.ndarray,
 
 
 def build_a_panels_device(plan: PairPanelPlan, a_re: torch.Tensor,
-                          a_im: torch.Tensor) -> torch.Tensor:
+                          a_im: torch.Tensor, tiles=None) -> torch.Tensor:
     """The same panels built where the A planes lie, with one
-    ``index_add_`` (duplicate pairs add up)."""
+    ``index_add_`` (duplicate pairs add up).  With ``tiles`` (tile ids, -1
+    for a pad tile) only those panels, in that order; a pad tile's panel
+    is zero."""
     lm, r, ku = plan.lm, plan.r_tile, plan.ku
-    base = (plan.pair_tile.astype(np.int64) * 2 * r
-            + plan.pair_rslot) * ku + plan.pair_kslot
+    tile = plan.pair_tile.astype(np.int64)
+    keep = slice(None)
+    ntiles = plan.ntiles
+    if tiles is not None:
+        tiles = np.asarray(tiles, np.int64)
+        ntiles = tiles.shape[0]
+        where = np.full(plan.ntiles, -1, np.int64)
+        where[tiles[tiles >= 0]] = np.flatnonzero(tiles >= 0)
+        tile = where[tile]
+        keep = tile >= 0
+        tile = tile[keep]
+    base = (tile * 2 * r + plan.pair_rslot[keep]) * ku + plan.pair_kslot[keep]
     dev = a_re.device
     index = torch.from_numpy(np.concatenate([base, base + r * ku])).to(dev)
-    src = torch.from_numpy(plan.pair_a).to(dev)
-    flat = a_re.new_zeros((plan.ntiles * 2 * r * ku, lm, lm))
+    src = torch.from_numpy(plan.pair_a[keep]).to(dev)
+    flat = a_re.new_zeros((ntiles * 2 * r * ku, lm, lm))
     flat.index_add_(0, index, torch.cat([a_re[src], a_im[src]]))
-    p = flat.reshape(plan.ntiles, 2 * r, ku, lm, lm).permute(0, 1, 3, 2, 4)
-    return p.reshape(plan.ntiles, 2 * r * lm, ku * lm).contiguous()
+    p = flat.reshape(ntiles, 2 * r, ku, lm, lm).permute(0, 1, 3, 2, 4)
+    return p.reshape(ntiles, 2 * r * lm, ku * lm).contiguous()
+
+
+def tile_tables(plan: PairPanelPlan, tiles, src_base: int = 0,
+                span: int = 0) -> tuple:
+    """K2's tables for the tiles ``tiles`` of ``plan`` (tile ids; -1 is a
+    pad tile, which lists no block and writes zeros): (xloc int32[n, ku],
+    kcount int32[n]), every listed X block rebased by ``src_base`` and,
+    where ``span`` is given, required to lie in [0, span) blocks; a source
+    outside raises ``ValueError``.  The counterpart of the JAX package's
+    ``make_tile_tables`` (its ops/pairpanel.py:399-437), which rebases the
+    TPU's copy codes, for the port's tables."""
+    tiles = np.asarray(tiles, np.int64)
+    if tiles.ndim != 1 or np.any(tiles >= plan.ntiles) or np.any(tiles < -1):
+        raise ValueError(f"tile ids must lie in [-1, {plan.ntiles})")
+    real = tiles >= 0
+    kcount = np.where(real, plan.kcount[np.maximum(tiles, 0)], 0)
+    live = np.arange(plan.ku)[None, :] < kcount[:, None]
+    rel = plan.xloc[np.maximum(tiles, 0)].astype(np.int64) - int(src_base)
+    bad = live & ((rel < 0) | ((rel >= span) if span else False))
+    if bad.any():
+        t = int(tiles[np.flatnonzero(bad.any(axis=1))[0]])
+        raise ValueError(f"tile {t}: a source outside the span of {span} "
+                         f"blocks from block {src_base}")
+    return (np.where(live, rel, 0).astype(np.int32),
+            kcount.astype(np.int32))
 
 
 def permute_x(plan: PairPanelPlan, re: np.ndarray,
@@ -1038,16 +1075,38 @@ class PairPanelMultiply:
     holds at once); the result does not depend on it.  ``launches`` counts
     the kernel's launches by every instance in this process; the plain
     version never adds to it.
+
+    A sharded solve multiplies a part of the plan: ``tiles`` lists its
+    tiles (-1 for a pad tile), ``a_panels`` holds their panels in that
+    order, and the X blocks they list are rebased by ``src_base`` and
+    checked against ``span`` blocks (``tile_tables``).  X then has rows of
+    its own, ``span*LM`` (``x_rows``), and the call writes all
+    ``len(tiles)*r_tile*LM`` rows of the tiles.  ``out`` and
+    ``row0`` put those rows into a Y the caller gives, from row ``row0``
+    on, so that the parts of one multiply fill one Y.
     """
 
     launches: int = 0
 
     def __init__(self, plan: PairPanelPlan, a_panels: torch.Tensor,
-                 slots: int = None):
-        self.ntiles, self.ku, self.lm = plan.ntiles, plan.ku, plan.lm
+                 slots: int = None, *, tiles=None, src_base: int = 0,
+                 span: int = 0):
+        self.ku, self.lm = plan.ku, plan.lm
         self.ln = plan.ln
         self.rlm = plan.r_tile * plan.lm
-        self.n_rows = plan.n_slots * plan.lm
+        if tiles is None:
+            xloc, kcount = plan.xloc, plan.kcount
+            self.ntiles = plan.ntiles
+            self.n_rows = plan.n_slots * plan.lm
+            self.x_rows = self.n_rows
+        else:
+            xloc, kcount = tile_tables(plan, tiles, src_base, span)
+            self.ntiles = int(xloc.shape[0])
+            self.n_rows = self.ntiles * self.rlm
+            self.x_rows = span * plan.lm if span else plan.n_slots * plan.lm
+        if np.any(xloc.astype(np.int64) * self.lm >= self.x_rows):
+            raise ValueError(f"a tile lists an X block past the {self.x_rows} "
+                             "rows of X")
         dev = a_panels.device
         if a_panels.dtype != torch.float32:
             raise TfqmrgpuError(encode_status(Status.PRECISION_MISSMATCH),
@@ -1061,8 +1120,8 @@ class PairPanelMultiply:
             raise TfqmrgpuError(encode_status(Status.BLOCKSIZE_MISSING),
                                 "the packed pairs kernel takes LM in "
                                 f"multiples of 4, got {self.lm}")
-        self.units = paneltiles.unit_tables_for(plan.xloc, plan.kcount,
-                                                self.rlm, self.ln)
+        self.units = paneltiles.unit_tables_for(xloc, kcount, self.rlm,
+                                                self.ln)
         if dev.type == "cuda":
             self.a_dm = paneltiles.depth_major(a_panels)
             self.a_panels = self.a_dm.transpose(1, 2)
@@ -1071,19 +1130,34 @@ class PairPanelMultiply:
         else:
             self.a_panels = a_panels
         self.xloc = torch.from_numpy(
-            np.ascontiguousarray(plan.xloc, dtype=np.int32)).to(dev)
+            np.ascontiguousarray(xloc, dtype=np.int32)).to(dev)
 
     @property
     def device(self) -> torch.device:
         return self.a_panels.device
 
-    def _check(self, x: torch.Tensor):
-        shape = (self.n_rows, 2 * self.ln)
+    def _check(self, x: torch.Tensor, rows: int = None, what: str = "x"):
+        shape = (self.x_rows if rows is None else rows, 2 * self.ln)
         if (x.device != self.device or x.dtype != torch.float32
                 or tuple(x.shape) != shape or not x.is_contiguous()):
             raise ValueError(
-                f"x must be a contiguous {shape} float32 tensor on "
+                f"{what} must be a contiguous {shape} float32 tensor on "
                 f"{self.device}; got {tuple(x.shape)} {x.dtype} on {x.device}")
+
+    def _rows_of(self, out: Optional[torch.Tensor], row0: int) -> torch.Tensor:
+        """The rows this call writes: ``out[row0:row0 + n_rows]``, or a new
+        tensor."""
+        if out is None:
+            if row0:
+                raise ValueError("row0 needs out")
+            return torch.empty((self.n_rows, 2 * self.ln), dtype=torch.float32,
+                               device=self.device)
+        row0 = int(row0)
+        if not 0 <= row0 <= out.shape[0] - self.n_rows:
+            raise ValueError(f"rows {row0}:{row0 + self.n_rows} lie outside "
+                             f"the {out.shape[0]} rows of out")
+        self._check(out, out.shape[0], "out")
+        return out[row0:row0 + self.n_rows]
 
     def plain(self, x: torch.Tensor) -> torch.Tensor:
         """The plain PyTorch version, on any device: gather the tiles'
@@ -1095,24 +1169,32 @@ class PairPanelMultiply:
         y = torch.cat([p[..., :c] - q[..., c:], p[..., c:] + q[..., :c]], 2)
         return y.reshape(nt * rlm, 2 * c)[: self.n_rows].contiguous()
 
-    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+    def __call__(self, x: torch.Tensor, out: torch.Tensor = None,
+                 row0: int = 0) -> torch.Tensor:
+        """The product's rows; with ``out``, written into its rows from
+        ``row0`` on (and that view returned)."""
         self._check(x)
+        y = self._rows_of(out, row0)
         if self.device.type == "cpu":
-            return self.plain(x)
+            y.copy_(self.plain(x))
+            return y
         if self.device.type != "cuda":
             raise TfqmrgpuError(encode_status(Status.NO_IMPLEMENTATION),
                                 f"no packed pairs kernel for {self.device}")
-        return self._launch(x)
+        return self._launch(x, y)
 
-    def _launch(self, x: torch.Tensor) -> torch.Tensor:
+    def _launch(self, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
         from .._build import load_kernels
 
-        return self.launch_with(load_kernels(), x)
+        return self.launch_with(load_kernels(), x, y)
 
-    def launch_with(self, lib, x: torch.Tensor) -> torch.Tensor:
+    def launch_with(self, lib, x: torch.Tensor,
+                    y: torch.Tensor = None) -> torch.Tensor:
         """Launch through the kernel library ``lib``: the built one, or
-        another build of the sources (``tools/kernel_compare.py``)."""
-        y = torch.empty_like(x)
+        another build of the sources (``tools/kernel_compare.py``), into
+        ``y`` (the ``n_rows`` rows it writes; a new tensor by default)."""
+        if y is None:
+            y = self._rows_of(None, 0)
         lt = self.launch_tables
         with torch.cuda.device(self.device):
             tables, nctas = lt.args(lib.tfq_pairpanel_tiles_slots)
@@ -1132,7 +1214,9 @@ class PairPanelMultiply:
 # ====================================================== fused primitives
 
 def fused_primitives(mult, plan: PairPanelPlan, ncc: int,
-                     b_fused: torch.Tensor, gp: GroupedPairs = None):
+                     b_fused: torch.Tensor, gp: GroupedPairs = None, *,
+                     slot_group: np.ndarray = None,
+                     lane_mask: np.ndarray = None, psum=None):
     """``core.TfqmrPrimitives`` over fused permuted panels
     [n_slots*LM, 2*LN'] (JAX: ``fused_primitives`` in 'c' without col_pad,
     and ``_fused_primitives_grouped``).
@@ -1143,7 +1227,13 @@ def fused_primitives(mult, plan: PairPanelPlan, ncc: int,
     padded slot table (no atomics: the order is fixed), and cast the
     per-column results to float64, the JAX package's order of types.
     ``axpy``/``xpay`` expand the per-column scalars to slots by a gather, in
-    float32.  ``add_rhs`` is ``v + s * b_fused``."""
+    float32.  ``add_rhs`` is ``v + s * b_fused``.
+
+    A shard of a sharded solve holds some of the slots (``b_fused`` has its
+    rows): ``slot_group`` gives the group of each (-1 for a pad slot),
+    ``lane_mask`` its rows of the grouped lane mask, and ``psum`` sums the
+    float32 group partials over the shards, in place, once a ``dotp`` (re
+    and im stacked) or ``nrm2``, before the remap to columns."""
     from ..core import TfqmrPrimitives
     from .linalg import _segment_sum, columns
 
@@ -1151,18 +1241,25 @@ def fused_primitives(mult, plan: PairPanelPlan, ncc: int,
     gsz = gp.group_size if gp is not None else 1
     ln0 = ln2 // gsz
     ngroups = gp.ngroups if gp is not None else ncc
-    nslots, dev = plan.n_slots, b_fused.device
+    nslots, dev = b_fused.shape[0] // lm, b_fused.device
     f32, f64 = torch.float32, torch.float64
-    slot_grp = torch.from_numpy(plan.col_of_new).to(dev)     # group of a slot
-    table = columns(slot_grp, ngroups)
+    if slot_group is None:
+        slot_group = plan.col_of_new
+    # pad slots gather from an extra group of zeros and sum into it
+    pad = bool(np.any(slot_group < 0))
+    slot_grp = torch.from_numpy(np.where(slot_group < 0, ngroups,
+                                         slot_group)).to(dev)
+    table = columns(slot_grp, ngroups + pad)
     # compressed column -> its (group, lane block) position
     gc = np.arange(ncc, dtype=np.int64)
     if gp is not None:
         for gi, grp in enumerate(gp.groups):
             gc[grp] = gi * gsz + np.arange(len(grp))
     gc = torch.from_numpy(gc).to(dev)
-    mask = (torch.from_numpy(grouped_lane_mask(plan, gp)).to(dev)[:, None, :]
-            if gp is not None else None)
+    if lane_mask is None and gp is not None:
+        lane_mask = grouped_lane_mask(plan, gp)
+    mask = (torch.from_numpy(lane_mask).to(dev)[:, None, :]
+            if lane_mask is not None else None)
 
     def view3(v):
         v3 = v.view(nslots, lm, 2 * ln2)
@@ -1174,26 +1271,34 @@ def fused_primitives(mult, plan: PairPanelPlan, ncc: int,
             return y
         return (y.view(nslots, lm, 2 * ln2) * mask).view(-1, 2 * ln2)
 
-    def colsum(p):
-        """[nslots, LM, LN'] float32 -> [ncc, LN] per-column float64."""
-        z = _segment_sum(p.sum(dim=1), table)                # [ngroups, LN']
+    def groupsum(p):
+        """[nslots, LM, LN'] float32 -> [ngroups, LN'] float32."""
+        return _segment_sum(p.sum(dim=1), table)[:ngroups]
+
+    def to_columns(z):
+        """[ngroups, LN'] group sums -> [ncc, LN] per-column float64."""
         return z.reshape(ngroups * gsz, ln0)[gc].to(f64)
 
     def dotp(x, y):
         xr, xi = view3(x)
         yr, yi = view3(y)
-        return colsum(xr * yr - xi * yi), colsum(xr * yi + xi * yr)
+        zr, zi = groupsum(xr * yr - xi * yi), groupsum(xr * yi + xi * yr)
+        if psum is not None:
+            zr, zi = psum(torch.stack([zr, zi]))
+        return to_columns(zr), to_columns(zi)
 
     def nrm2(x):
         xr, xi = view3(x)
-        return colsum(xr * xr + xi * xi)
+        z = groupsum(xr * xr + xi * xi)
+        return to_columns(z if psum is None else psum(z))
 
     def scale(a):
         """[ncc, LN] float64 scalars -> [nslots, 1, LN'] float32."""
         def expand(v):
-            flat = torch.zeros((ngroups * gsz, ln0), dtype=f32, device=dev)
+            flat = torch.zeros(((ngroups + pad) * gsz, ln0), dtype=f32,
+                               device=dev)
             flat[gc] = v.to(f32)
-            return flat.view(ngroups, ln2)[slot_grp][:, None, :]
+            return flat.view(ngroups + pad, ln2)[slot_grp][:, None, :]
         return expand(a[0]), expand(a[1])
 
     def fuse(re, im):

@@ -12,22 +12,27 @@ full result.  NCCL carries the collectives between cards (``torchrun
 --nproc_per_node=N``), gloo between CPU processes.
 
 Engines: ``sharded`` (block lists, the pair-plan kernel K1 per shard),
-``sharded_rowtile`` (row tiles, the kernel K3 per shard), ``sharded_panel``
-(dense slabs, ``torch.matmul``); ``mixed`` refines to float64 residuals.
-The JAX package's ``sharded_pairs`` engine and its ``comm_model`` are not
-ported yet.
+``sharded_rowtile`` (row tiles, the kernel K3 per shard), ``sharded_pairs``
+(the packed pair plan, the kernel K2 per shard, with the halo-overlap tile
+split and the neighbour halo), ``sharded_panel`` (dense slabs,
+``torch.matmul``); ``mixed`` refines to float64 residuals.
+``comm_model`` prices the packed engine's collectives at the H100's
+NVLink and memory rates; ``dryrun`` runs every engine on tiny shapes
+against the single-device solve.
 """
 
 from ..errors import Status, TfqmrgpuError, encode_status
 from .partition import RowPartition, partition_plan
 from .sharded import (Mesh, ShardedAction, make_mesh, sharded_solve,
                       sharded_solve_core)
+from .sharded_pairs import ShardedPairsLayout, ShardedPairsSolver
 from .sharded_panel import ShardedPanelSolver
 from .sharded_rowtile import ShardedRowTileSolver
 
 __all__ = ["RowPartition", "partition_plan", "Mesh", "ShardedAction",
            "sharded_solve", "sharded_solve_core", "make_mesh",
-           "ShardedPanelSolver", "ShardedRowTileSolver", "solve_sharded"]
+           "ShardedPairsLayout", "ShardedPairsSolver", "ShardedPanelSolver",
+           "ShardedRowTileSolver", "solve_sharded"]
 
 
 def solve_sharded(a, x, b, *, mesh=None, n_devices: int = 0,
@@ -44,10 +49,11 @@ def solve_sharded(a, x, b, *, mesh=None, n_devices: int = 0,
 
     * 'rowtile' -- union-ELL row slabs through K3, X panel gathered per
       multiply;
-    * 'pairs'   -- the JAX package's pair-plan panels with the halo-overlap
-      tile split: not ported yet, so it raises;
+    * 'pairs'   -- the packed pair plan through K2 with the halo-overlap
+      tile split (``ShardedPairsSolver``, ``r_tile`` 1 by default);
     * 'auto'    -- 'rowtile' when LM >= 8 and the X panel takes at most
-      ``solver.PALLAS_X_BYTE_LIMIT`` (90 MiB), else 'pairs'.
+      ``solver.PALLAS_X_BYTE_LIMIT`` (90 MiB), else 'pairs' (the JAX
+      package's rule).
 
     precision 'c' iterates in float32; precision 'm' additionally refines
     to float64 residuals (``parallel.mixed``).  Stopping is globally
@@ -105,12 +111,7 @@ def _build_sharded(a, x, b, *, mesh=None, n_devices: int = 0,
     if eng == "rowtile":
         sp = ShardedRowTileSolver(plan, mesh, r_tile=r_tile)
     elif eng == "pairs":
-        raise TfqmrgpuError(
-            encode_status(Status.NO_IMPLEMENTATION),
-            "the sharded 'pairs' engine (the JAX package's "
-            "parallel/sharded_pairs.py) is not ported yet"
-            + (f"; 'auto' picked it for LM = {plan.lm}" if engine == "auto"
-               else ""))
+        sp = ShardedPairsSolver(plan, mesh, r_tile=r_tile or 1)
     else:
         raise TfqmrgpuError(encode_status(Status.NO_IMPLEMENTATION),
                             f"unknown sharded engine {engine!r}")

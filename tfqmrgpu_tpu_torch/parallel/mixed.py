@@ -3,7 +3,8 @@ float64-residual iterative refinement.
 
 Counterpart of ``tfqmrgpu_tpu/parallel/mixed.py``, and the sharded
 analogue of ``solver.solve_mixed``: the c stage and the correction solves
-run on a sharded float32 engine (the row tiles over the ranks), while each
+run on a sharded float32 engine (the row tiles, K3, or the packed pairs,
+K2, over the ranks), while each
 round measures the true residual with one float64 product, the pair-plan
 kernel K1 over the whole plan (``PairPlanMultiply``; its plain version on
 the CPU).  The residual runs replicated on every rank, as in the JAX
@@ -31,8 +32,9 @@ def solve_sharded_mixed(a, x, b, plan, sp, *, tolerance: float = 1e-9,
     Args:
       a, x, b: the BSR operands (complex128 data on ``a``/``b``).
       plan: the analyzed plan (lm/ln set) on this rank's device.
-      sp: a sharded solver (``ShardedRowTileSolver``) built over ``plan``
-          and a mesh; its ``solve`` must accept ``rhs_xshaped``.
+      sp: a sharded solver (``ShardedRowTileSolver`` or
+          ``ShardedPairsSolver``) built over ``plan`` and a mesh; its
+          ``solve`` must accept ``rhs_xshaped``.
 
     Returns (x_blocks complex128 [nnzbX, LM, LN], info dict).
     """

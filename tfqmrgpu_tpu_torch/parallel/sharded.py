@@ -115,6 +115,45 @@ class Mesh:
         self.calls["all_gather"] += 1
         return out
 
+    def all_gather_async(self, out: torch.Tensor, inp: torch.Tensor,
+                         axes: tuple = ("rows",)):
+        """``all_gather`` issued asynchronously: ``out`` [n*inp.shape[0],
+        ...] is written after the returned work handle's ``wait()``, which
+        on NCCL orders NCCL's stream before the current one (what is
+        launched on the current stream in between overlaps the
+        collective).  ``inp`` must not change before then."""
+        work = _all_gather(out, inp, group=self._groups[tuple(axes)],
+                           async_op=True)
+        self.calls["all_gather"] += 1
+        return work
+
+    def neighbour_exchange(self, send_up: torch.Tensor,
+                           recv_below: torch.Tensor, send_down: torch.Tensor,
+                           recv_above: torch.Tensor) -> list:
+        """The edge exchange of a neighbour halo over the "rows" axis (the
+        JAX package's two ``ppermute`` calls): shard r sends ``send_up`` to
+        shard r + 1, which receives it in ``recv_below``, and ``send_down``
+        to shard r - 1, which receives it in ``recv_above``.  Empty tensors
+        are not sent; the first and last shards post nothing past the edge,
+        so their edge buffers keep what they held.  Every rank posts its
+        operations in the same order.  Returns the work handles, to
+        ``wait()`` before the buffers are read."""
+        r, pr, pc, col = self.row, self.pr, self.pc, self.col
+        group = self._groups[("rows",)]
+        ops = []
+        for send, recv, to in ((send_up, recv_below, 1),
+                               (send_down, recv_above, -1)):
+            if send.numel() == 0:
+                continue
+            if 0 <= r + to < pr:
+                ops.append(dist.P2POp(dist.isend, send, (r + to) * pc + col,
+                                      group))
+            if 0 <= r - to < pr:
+                ops.append(dist.P2POp(dist.irecv, recv, (r - to) * pc + col,
+                                      group))
+        self.calls["neighbour_exchange"] += 1
+        return dist.batch_isend_irecv(ops) if ops else []
+
     def gather(self, t: torch.Tensor, axes: tuple = AXES) -> torch.Tensor:
         """``t`` of every rank along ``axes``, stacked on new leading axes
         of those sizes (shapes must agree across the ranks)."""

@@ -99,6 +99,39 @@ def choose_group_size(pairs: np.ndarray, pair_y: np.ndarray, nnzb_x: int,
     return g
 
 
+def pack_pairs(plan, lm: int, ln: int, group_size: int = 0,
+               r_tile: int = 1) -> tuple:
+    """The packed plan of the 'c' 'pairs' engine, from the plan's pair list
+    (JAX: the fine branch of its solver's ``_build_fine_pairs``): the group
+    size (``choose_group_size`` for 0, none for 1, else ``group_size``),
+    the grouped pair list (ungrouped if ``pack_grouped`` refuses the
+    pattern), then the resident plan.  Returns (``GroupedPairs`` or None,
+    ``PairPanelPlan``)."""
+    pairs = plan.pairs.cpu().numpy().astype(np.int64)
+    pair_y = np.repeat(np.arange(plan.nnzb_x, dtype=np.int64),
+                       np.diff(plan.starts.cpu().numpy()))
+    row_of = np.repeat(np.arange(plan.nrows, dtype=np.int64),
+                       np.diff(plan.rowptr_x))
+    colindx = plan.colindx.cpu().numpy().astype(np.int64)
+    g = int(group_size) or choose_group_size(
+        pairs, pair_y, plan.nnzb_x, lm, ln, row_of, colindx, plan.ncols)
+    gp = None
+    if g > 1:
+        try:
+            gp = pp_ops.pack_grouped(pairs[:, 0], pairs[:, 1], pair_y,
+                                     plan.nnzb_x, ln, g, row_of=row_of,
+                                     col_of=colindx)
+        except ValueError:
+            gp = None
+    if gp is not None:
+        return gp, pp_ops.pack_pair_plan(
+            gp.pair_a2, gp.pair_x2, gp.pair_y2, gp.nnzb2, gp.nnzb2, lm,
+            gp.ln2, r_tile=r_tile, row_of=gp.row_of2, col_of=gp.col_of2)
+    return None, pp_ops.pack_pair_plan(
+        pairs[:, 0], pairs[:, 1], pair_y, plan.nnzb_x, plan.nnzb_x, lm, ln,
+        r_tile=r_tile, row_of=row_of, col_of=colindx)
+
+
 def _dtype_for(precision: str) -> torch.dtype:
     if precision == "z":
         return torch.float64
@@ -249,38 +282,11 @@ class Solver:
         return engine
 
     def _pack_pairs(self, echo: int):
-        """The packed plan of the 'c' 'pairs' engine (JAX: the fine branch
-        of its solver's ``_build_fine_pairs``): the group size, the grouped
-        pair list (ungrouped if ``pack_grouped`` refuses the pattern), then
-        the resident plan with ``r_tile`` 1."""
-        plan = self.plan
-        pairs = plan.pairs.cpu().numpy().astype(np.int64)
-        pair_y = np.repeat(np.arange(plan.nnzb_x, dtype=np.int64),
-                           np.diff(plan.starts.cpu().numpy()))
-        row_of = np.repeat(np.arange(plan.nrows, dtype=np.int64),
-                           np.diff(plan.rowptr_x))
-        colindx = plan.colindx.cpu().numpy().astype(np.int64)
-        g = choose_group_size(pairs, pair_y, plan.nnzb_x, self.lm, self.ln,
-                              row_of, colindx, plan.ncols)
-        if g > 1:
-            try:
-                self._gp = pp_ops.pack_grouped(
-                    pairs[:, 0], pairs[:, 1], pair_y, plan.nnzb_x, self.ln,
-                    g, row_of=row_of, col_of=colindx)
-            except ValueError:
-                self._gp = None
-        gp = self._gp
-        if gp is not None:
-            self._pp_plan = pp_ops.pack_pair_plan(
-                gp.pair_a2, gp.pair_x2, gp.pair_y2, gp.nnzb2, gp.nnzb2,
-                self.lm, gp.ln2, r_tile=1, row_of=gp.row_of2,
-                col_of=gp.col_of2)
-        else:
-            self._pp_plan = pp_ops.pack_pair_plan(
-                pairs[:, 0], pairs[:, 1], pair_y, plan.nnzb_x, plan.nnzb_x,
-                self.lm, self.ln, r_tile=1, row_of=row_of, col_of=colindx)
+        """The packed plan of the 'c' 'pairs' engine (``pack_pairs``, with
+        ``r_tile`` 1)."""
+        self._gp, self._pp_plan = pack_pairs(self.plan, self.lm, self.ln)
         if echo > 2:
-            pp = self._pp_plan
+            pp, gp = self._pp_plan, self._gp
             print(f"# packed pairs: G={gp.group_size if gp else 1}, "
                   f"{pp.ntiles} tiles, ku={pp.ku}, lanes {2 * pp.ln}, "
                   f"inflation {pp.inflation:.2f}x")
