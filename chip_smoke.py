@@ -111,7 +111,26 @@ two for each:
    over X's pattern; the iterations and X of ``Solver(engine='pairs')`` to
    the bit), each with its collectives checked; (e) the comm
    model (``parallel/comm_model.py``) for the golden class at pr 1, 2, 4
-   and 8, from layouts alone.
+   and 8, from layouts alone;
+18. the measurement and tuning layer (``profiling``, ``autotune``), after
+   phase 16 (e): (a) ``calibrate_hbm`` (a chain of adds over 512 MiB; its
+   GB/s beside K4's and ``copy_``'s from phase 8, at most 1.05 x the data
+   sheet's 3.35 TB/s), (b) the golden-class 'c' row-tile solve under
+   ``torch.profiler`` with TFQ_TRACE=1 (one ``tfq.solve.pallas`` range
+   holding every K3 kernel the profile kept) and unset (no range), (c)
+   ``timed_solve`` and ``solver_roofline`` on FD rtb=12.75 'z' (K1), golden
+   'z' (K1), golden 'c' row tiles (K3) and packed pairs (K2): phases 3, 4,
+   6 and 10's iterations, flops and bytes an iteration, light speed and the
+   fractions of light and of sheet light, each in (0, 1.05], from the
+   best of two timed solves, (d)
+   ``autotune_solver`` on the golden class in 'c' and 'z' with a fresh
+   cache under ``build/``: every row printed, every candidate on a
+   hand-written kernel timed with its counter raised (and no counter
+   raised by 'dense' or 'xla'), the winner's solve equal to a Solver built
+   directly with the winning engine and environment (iterations, X to the
+   bit), and a second call a cache hit that launches nothing; then the
+   local search from a lone packed 'pairs' candidate (its G and r_tile
+   moves, every search row timed on K2).
 
 Then one JSON line on the kernels (time, launches on their path, bound,
 plain and library times; the launches of every path that runs the kernel
@@ -139,20 +158,21 @@ import numpy as np
 import torch
 
 
-PEAK_FLOPS = 67e12             # FP64 tensor core and FP32 non-tensor rates
-
-
 def require(ok: bool, what: str):
     if not ok:
         raise RuntimeError(f"check failed: {what}")
 
 
-def bound(nbytes: float, flops: float) -> tuple[float, str]:
+def bound(nbytes: float, flops: float,
+          rate: str = "fp32_tflops") -> tuple[float, str]:
     """The least time (ms) the card could take: the larger of the bytes over
-    the device-memory rate and the operations over the peak rate."""
-    from tfqmrgpu_tpu_torch.dma_probe import HBM_BYTES_PER_S
+    the device-memory rate and the operations over the peak ``rate`` of
+    the data sheet (``profiling.DEVICE_PEAKS``)."""
+    from tfqmrgpu_tpu_torch.profiling import DEVICE_PEAKS, H100
 
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS
+    peaks = DEVICE_PEAKS[H100]
+    t_bytes = nbytes / (peaks["hbm_gbps"] * 1e9)
+    t_ops = flops / (peaks[rate] * 1e12)
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                       else "operations")
 
@@ -494,7 +514,7 @@ def phase_kernel(dev, fd):
     flops = plan.n_pairs * 8.0 * 32 ** 3
     bound_ms, bound_by = bound(
         16 * (plan.nnzb_a * 32 * 32 + 2 * plan.nnzb_x * 32 * 32)
-        + 4 * (plan.nnzb_x + 1 + 2 * plan.n_pairs), flops)
+        + 4 * (plan.nnzb_x + 1 + 2 * plan.n_pairs), flops, "fp64_tflops")
     fplan = create_plan(fd.a, fd.x, fd.b, device=dev)
     fa = fd.a_with_data().data
     fmult = pp.PairPlanMultiply(fplan, *planes(fa, torch.float64, dev), 8)
@@ -596,6 +616,7 @@ def phase_golden(dev, timed_iterations: int = 20):
           f"iterations, {info.n_probes} probes, |AX-B|/|B| {res:.3e}, wall "
           f"{wall_ms:.1f} ms; {per_it:.3f} ms per iteration over "
           f"{timed_iterations} iterations", flush=True)
+    return info.iterations_needed
 
 
 def _rowtile_multiply(plan, lm, ln, av, xv, dev, r_tile=None, slots=None):
@@ -832,7 +853,7 @@ def phase_probe(dev):
                 ms=best["ms"], plain_ms=yard["plain_ms"], bound_ms=bound_ms,
                 bound_by=bound_by, library_ms=yard["copy_ms"],
                 variant=f"stage {best['stage_kb']} KiB, n_ops {best['n_ops']}",
-                gbps=best["gbps"])
+                gbps=best["gbps"], copy_gbps=yard["copy_gbps"])
 
 
 def phase_packed(dev, fd):
@@ -1878,6 +1899,256 @@ def phase_sharded_pairs(dev, mesh, golden_pairs: tuple):
                    "phase 17 (d) golden 48 columns auto -> pairs": k2_d}}
 
 
+TIMED_REPEATS = 3        # phase 18 (c): a warm-up, then the best of two
+
+
+def phase_tuning(dev, fd, k4: dict, iterations: dict) -> dict:
+    """Phase 18: the measurement and tuning layer (``profiling``,
+    ``autotune``).  ``k4`` is phase 8's probe reading; ``iterations`` the
+    iteration counts of phases 3, 4, 6 and 10.  Returns the launches of
+    K1, K2 and K3 by path."""
+    import shutil
+
+    from tfqmrgpu_tpu_torch import Solver, autotune, profiling
+    from tfqmrgpu_tpu_torch.autotune import environment
+    from tfqmrgpu_tpu_torch.ops.pairpanel import (PairPanelMultiply,
+                                                  PairPlanMultiply)
+    from tfqmrgpu_tpu_torch.ops.pallas_spmm import RowTileMultiply
+
+    t_phase = time.perf_counter()
+    counters = {"k1": PairPlanMultiply, "k2": PairPanelMultiply,
+                "k3": RowTileMultiply}
+    by_path = {"k1": {}, "k2": {}, "k3": {}}
+
+    def zero():
+        for c in counters.values():
+            c.launches = 0
+
+    def read() -> dict:
+        return {k: c.launches for k, c in counters.items()}
+
+    # (a) the sustained read+write rate of 8 adds; sets TFQ_HBM_GBPS
+    sheet = profiling.device_peaks(profiling.device_kind(dev))["hbm_gbps"]
+    gbps = profiling.calibrate_hbm(device=dev)
+    require(0.0 < gbps <= 1.05 * sheet,
+            f"calibrate_hbm {gbps:.1f} GB/s, data sheet {sheet:.0f}")
+    print(f"phase 18 (a) calibrate_hbm (512 MiB float32, 8 passes a + k, "
+          f"k a host constant): "
+          f"{gbps:.1f} GB/s read+write ({100 * gbps / sheet:.1f}% of "
+          f"{sheet:.0f}); phase 8: K4 {k4['gbps']:.1f} GB/s, copy_ "
+          f"{k4['copy_gbps']:.1f} GB/s; TFQ_HBM_GBPS="
+          f"{os.environ['TFQ_HBM_GBPS']}", flush=True)
+
+    # (b) the solve's trace range, with TFQ_TRACE set and unset
+    kind = torch.autograd.DeviceType
+    a, x, b = golden_c_problem()
+    s = Solver(a, x, b, precision="c", engine="pallas", device=dev)
+    seen = {}
+    for flag in ("1", None):
+        with environment({"TFQ_TRACE": flag}):
+            RowTileMultiply.launches = 0
+            with torch.profiler.profile(activities=[
+                    torch.profiler.ProfilerActivity.CPU,
+                    torch.profiler.ProfilerActivity.CUDA]) as prof:
+                info = s.solve(tolerance=1e-5, max_iterations=500)
+                torch.cuda.synchronize()
+        events = prof.events()
+        seen[flag] = (
+            info, RowTileMultiply.launches,
+            [e.time_range for e in events if e.name == "tfq.solve.pallas"
+             and e.device_type == kind.CPU],
+            [e.time_range for e in events if e.device_type == kind.CUDA
+             and "rowtile_spmm_kernel" in e.name])
+    for flag, (info, launches, ranges, k3) in seen.items():
+        require(info.return_status == 0
+                and info.iterations_needed == iterations[6]
+                and launches == 2 * info.iterations_needed + info.n_probes,
+                f"traced golden 'c' (TFQ_TRACE={flag}): status "
+                f"{info.return_status}, {info.iterations_needed} iterations "
+                f"(phase 6: {iterations[6]}), {launches} K3 launches")
+        by_path["k3"][f"phase 18 (b) golden c traced solve, TFQ_TRACE="
+                      f"{flag or 'unset'}"] = launches
+    info, launches, ranges, k3 = seen["1"]
+    require(len(ranges) == 1, f"{len(ranges)} tfq.solve.pallas ranges with "
+            "TFQ_TRACE=1")
+    r = ranges[0]
+    inside = sum(r.start <= t.start and t.end <= r.end for t in k3)
+    require(0 < len(k3) <= launches and inside == len(k3),
+            f"{len(k3)} K3 kernels in the profile for {launches} launches, "
+            f"{inside} inside the tfq.solve.pallas range")
+    require(not seen[None][2], "a tfq.solve.pallas range with TFQ_TRACE "
+            "unset")
+    print(f"phase 18 (b) golden-class 'c' row tiles under torch.profiler: "
+          f"TFQ_TRACE=1 gives one tfq.solve.pallas range of "
+          f"{(r.end - r.start) / 1e3:.1f} ms holding all {len(k3)} K3 "
+          f"kernels the profile kept ({launches} launches, "
+          f"{info.iterations_needed} iterations); TFQ_TRACE unset gives no "
+          f"range ({len(seen[None][3])} K3 kernels)", flush=True)
+    del s
+
+    # (c) timed solves against the per-iteration roofline
+    cases = (
+        ("FD rtb=12.75 'z'", "k1", 3, 1e-9, 2000,
+         lambda: Solver(fd.a_with_data(), fd.x, fd.b_with_data(),
+                        precision="z", engine="auto", device=dev)),
+        ("golden 'z'", "k1", 4, 1e-10, 500,
+         lambda: Solver(*golden_z_problem(), precision="z", engine="auto",
+                        device=dev)),
+        ("golden 'c' row tiles", "k3", 6, 1e-5, 500,
+         lambda: Solver(*golden_c_problem(), precision="c", engine="pallas",
+                        device=dev)),
+        ("golden 'c' packed pairs", "k2", 10, 1e-5, 500,
+         lambda: Solver(*golden_c_problem(), precision="c", engine="pairs",
+                        device=dev)))
+    for what, kern, phase, tol, maxit, make in cases:
+        s = make()
+        zero()
+        info, best_s, roof = profiling.timed_solve(
+            s, tolerance=tol, max_iterations=maxit, repeats=TIMED_REPEATS)
+        its = info.iterations_needed
+        launches = read()
+        require(info.return_status == 0 and its == iterations[phase],
+                f"timed {what}: status {info.return_status}, {its} "
+                f"iterations (phase {phase}: {iterations[phase]})")
+        require(launches[kern] == TIMED_REPEATS * (2 * its + info.n_probes)
+                and sum(launches.values()) == launches[kern],
+                f"timed {what}: launches {launches} for {TIMED_REPEATS} "
+                f"solves of {its} iterations and {info.n_probes} probes")
+        fracs = (roof.fraction_of_light, roof.fraction_of_sheet_light)
+        require(all(0.0 < f <= 1.05 for f in fracs),
+                f"timed {what}: fractions of light {fracs}")
+        by_path[kern][f"phase 18 (c) {what} timed_solve"] = launches[kern]
+        print(f"phase 18 (c) {what} ({s.engine}): {its} iterations (phase "
+              f"{phase}: {iterations[phase]}); {roof.flops_per_iteration:.4e} "
+              f"flop and {roof.bytes_per_iteration:.4e} B an iteration"
+              f"{' (vectors L2-resident)' if roof.vectors_resident else ''}, "
+              f"light {roof.light_speed_s * 1e6:.1f} us ("
+              f"{'compute' if roof.compute_bound else 'bandwidth'}-bound at "
+              f"{roof.peak_tflops:.0f} TFlop/s, {roof.peak_gbps:.1f} GB/s); "
+              f"measured {roof.measured_s * 1e6:.1f} us an iteration (CUDA "
+              f"events, best of {TIMED_REPEATS - 1} after a warm-up); "
+              f"fraction of light "
+              f"{roof.fraction_of_light:.4f}, of sheet light "
+              f"{roof.fraction_of_sheet_light:.4f}", flush=True)
+        del s
+
+    # (d) autotune on the golden class, with a fresh cache
+    cache = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "build", "autotune_cache")
+    shutil.rmtree(cache, ignore_errors=True)
+    real = autotune.time_multiply
+    moved = []
+
+    def counted(solver, **kw):
+        before = read()
+        dt = real(solver, **kw)
+        moved.append({k: v - before[k] for k, v in read().items()})
+        return dt
+
+    kernel_of = {("pallas", "c"): "k3", ("pairs", "c"): "k2",
+                 ("pairs", "z"): "k1"}
+    autotune.time_multiply = counted
+    try:
+        with environment({"TFQ_AUTOTUNE_CACHE": cache,
+                          "TFQ_AUTOTUNE_SEARCH": None}):
+            for prec, tol, make in (("c", 1e-5, golden_c_problem),
+                                    ("z", 1e-10, golden_z_problem)):
+                a, x, b = make()
+                zero()
+                moved.clear()
+                t0 = time.perf_counter()
+                s, table = autotune.autotune_solver(a, x, b, precision=prec,
+                                                    device=dev)
+                wall = time.perf_counter() - t0
+                race = read()
+                for row in table:
+                    print(f"phase 18 (d) autotune '{prec}' row: "
+                          f"{json.dumps(row)}", flush=True)
+                timed = [row for row in table if "error" not in row]
+                require(len(timed) == len(moved),
+                        f"{len(timed)} timed rows, {len(moved)} measurements")
+                for row, m in zip(timed, moved):
+                    kern = kernel_of.get((row["engine"], prec))
+                    want = {k: (m[k] > 0 if k == kern else m[k] == 0)
+                            for k in m}
+                    require(all(want.values()),
+                            f"autotune '{prec}' {row}: launches {m}")
+                require(all("error" not in row for row in table
+                            if (row["engine"], prec) in kernel_of),
+                        f"autotune '{prec}': a hand-written candidate failed")
+                for k, n in race.items():
+                    if n:
+                        by_path[k][f"phase 18 (d) autotune '{prec}' race"] = n
+                hit = autotune._load_cache()[autotune._pattern_key(
+                    s.plan, s.lm, s.ln, prec)]
+                info_w = s.solve(tolerance=tol, max_iterations=500)
+                with environment(hit["env"]):
+                    direct = Solver(a, x, b, precision=prec,
+                                    engine=hit["engine"], device=dev)
+                info_d = direct.solve(tolerance=tol, max_iterations=500)
+                require(info_w.return_status == 0
+                        and info_w.iterations_needed
+                        == info_d.iterations_needed
+                        and np.array_equal(s.get_matrix("X"),
+                                           direct.get_matrix("X")),
+                        f"autotune '{prec}' winner {hit}: "
+                        f"{info_w.iterations_needed} iterations, direct "
+                        f"{info_d.iterations_needed}, X differs")
+                del s, direct
+                zero()
+                moved.clear()
+                t0 = time.perf_counter()
+                _, again = autotune.autotune_solver(a, x, b, precision=prec,
+                                                    device=dev)
+                hit_wall = time.perf_counter() - t0
+                require(len(again) == 1 and again[0].get("cached") is True
+                        and not moved and not any(read().values()),
+                        f"second autotune '{prec}': {again}, launches "
+                        f"{read()}")
+                print(f"phase 18 (d) autotune '{prec}' golden class: winner "
+                      f"{hit['engine']} {hit['env']} "
+                      f"({hit['ms_per_multiply']} ms a multiply), "
+                      f"{len(table)} rows in {wall:.1f} s; the winner's "
+                      f"solve ({info_w.iterations_needed} iterations) equals "
+                      f"a Solver built directly to the bit; a second call "
+                      f"is a cache hit in {hit_wall:.1f} s with no launch; "
+                      f"race launches {race}", flush=True)
+        # the local search from a packed 'pairs' start (G and r_tile moves),
+        # on K2; no cache, so (d)'s entries stay as they are
+        a, x, b = golden_c_problem()
+        zero()
+        moved.clear()
+        t0 = time.perf_counter()
+        with environment({"TFQ_AUTOTUNE_SEARCH": None}):
+            s, table = autotune.autotune_solver(
+                a, x, b, precision="c", use_cache=False, device=dev,
+                candidates=[("pairs", {"TFQ_PAIRS_RTILE": "1"})])
+        wall = time.perf_counter() - t0
+        race = read()
+        for row in table:
+            print(f"phase 18 (d) autotune 'c' search row: {json.dumps(row)}",
+                  flush=True)
+        search = [row for row in table if row.get("search")]
+        require(search and all("error" not in row for row in table)
+                and len(moved) == len(table)
+                and all(m["k2"] > 0 and m["k1"] == m["k3"] == 0
+                        for m in moved) and s._packed,
+                f"autotune 'c' search: {len(search)} search rows, "
+                f"launches {moved}")
+        by_path["k2"]["phase 18 (d) autotune 'c' local search"] = race["k2"]
+        gp = s._gp.group_size if s._gp is not None else 1
+        print(f"phase 18 (d) autotune 'c' local search from 'pairs' "
+              f"TFQ_PAIRS_RTILE=1: {len(search)} search rows, each on K2; "
+              f"winner G {gp}, r_tile {s._pp_plan.r_tile} "
+              f"({min(r['ms_per_multiply'] for r in table)} ms a multiply) "
+              f"in {wall:.1f} s; K2 launches {race['k2']}", flush=True)
+        del s
+    finally:
+        autotune.time_multiply = real
+    print(f"phase 18 took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return by_path
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device; none is available")
@@ -1891,7 +2162,7 @@ def main():
     fd = generate_fd_problem(rtb=12.75, reference=True)
     timing = phase_kernel(dev, fd)
     launches, fd_iterations, fd_x = phase_fd(dev, fd)
-    phase_golden(dev)
+    golden_z_iterations = phase_golden(dev)
     k3 = phase_rowtile(dev)
     k3_launches, golden_c_iterations = phase_golden_c(dev)
     dense_iterations = phase_dense(dev)
@@ -1911,6 +2182,9 @@ def main():
     pairs = phase_sharded_pairs(dev, mesh, golden_pairs)
     torch.distributed.destroy_process_group()
     phase_sharded_example()
+    tuning = phase_tuning(dev, fd, k4, {
+        3: fd_iterations, 4: golden_z_iterations, 6: golden_c_iterations,
+        10: golden_pairs[2]})
     print(json.dumps({"kernels": [
         {"name": "pairpanel_spmm", "route": "cuda",
          "source": "tfqmrgpu_tpu_torch/csrc/pairpanel_spmm.cu",
@@ -1922,7 +2196,8 @@ def main():
              "phase 12 FD m file (residuals)": k1_file_m,
              "phase 13 golden m (residuals)": k1_golden_m,
              "phase 14 FD z solve_checkpointed": k1_checkpoint,
-             **capi["k1"], **sharded["k1"], **pairs["k1"]}},
+             **capi["k1"], **sharded["k1"], **pairs["k1"],
+             **tuning["k1"]}},
         {"name": "rowtile_spmm", "route": "cuda",
          "source": "tfqmrgpu_tpu_torch/csrc/rowtile_spmm.cu",
          "replaces": "tfqmrgpu_tpu/ops/pallas_spmm.py:214",
@@ -1930,7 +2205,7 @@ def main():
          "launches_by_path": {
              "phase 6 golden c": k3_launches,
              "phase 13 golden m (c stage, corrections)": k3_golden_m,
-             **capi["k3"], **sharded["k3"]}},
+             **capi["k3"], **sharded["k3"], **tuning["k3"]}},
         {"name": "pairpanel_tiles", "route": "cuda",
          "source": "tfqmrgpu_tpu_torch/csrc/pairpanel_tiles.cu",
          "replaces": "tfqmrgpu_tpu/ops/pairpanel.py:1706",
@@ -1938,7 +2213,7 @@ def main():
          "launches_by_path": {
              "phase 10 golden c pairs": k2_launches,
              "phase 12 FD m file (c stage, corrections)": k2_file_m,
-             **capi["k2"], **pairs["k2"]}},
+             **capi["k2"], **pairs["k2"], **tuning["k2"]}},
         {"name": "dma_probe", "route": "cuda",
          "source": "tfqmrgpu_tpu_torch/csrc/dma_probe.cu",
          "replaces": "tools/dma_probe.py:39", **k4, "card": card},

@@ -1,6 +1,7 @@
 """The hand-written kernels (pair-plan K1, packed pair-plan K2, row-tile
 K3, stream probe K4) and their build, K1 driven from C through the port's
-C library, and K1, K2 and K3 under the sharded engines at one rank.
+C library, K1, K2 and K3 under the sharded engines at one rank, and under
+the autotuner's timing and the roofline at the golden class.
 
 Imports neither JAX nor tests/conftest.py, so that the card-only tests run
 on a machine without JAX:
@@ -15,10 +16,12 @@ import pytest
 import torch
 
 from chip_smoke import (STAGED_SHAPES, _rowtile_multiply, c_onecall,
-                        check_staged, dominant_fill, golden_class_patterns,
+                        check_staged, dominant_fill, golden_c_problem,
+                        golden_class_patterns, golden_z_problem,
                         packed_multiply, planes, random_problem)
 from tfqmrgpu_tpu_torch import (ALLOWED_BLOCK_SIZES, Solver, _build,
-                                create_plan, dma_probe, native)
+                                autotune, create_plan, dma_probe, native,
+                                profiling)
 from tfqmrgpu_tpu_torch.ops import pairpanel as pp
 from tfqmrgpu_tpu_torch.ops import paneltiles as pt
 from tfqmrgpu_tpu_torch.ops.pairpanel import PairPanelMultiply, PairPlanMultiply
@@ -453,3 +456,30 @@ def test_sharded_pairs_multiply_runs_k2_on_card(nccl_mesh, overlap):
     whole = pp.PairPanelMultiply(lay.pp_plan, pp.build_a_panels_device(
         lay.pp_plan, *planes(av, torch.float32, "cuda")))
     assert _maxdev((y,), (whole.plain(xf),)) <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("engine,precision", [("pairs", "z"), ("pairs", "c"),
+                                              ("pallas", "c")])
+def test_time_multiply_and_roofline_at_the_golden_class_on_card(
+        monkeypatch, engine, precision):
+    """``autotune.time_multiply`` launches the candidate's kernel (K1, K2,
+    K3) once a multiply of its three chains; the solve's fractions of the
+    per-iteration ceiling lie in (0, 1.05]."""
+    _needs_card()
+    monkeypatch.delenv("TFQ_HBM_GBPS", raising=False)
+    counter = {("pairs", "z"): PairPlanMultiply, ("pairs", "c"):
+               PairPanelMultiply, ("pallas", "c"): RowTileMultiply}[
+                   (engine, precision)]
+    make = golden_z_problem if precision == "z" else golden_c_problem
+    s = Solver(*make(), precision=precision, engine=engine, device="cuda")
+    before = counter.launches
+    assert autotune.time_multiply(s, nrep=4) > 0.0
+    assert counter.launches - before == 3 * 4
+    info, best, roof = profiling.timed_solve(
+        s, tolerance=1e-10 if precision == "z" else 1e-5,
+        max_iterations=500)
+    assert info.return_status == 0 and best > 0.0
+    assert roof.device_kind == torch.cuda.get_device_name(0)
+    for frac in (roof.fraction_of_light, roof.fraction_of_sheet_light):
+        assert 0.0 < frac <= 1.05

@@ -41,22 +41,31 @@ library's numerics.  The module names follow the JAX package's.
                       on the CPU): ``solve_sharded``, block lists on K1,
                       row tiles on K3, dense slabs, 'm', the scaling
                       harness.
+* ``profiling.py`` -- trace ranges (``TFQ_TRACE``), the HBM rate, the
+                      per-iteration roofline and timed solves.
+* ``autotune.py``  -- ``autotune_solver``: engines and their knobs raced on
+                      the caller's pattern, cached per pattern and card.
 
 Every entry point runs on the CUDA card unless it is given
 ``device="cpu"``; without a card it raises.
 """
 
 from .bsr import BlockSparseMatrix, Bsr
-from .errors import Status, TfqmrgpuError
+from .errors import Status, TfqmrgpuError, get_error_string
 from .ops.pairpanel import KERNEL_BLOCK_SIZES as ALLOWED_BLOCK_SIZES
 from .plan import Plan, create_plan
 from .solver import (Solver, bsrsv, bsrsv_c, bsrsv_m, bsrsv_z, solve,
                      solve_mixed)
+from . import ops, parallel, profiling
+from .autotune import autotune_solver
+
+__version__ = "0.1.0"
 
 __all__ = ["Bsr", "BlockSparseMatrix", "Plan", "create_plan", "Solver", "solve", "solve_mixed",
            "bsrsv", "bsrsv_z", "bsrsv_c", "bsrsv_m", "TfqmrgpuError",
-           "Status", "ALLOWED_BLOCK_SIZES", "allowed_block_sizes",
-           "block_size_missing"]
+           "Status", "get_error_string", "ALLOWED_BLOCK_SIZES",
+           "allowed_block_sizes", "block_size_missing", "ops", "parallel",
+           "profiling", "autotune_solver"]
 
 
 def allowed_block_sizes() -> list:

@@ -27,8 +27,9 @@ import sys
 import torch
 
 from .errors import Status, TfqmrgpuError, encode_status
+from .profiling import DEVICE_PEAKS, H100
 
-HBM_BYTES_PER_S = 3.35e12           # H100 SXM data sheet
+HBM_BYTES_PER_S = DEVICE_PEAKS[H100]["hbm_gbps"] * 1e9
 STAGE_BYTES = (16 << 10, 32 << 10, 64 << 10, 96 << 10)
 N_OPS = (1, 2, 4)
 ROWS, COLS = 64, 1024               # one [rows, cols] block: 256 KiB

@@ -93,3 +93,9 @@ class TfqmrgpuError(RuntimeError):
         if detail:
             msg = f"{msg}: {detail}"
         super().__init__(msg)
+
+
+class TfqmrgpuValueError(TfqmrgpuError, ValueError):
+    """A ``TfqmrgpuError`` for an argument that the JAX package refuses
+    with ``ValueError``, so that a caller's ``except ValueError`` catches
+    it in both packages."""

@@ -25,7 +25,7 @@ package.
 from __future__ import annotations
 
 import math
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -87,14 +87,17 @@ def pack_row_tiles(rowptr_a: np.ndarray, colind_a: np.ndarray, mb: int,
                        kslot_of=kslot_of, inflation=float(inflation))
 
 
-def choose_row_tile(plan, lm: int) -> RowTilePack:
+def choose_row_tile(plan, lm: int, r_tile: Optional[int] = None
+                    ) -> RowTilePack:
     """The pack of the JAX solver's r_tile choice (its solver.py:164-175):
     among r_tile in {128/LM, 64/LM, 32/LM, 1} (floored, at least 1) the one
     with the least inflation over the row-utilization factor
     min(1, 2*r*LM/128), which the JAX package took from the TPU's 128-row
-    matrix unit; an H100 rule is later work."""
-    cands = sorted({max(1, 128 // lm), max(1, 64 // lm), max(1, 32 // lm), 1},
-                   reverse=True)
+    matrix unit; an H100 rule is later work.  A given ``r_tile`` is taken
+    as it is (the Solver's TFQ_PALLAS_RTILE, which ``autotune`` races)."""
+    cands = ([r_tile] if r_tile else
+             sorted({max(1, 128 // lm), max(1, 64 // lm), max(1, 32 // lm),
+                     1}, reverse=True))
     best = None
     for r_tile in cands:
         p = pack_row_tiles(plan.rowptr_a, plan.colind_a, plan.nrows, lm,

@@ -21,7 +21,7 @@ NVLink and memory rates; ``dryrun`` runs every engine on tiny shapes
 against the single-device solve.
 """
 
-from ..errors import Status, TfqmrgpuError, encode_status
+from ..errors import Status, TfqmrgpuValueError, encode_status
 from .partition import RowPartition, partition_plan
 from .sharded import (Mesh, ShardedAction, make_mesh, sharded_solve,
                       sharded_solve_core)
@@ -50,7 +50,8 @@ def solve_sharded(a, x, b, *, mesh=None, n_devices: int = 0,
     * 'rowtile' -- union-ELL row slabs through K3, X panel gathered per
       multiply;
     * 'pairs'   -- the packed pair plan through K2 with the halo-overlap
-      tile split (``ShardedPairsSolver``, ``r_tile`` 1 by default);
+      tile split (``ShardedPairsSolver`` in tiles of one block row; as in
+      the JAX package, ``r_tile`` sets the row tiles only);
     * 'auto'    -- 'rowtile' when LM >= 8 and the X panel takes at most
       ``solver.PALLAS_X_BYTE_LIMIT`` (90 MiB), else 'pairs' (the JAX
       package's rule).
@@ -62,10 +63,10 @@ def solve_sharded(a, x, b, *, mesh=None, n_devices: int = 0,
     import numpy as np
 
     if precision not in ("c", "m"):
-        raise TfqmrgpuError(encode_status(Status.PRECISION_MISSMATCH),
-                            "sharded engines iterate in float32: use "
-                            "precision 'c', or 'm' for f64-residual "
-                            "refinement; plain 'z' runs on one device")
+        raise TfqmrgpuValueError(encode_status(Status.PRECISION_MISSMATCH),
+                                 "sharded engines iterate in float32: use "
+                                 "precision 'c', or 'm' for f64-residual "
+                                 "refinement; plain 'z' runs on one device")
     plan, sp, eng = _build_sharded(a, x, b, mesh=mesh, n_devices=n_devices,
                                    engine=engine, r_tile=r_tile,
                                    device=device)
@@ -91,6 +92,10 @@ def _build_sharded(a, x, b, *, mesh=None, n_devices: int = 0,
     """Shared plumbing of solve_sharded: plan + engine pick + solver."""
     import torch.distributed as dist
 
+    if engine not in ("auto", "rowtile", "pairs"):
+        raise TfqmrgpuValueError(encode_status(Status.NO_IMPLEMENTATION),
+                                 f"unknown sharded engine {engine!r}")
+
     from ..plan import create_plan
     from ..solver import PALLAS_X_BYTE_LIMIT
     from .multihost import initialize
@@ -110,9 +115,6 @@ def _build_sharded(a, x, b, *, mesh=None, n_devices: int = 0,
                             <= PALLAS_X_BYTE_LIMIT) else "pairs"
     if eng == "rowtile":
         sp = ShardedRowTileSolver(plan, mesh, r_tile=r_tile)
-    elif eng == "pairs":
-        sp = ShardedPairsSolver(plan, mesh, r_tile=r_tile or 1)
     else:
-        raise TfqmrgpuError(encode_status(Status.NO_IMPLEMENTATION),
-                            f"unknown sharded engine {engine!r}")
+        sp = ShardedPairsSolver(plan, mesh)
     return plan, sp, eng

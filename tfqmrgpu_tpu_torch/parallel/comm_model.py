@@ -40,9 +40,11 @@ from __future__ import annotations
 
 import numpy as np
 
+from ..profiling import DEVICE_PEAKS, H100
+
 NVLINK_BYTES_PER_S = 450e9      # NVLink 4, H100 SXM, one direction a card
-HBM_BYTES_PER_S = 3.35e12       # H100 SXM HBM3 (data sheet)
-FP32_FLOPS_PER_S = 67e12        # H100 SXM FP32 outside the tensor cores
+HBM_BYTES_PER_S = DEVICE_PEAKS[H100]["hbm_gbps"] * 1e9
+FP32_FLOPS_PER_S = DEVICE_PEAKS[H100]["fp32_tflops"] * 1e12
 SPMM_PER_ITER = 2
 PSUM_PLANES_PER_ITER = 6        # 2 dotp x 2 planes + 2 nrm2 x 1
 VEC_PASSES_PER_ITER = 13        # the JAX model's vector passes an iteration

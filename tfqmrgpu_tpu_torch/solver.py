@@ -18,10 +18,11 @@ Engines (``ENGINES``), as in the JAX package:
 * ``'pairs'``  -- ``ops/pairpanel.py``.  In 'z' the plan's pair table
   through the hand-written Hopper kernel K1 (``csrc/pairpanel_spmm.cu``).
   In 'c' the JAX package's packed engine: column groups (G from
-  ``choose_group_size``), a Cuthill-McKee-relabelled resident union-ELL
-  plan with ``r_tile`` 1, vectors as fused permuted panels, and the
-  multiply K2 (``csrc/pairpanel_tiles.cu``).  On the CPU both run their
-  plain versions.
+  ``choose_group_size``, or TFQ_PAIRS_COLGROUP), a Cuthill-McKee-relabelled
+  resident union-ELL plan with ``r_tile`` 1 (or TFQ_PAIRS_RTILE), vectors
+  as fused permuted panels, and the multiply K2
+  (``csrc/pairpanel_tiles.cu``).  On the CPU both run their plain
+  versions.
 * ``'xla'``    -- the block-list engine: the plain ``spmm_pairs``.
 * ``'auto'``   -- the JAX package's rules (its solver.py:113-184): 'dense'
   while the dense planes fit ``DENSE_A_BYTE_LIMIT``, or A is at least 25%
@@ -63,6 +64,7 @@ from .ops.blocksparse import BlockSparseAction
 from .ops.pallas_spmm import (RowTileMultiply, build_a_panels_device,
                               choose_row_tile)
 from .plan import Plan, create_plan, resolve_device
+from .profiling import trace
 
 ENGINES = ("auto", "dense", "pallas", "pairs", "xla")
 PANEL_ENGINES = ("dense", "pallas")
@@ -99,14 +101,21 @@ def choose_group_size(pairs: np.ndarray, pair_y: np.ndarray, nnzb_x: int,
     return g
 
 
-def pack_pairs(plan, lm: int, ln: int, group_size: int = 0,
-               r_tile: int = 1) -> tuple:
+def pack_pairs(plan, lm: int, ln: int, group_size: Optional[int] = None,
+               r_tile: Optional[int] = None) -> tuple:
     """The packed plan of the 'c' 'pairs' engine, from the plan's pair list
     (JAX: the fine branch of its solver's ``_build_fine_pairs``): the group
     size (``choose_group_size`` for 0, none for 1, else ``group_size``),
     the grouped pair list (ungrouped if ``pack_grouped`` refuses the
-    pattern), then the resident plan.  Returns (``GroupedPairs`` or None,
-    ``PairPanelPlan``)."""
+    pattern, as it does a single column), then the resident plan in tiles
+    of ``r_tile`` rows.  ``None`` reads the JAX solver's knobs (its solver.py:330-334),
+    which ``autotune`` races: TFQ_PAIRS_COLGROUP for the group size
+    (default 0) and TFQ_PAIRS_RTILE for ``r_tile`` (default 1).  Returns
+    (``GroupedPairs`` or None, ``PairPanelPlan``)."""
+    if group_size is None:
+        group_size = int(os.environ.get("TFQ_PAIRS_COLGROUP", "0"))
+    if r_tile is None:
+        r_tile = int(os.environ.get("TFQ_PAIRS_RTILE", "1"))
     pairs = plan.pairs.cpu().numpy().astype(np.int64)
     pair_y = np.repeat(np.arange(plan.nnzb_x, dtype=np.int64),
                        np.diff(plan.starts.cpu().numpy()))
@@ -272,7 +281,9 @@ class Solver:
                     encode_status(Status.PRECISION_MISSMATCH),
                     "the row-tile ('pallas') engine is float32-only; use "
                     "precision='c' or engine='dense'")
-            pack = choose_row_tile(plan, self.lm)
+            r_env = os.environ.get("TFQ_PALLAS_RTILE")  # JAX's knob
+            pack = choose_row_tile(plan, self.lm,
+                                   r_tile=int(r_env) if r_env else None)
             if auto and pack.inflation > 4.0:
                 return "pairs"         # unions too ragged for row tiles
             self._pack = pack
@@ -282,8 +293,8 @@ class Solver:
         return engine
 
     def _pack_pairs(self, echo: int):
-        """The packed plan of the 'c' 'pairs' engine (``pack_pairs``, with
-        ``r_tile`` 1)."""
+        """The packed plan of the 'c' 'pairs' engine (``pack_pairs`` under
+        TFQ_PAIRS_COLGROUP and TFQ_PAIRS_RTILE)."""
         self._gp, self._pp_plan = pack_pairs(self.plan, self.lm, self.ln)
         if echo > 2:
             pp, gp = self._pp_plan, self._gp
@@ -457,15 +468,18 @@ class Solver:
         if self._b is None and not rhs_trivial:
             raise TfqmrgpuError(encode_status(Status.NO_INFO_PASSED),
                                 "matrix 'B' has not been set")
-        if self._x0 is not None and not rhs_trivial:
-            result = self._solve_shifted(tolerance, max_iterations)
-        elif self._panel:
-            result = self._solve_panel(tolerance, max_iterations, rhs_trivial)
-        elif self._packed:
-            result = self._solve_fused(tolerance, max_iterations, rhs_trivial)
-        else:
-            result = self._solve_blocks(tolerance, max_iterations,
-                                        rhs_trivial)
+        with trace(f"tfq.solve.{self.engine}", self.device):
+            if self._x0 is not None and not rhs_trivial:
+                result = self._solve_shifted(tolerance, max_iterations)
+            elif self._panel:
+                result = self._solve_panel(tolerance, max_iterations,
+                                           rhs_trivial)
+            elif self._packed:
+                result = self._solve_fused(tolerance, max_iterations,
+                                           rhs_trivial)
+            else:
+                result = self._solve_blocks(tolerance, max_iterations,
+                                            rhs_trivial)
         return self._finish_solve(result, max_iterations)
 
     def _solve_blocks(self, tolerance, max_iterations, rhs_trivial):
