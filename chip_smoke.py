@@ -57,15 +57,19 @@ two for each:
    and pass the independent float64 residual < 1e-4; its time per
    iteration over 10 fixed iterations;
 11. FD rtb=12.75 through ``bsrsv_c`` (tolerance 1e-5, at most 2000
-   iterations): 'auto' takes the packed 'pairs' engine with G = 1, every
-   multiply goes through K2 and X is finite; status, iterations, residuum,
-   maxdev against the dense reference and wall are printed, not gated;
+   iterations): 'auto' takes the packed 'pairs' engine, on the fine pack
+   at G = 1 or, where the card's rates (``ops/rates.py``) say it pays, on
+   the superblock (f = 2 or 4 block rows merged, LM' = 8f, 8 lanes: the
+   phase checks the merged pack), every multiply goes through K2 and X is
+   finite; status, iterations, residuum, maxdev against the dense
+   reference and wall are printed, not gated;
 12. the file path: FD rtb=12.75 written by ``io.xmlio.write_xml`` and run
    through the parity CLI (``bench.run_tfqmr``, at most 2000 iterations):
    'z' must pass the 1e-5 gate against the embedded reference with
    2 K1 launches an iteration and one a probe; 'm' (``solve_mixed``) must
-   reach 1e-9 with its c stage on the packed 'pairs' engine (K2) and one
-   K1 launch per float64 residual (plus the 'z' fallback's, if it ran);
+   reach 1e-9 with its c stage on the packed 'pairs' engine (K2, phase
+   11's pack) and one K1 launch per float64 residual (plus the 'z'
+   fallback's, if it ran);
 13. golden-class 'm' through ``bsrsv_m`` with complex128 data: the c stage
    on the row tiles (K3), SUCCESS at 1e-9, an independent float64 residual
    over X's pattern below 1e-8, one K1 launch per float64 residual;
@@ -130,16 +134,39 @@ two for each:
    directly with the winning engine and environment (iterations, X to the
    bit), and a second call a cache hit that launches nothing; then the
    local search from a lone packed 'pairs' candidate (its G and r_tile
-   moves, every search row timed on K2).
+   moves, every search row timed on K2);
+19. the small-block layer (``ops/superblock.py``, ``ops/rates.py``,
+   ``tools/blocksize_sweep.py``): (a) the block-size sweep: K2 and K3 in
+   'c' and K1 in 'z' at the 15 block sizes on the golden-class plan, each
+   held against the float64 product (maxdev <= 1e-4 'c', <= 1e-12 'z', the
+   same bits on a repeat), every row printed, K2's rates at LM 4, 8, 16
+   and 32 beside ``rates.py``'s, and the factor ``auto_f_row`` picks from
+   each; (b) the golden-class pattern at (LM, LN) = (8, 8) and (4, 8) in
+   'c' through ``Solver(engine='pairs')`` with cos/sin-dominant data at
+   TFQ_SOLVER_SUPER = 0, 2, 4 (and 8 at LM 4): the merged pack, K2 on it
+   against its plain version (maxdev <= 1e-4, the same bits on a repeat)
+   and its time, convergence to 1e-5 with every multiply through K2 at
+   LM f*LM, the float64 residual < 1e-4 over X's pattern, iterations
+   within 3 of the fine solve, ms an iteration (CUDA events) beside the
+   fine solve's, and what 'auto' picks; (c) FD rtb=12.75 'm' through
+   ``solve_mixed(engine='pairs')`` with the c stage at TFQ_SOLVER_SUPER=0,
+   2 and 4 (LM' 16 and 32 on 8 lanes): K2 on the pack against its plain
+   version and its device time,
+   converged to 1e-9, one K1 launch per float64 residual, the c stage's
+   K2 launches, the iterations beside phase 12's; (d) ``autotune_solver``
+   at the golden class (8, 8) in 'c' with a fresh cache: the superblock
+   candidates are rows, each timed with K2's counter raised.
 
 Then one JSON line on the kernels (time, launches on their path, bound,
 plain and library times; the launches of every path that runs the kernel
 under ``launches_by_path``; for K1 also the bytes staged, for K2 and K3
-also ``kernel_ms`` and ``burst_ms``) and, last, one JSON line on the
-device.
+also ``kernel_ms`` and ``burst_ms``, for K2 ``merged_ms``, its device
+time on phase 19's plans) and, last, one JSON line on the device.
 K1's times in phase 2 are CUDA events around 20 calls issued back to back
 (``burst_ms`` for K2 and K3); ``kernel_ms`` is the kernel's device time
-from ``torch.profiler``; every other time is the median of 20 single
+from ``torch.profiler``; phase 19's kernel times are CUDA events around 20
+calls queued behind a spin kernel (``blocksize_sweep.time_ms``: device
+time, no host dispatch); every other time is the median of 20 single
 calls, each timed with CUDA events.  Any failed check raises, and the
 script exits non-zero.  It needs CUDA and runs nothing on the CPU in its
 place.
@@ -202,16 +229,10 @@ def golden_class_patterns(mb: int = 281, deg: int = 11, ncols: int = 16):
     """The banded plan bench.py:63-86 synthesizes when the golden asset is
     absent (49,456 pairs at the defaults): A's row i holds block columns
     i .. i+deg-1 (mod mb), X is full over ncols block columns, and B holds
-    the blocks (j, j)."""
-    from tfqmrgpu_tpu_torch import Bsr
+    the blocks (j, j) (``tools/blocksize_sweep.golden_class_patterns``)."""
+    from tfqmrgpu_tpu_torch.tools import blocksize_sweep
 
-    colind_a = ((np.arange(mb)[:, None] + np.arange(deg)[None, :]) % mb).reshape(-1)
-    a = Bsr(mb, mb, np.arange(mb + 1) * deg, colind_a, None, "A")
-    x = Bsr(mb, ncols, np.arange(mb + 1) * ncols, np.tile(np.arange(ncols), mb),
-            None, "X")
-    b = Bsr(mb, ncols, np.minimum(np.arange(mb + 1), ncols), np.arange(ncols),
-            None, "B")
-    return a, x, b
+    return blocksize_sweep.golden_class_patterns(mb, deg, ncols)
 
 
 def dominant_fill(rng, nnzb: int, deg: int, lm: int) -> np.ndarray:
@@ -227,8 +248,9 @@ def dominant_fill(rng, nnzb: int, deg: int, lm: int) -> np.ndarray:
 def cos_sin(nnzb: int, d1: int, d2: int) -> np.ndarray:
     """re = cos(idx), im = sin(idx), idx = (m*d1 + i)*d2 + j
     (fill_cos_sin, bench_tfqmrgpu.cu:276-287)."""
-    idx = np.arange(nnzb * d1 * d2, dtype=np.float64).reshape(nnzb, d1, d2)
-    return np.cos(idx) + 1j * np.sin(idx)
+    from tfqmrgpu_tpu_torch.tools import blocksize_sweep
+
+    return blocksize_sweep.cos_sin(nnzb, d1, d2)
 
 
 def planes(c: np.ndarray, dtype, device) -> tuple:
@@ -1030,12 +1052,23 @@ def phase_fd_c(dev, fd):
     import tfqmrgpu_tpu_torch as tt
     from tfqmrgpu_tpu_torch.ops.pairpanel import PairPanelMultiply
 
-    # the engine and the pack 'auto' gives this pattern in 'c'
+    # the engine and the pack 'auto' gives this pattern in 'c': the fine
+    # pack at G 1 (one column), or the superblock where the card's rates
+    # (ops/rates.py) say merging pays
     probe = tt.Solver(fd.a, fd.x, fd.b, precision="c", lm=8, ln=8,
                       device=dev)
+    sup = probe._sup
     require(probe.engine == "pairs" and probe._pp_plan is not None
-            and probe._gp is None,
-            f"FD 'c': auto picked {probe.engine}, groups {probe._gp}")
+            and (probe._gp is None if sup is None else
+                 sup.f_row in (2, 4) and sup.lm2 == 8 * sup.f_row
+                 and probe._pp_plan.lm == sup.lm2 and sup.ln == 8),
+            f"FD 'c': auto picked {probe.engine}, groups {probe._gp}, "
+            f"superblock {sup}")
+    pack = (f"G 1, {probe._pp_plan.ntiles} tiles, ku {probe._pp_plan.ku}"
+            if sup is None else
+            f"superblock f {sup.f_row}, LM' {sup.lm2}, LN {sup.ln}, "
+            f"{sup.n_cells} cells, MAC inflation {sup.mac_inflation:.2f}x, "
+            f"{probe._pp_plan.ntiles} tiles, ku {probe._pp_plan.ku}")
     ref = fd.x_reference.astype(np.complex128)
     PairPanelMultiply.launches = 0
     t0 = time.perf_counter()
@@ -1054,12 +1087,12 @@ def phase_fd_c(dev, fd):
             f"and {info.n_probes} probes (status {info.return_status})")
     require(bool(np.isfinite(xs.data).all()), "FD 'c' X is not finite")
     maxdev = float(np.max(np.abs(xs.data - ref)) / np.max(np.abs(ref)))
-    print(f"phase 11 FD rtb=12.75 bsrsv_c -> {info.engine} (G 1, "
-          f"{probe._pp_plan.ntiles} tiles, ku {probe._pp_plan.ku}): status "
+    print(f"phase 11 FD rtb=12.75 bsrsv_c -> {info.engine} ({pack}): status "
           f"{info.return_status}, {info.iterations_needed} iterations, "
           f"{info.n_probes} probes, residuum {info.residuum_reached:.3e}, "
           f"maxdev {maxdev:.3e}, K2 launches {launches}, wall {wall_ms:.1f} "
           f"ms (set-up included)", flush=True)
+    return pack
 
 
 # the JAX package's 'm' on FD rtb=12.75 on a CPU, for comparison
@@ -1083,10 +1116,11 @@ def fallback_k1(info) -> int:
     return 2 * (info.iterations_needed - r["iterations"]) + info.n_probes + 1
 
 
-def phase_file_fd(dev, fd, z_iterations: int):
+def phase_file_fd(dev, fd, z_iterations: int, pack: str):
     """Phase 12: FD rtb=12.75 through the problem file and the parity CLI,
     in 'z' (K1) and in 'm' (K2 for the c stage and the corrections, K1 for
-    the float64 residuals)."""
+    the float64 residuals); ``pack`` is phase 11's 'c' pack, which the c
+    stage takes."""
     from tfqmrgpu_tpu_torch import bench
     from tfqmrgpu_tpu_torch.io.xmlio import read_xml, write_xml
     from tfqmrgpu_tpu_torch.ops.pairpanel import (PairPanelMultiply,
@@ -1135,7 +1169,7 @@ def phase_file_fd(dev, fd, z_iterations: int):
           f"maxdev {z.maxdev:.3e}, K1 launches {k1_z}, wall "
           f"{z.first_ms:.1f} ms", flush=True)
     print(f"phase 12 FD rtb=12.75 file 'm': c stage on {r['c_engine']} "
-          f"(packed, K2) {r['c_iterations']} c-iterations (residuum "
+          f"(K2, {pack}) {r['c_iterations']} c-iterations (residuum "
           f"{r['c_residuum']:.3e}) + {r['iterations'] - r['c_iterations']} "
           f"refinement iterations over {r['rounds']} rounds, 'z' fallback "
           f"{'ran' if r['fallback'] else 'not needed'}, residuum "
@@ -1143,7 +1177,8 @@ def phase_file_fd(dev, fd, z_iterations: int):
           f"{k2_m}, K1 launches {k1_m}, wall {m.first_ms:.1f} ms (set-up "
           f"included); the JAX package on a CPU: {jc} + {jr} over {jrounds} "
           f"rounds", flush=True)
-    return k1_z, k1_m, k2_m
+    return k1_z, k1_m, k2_m, (r["c_iterations"],
+                              r["iterations"] - r["c_iterations"])
 
 
 def phase_golden_m(dev):
@@ -2149,6 +2184,276 @@ def phase_tuning(dev, fd, k4: dict, iterations: dict) -> dict:
     return by_path
 
 
+def small_block_problem(lm: int, ln: int, mb: int = 281, deg: int = 11,
+                        ncols: int = 16):
+    """The golden-class pattern at a small block size with cos/sin data
+    (fill_cos_sin), A made diagonally dominant by 2*deg*LM on the diagonal
+    of each row's diagonal block (its first)."""
+    a, x, b = golden_class_patterns(mb, deg, ncols)
+    ad = cos_sin(a.nnzb, lm, lm)
+    ad[::deg] += 2.0 * deg * lm * np.eye(lm)
+    return (a.with_data(ad.astype(np.complex64)), x,
+            b.with_data(cos_sin(b.nnzb, lm, ln).astype(np.complex64)))
+
+
+def _events_ms(fn) -> tuple:
+    """(``fn()``, device ms between CUDA events around it)."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def phase_small_block(dev, fd, fd_m: tuple) -> tuple:
+    """Phase 19: the small-block layer (``ops/superblock.py``,
+    ``ops/rates.py``, ``tools/blocksize_sweep.py``).  ``fd_m`` is phase
+    12's FD 'm' (c-iterations, refinement iterations).  Returns the
+    launches of K1, K2 and K3 by path, and K2's device time (ms,
+    ``blocksize_sweep.time_ms``) on each plan of (b) and (c)."""
+    import shutil
+
+    import tfqmrgpu_tpu_torch as tt
+    from tfqmrgpu_tpu_torch import autotune
+    from tfqmrgpu_tpu_torch.autotune import environment
+    from tfqmrgpu_tpu_torch.ops import rates, superblock
+    from tfqmrgpu_tpu_torch.ops.pairpanel import (PairPanelMultiply,
+                                                  PairPlanMultiply)
+    from tfqmrgpu_tpu_torch.ops.pallas_spmm import RowTileMultiply
+    from tfqmrgpu_tpu_torch.tools import blocksize_sweep
+
+    t_phase = time.perf_counter()
+    counters = {"k1": PairPlanMultiply, "k2": PairPanelMultiply,
+                "k3": RowTileMultiply}
+    by_path = {"k1": {}, "k2": {}, "k3": {}}
+
+    def zero():
+        for c in counters.values():
+            c.launches = 0
+
+    def read() -> dict:
+        return {k: c.launches for k, c in counters.items()}
+
+    # (a) the block-size sweep: K2, K3 'c' and K1 'z' at the 15 sizes
+    zero()
+    rows = blocksize_sweep.sweep(
+        dev, echo=lambda line: print(f"phase 19 (a) {line}", flush=True))
+    failed = [f"{r['kernel']} ({r['lm']}, {r['ln']})" for r in rows
+              if not r["gate_pass"]]
+    require(not failed, f"sweep shapes failed their check: {failed}")
+    for k, n in read().items():
+        by_path[k]["phase 19 (a) block-size sweep"] = n
+    engine, base = blocksize_sweep.rates_from(rows)
+    measured = {**base, **engine}
+    table = {**rates.BASE_TFLOPS["c"], **rates.ENGINE_TFLOPS["c"]}
+    require(sorted(measured) == [4, 8, 16, 32],
+            f"K2 rates measured at {sorted(measured)}")
+    print("phase 19 (a) K2 TFlop/s measured / ops/rates.py: " + ", ".join(
+        f"LM {m} {measured[m]:.3f} / {table[m]:.3f}" for m in (4, 8, 16, 32)),
+        flush=True)
+    plan = tt.create_plan(*golden_class_patterns(), device="cpu")
+    pairs = plan.pairs.numpy().astype(np.int64)
+    pair_y = np.repeat(np.arange(plan.nnzb_x), np.diff(plan.starts.numpy()))
+    for lm in (8, 4):
+        picks = [superblock.auto_f_row(
+            pairs[:, 0], pairs[:, 1], pair_y, plan.nnzb_x, lm, 8,
+            candidates=(16 // lm, 32 // lm), speed_tf=speed)[0]
+            for speed in (engine, None)]
+        print(f"phase 19 (a) auto_f_row on the golden-class pattern at "
+              f"(LM, LN) = ({lm}, 8), ungrouped: f {picks[0]} from the "
+              f"measured rates, f {picks[1]} from ops/rates.py", flush=True)
+
+    # (b) the golden class at small LM through Solver(engine='pairs')
+    gate = 1e-4
+    merged_ms = {}
+    for lm, ln in ((8, 8), (4, 8)):
+        a, x, b = small_block_problem(lm, ln)
+        fine = None
+        for f in (0, 2, 4) + ((8,) if lm == 4 else ()):
+            with environment({"TFQ_SOLVER_SUPER": str(f)}):
+                s = tt.Solver(a, x, b, precision="c", engine="pairs",
+                              device=dev)
+            sup, mult = s._sup, s._multiply
+            require((sup is None) if f == 0 else
+                    (sup is not None and sup.f_row == f),
+                    f"({lm}, {ln}) TFQ_SOLVER_SUPER={f}: superblock {sup}")
+            require(mult.lm == (f or 1) * lm,
+                    f"({lm}, {ln}) f {f}: K2 at LM {mult.lm}")
+            got = mult(s._v3)
+            again = mult(s._v3)
+            rel, _ = _maxdev((got,), (mult.plain(s._v3),))
+            torch.cuda.synchronize()
+            require(rel <= gate, f"K2 ({lm}, {ln}) f {f} maxdev {rel:.3e}")
+            require(torch.equal(got, again),
+                    f"K2 ({lm}, {ln}) f {f}: repeated launch differs")
+            k2_ms = blocksize_sweep.time_ms(lambda: mult(s._v3), dev)
+            merged_ms[f"({lm}, {ln}) f {f}"] = k2_ms
+            zero()
+            info = s.solve(tolerance=1e-5, max_iterations=500)
+            launches = read()
+            its = info.iterations_needed
+            require(info.return_status == 0,
+                    f"({lm}, {ln}) f {f}: status {info.return_status}")
+            require(launches["k2"] == 2 * its + info.n_probes
+                    and launches["k1"] == launches["k3"] == 0,
+                    f"({lm}, {ln}) f {f}: launches {launches} for {its} "
+                    f"iterations and {info.n_probes} probes")
+            res = pattern_residual(s.plan, s.get_matrix("X"), a, b, dev)
+            require(res < 1e-4, f"({lm}, {ln}) f {f}: |AX-B|/|B| {res:.3e}")
+            # a second solve of 10 iterations at most, timed
+            timed, ms = _events_ms(lambda: s.solve(tolerance=0.0,
+                                                   max_iterations=10))
+            per_it = ms / max(timed.iterations_needed, 1)
+            if fine is None:
+                fine = (its, per_it, k2_ms)
+            require(abs(its - fine[0]) <= 3,
+                    f"({lm}, {ln}) f {f}: {its} iterations, fine {fine[0]}")
+            by_path["k2"][f"phase 19 (b) golden ({lm}, {ln}) 'c' "
+                          f"TFQ_SOLVER_SUPER={f}"] = launches["k2"]
+            pack = ("fine" if sup is None else
+                    f"LM' {sup.lm2}, {2 * sup.ln} lanes, {sup.n_cells} "
+                    f"cells, {sup.n_acells} A cells, MAC inflation "
+                    f"{sup.mac_inflation:.2f}x")
+            print(f"phase 19 (b) golden-class ({lm}, {ln}) 'c' pairs "
+                  f"TFQ_SOLVER_SUPER={f} ({pack}; {s._pp_plan.ntiles} tiles, "
+                  f"ku {s._pp_plan.ku}, G {s._gp.group_size if s._gp else 1}"
+                  f"): K2 at LM {mult.lm} vs plain {rel:.3e}, repeated "
+                  f"launch the same bits, {k2_ms:.4f} ms of device time "
+                  f"({s.plan.n_pairs * 8.0 * lm * lm * ln / k2_ms / 1e9:.2f}"
+                  f" TFlop/s of fine products; fine {fine[2]:.4f}); {its} "
+                  f"iterations (fine {fine[0]}), {info.n_probes} probes, K2 "
+                  f"launches {launches['k2']}, |AX-B|/|B| {res:.3e}; "
+                  f"{per_it:.3f} ms an iteration over "
+                  f"{timed.iterations_needed} (CUDA events; fine "
+                  f"{fine[1]:.3f})", flush=True)
+            del s, mult, got, again
+        with environment({"TFQ_SOLVER_SUPER": None}):
+            s = tt.Solver(a, x, b, precision="c", engine="pairs", device=dev)
+            e = tt.Solver(a, x, b, precision="c", engine="auto", device=dev)
+        print(f"phase 19 (b) golden-class ({lm}, {ln}) 'c': TFQ_SOLVER_SUPER "
+              f"auto picks "
+              + (f"f {s._sup.f_row}" if s._sup is not None else "the fine pack")
+              + f"; engine='auto' picks {e.engine}", flush=True)
+        del s, e
+
+    # (c) FD rtb=12.75 'm' with the c stage fine and merged at f 2 and 4
+    ad, bd = fd.a_with_data(), fd.b_with_data()
+    for f in (0, 2, 4):
+        with environment({"TFQ_SOLVER_SUPER": str(f)}):
+            probe = tt.Solver(ad, fd.x, bd, precision="c", engine="pairs",
+                              device=dev)
+            sup, mult = probe._sup, probe._multiply
+            got = mult(probe._v3)
+            rel, _ = _maxdev((got,), (mult.plain(probe._v3),))
+            require(rel <= gate and torch.equal(got, mult(probe._v3)),
+                    f"K2 FD f {f} (LM {mult.lm}): maxdev {rel:.3e}")
+            k2_ms = blocksize_sweep.time_ms(lambda: mult(probe._v3), dev)
+            merged_ms[f"FD rtb=12.75 f {f}"] = k2_ms
+            require((sup is None) if f == 0 else
+                    (sup is not None and sup.f_row == f and sup.lm2 == 8 * f
+                     and sup.ln == 8),
+                    f"FD 'c' TFQ_SOLVER_SUPER={f}: superblock {sup}")
+            zero()
+            t0 = time.perf_counter()
+            xs, info = tt.solve_mixed(ad, fd.x, bd, tolerance=1e-9,
+                                      max_iterations=2000, engine="pairs",
+                                      device=dev)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        launches = read()
+        r = info.refinement
+        require(info.return_status == 0 and info.residuum_reached <= 1e-9
+                and r["c_engine"] == "pairs",
+                f"FD 'm' f {f}: status {info.return_status}, residuum "
+                f"{info.residuum_reached:.3e}, c stage on {r['c_engine']}")
+        want_k1 = residual_checks(r["rounds"]) + fallback_k1(info)
+        require(launches["k1"] == want_k1 and launches["k3"] == 0,
+                f"FD 'm' f {f}: launches {launches}, want {want_k1} K1")
+        require(launches["k2"] >= 2 * r["c_iterations"],
+                f"FD 'm' f {f}: {launches['k2']} K2 launches for "
+                f"{r['c_iterations']} c-iterations")
+        by_path["k1"][f"phase 19 (c) FD m TFQ_SOLVER_SUPER={f} "
+                      "(residuals)"] = launches["k1"]
+        by_path["k2"][f"phase 19 (c) FD m TFQ_SOLVER_SUPER={f} "
+                      "(c stage, corrections)"] = launches["k2"]
+        pack = ("fine, G 1" if sup is None else
+                f"LM' {sup.lm2}, LN {sup.ln}, {sup.n_cells} cells, MAC "
+                f"inflation {sup.mac_inflation:.2f}x")
+        print(f"phase 19 (c) FD rtb=12.75 solve_mixed, c stage "
+              f"TFQ_SOLVER_SUPER={f} ({pack}; {probe._pp_plan.ntiles} "
+              f"tiles, ku {probe._pp_plan.ku}; K2 at LM {mult.lm} vs plain "
+              f"{rel:.3e}, {k2_ms:.4f} ms of device time): "
+              f"{r['c_iterations']} "
+              f"c-iterations + {r['iterations'] - r['c_iterations']} "
+              f"refinement iterations over {r['rounds']} rounds (phase 12: "
+              f"{fd_m[0]} + {fd_m[1]}; PRs 6-7: 500 + 447), 'z' fallback "
+              f"{'ran' if r['fallback'] else 'not needed'}, residuum "
+              f"{info.residuum_reached:.3e}, K2 launches {launches['k2']}, "
+              f"K1 launches {launches['k1']} (one a float64 residual), wall "
+              f"{wall_ms:.1f} ms (set-up included)", flush=True)
+        del probe, mult, got
+
+    # (d) autotune at LM 8 with a fresh cache: the superblock candidates
+    cache = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "build", "autotune_cache_19")
+    shutil.rmtree(cache, ignore_errors=True)
+    real = autotune.time_multiply
+    moved = []
+
+    def counted(solver, **kw):
+        before = read()
+        dt = real(solver, **kw)
+        moved.append({k: v - before[k] for k, v in read().items()})
+        return dt
+
+    a, x, b = small_block_problem(8, 8)
+    autotune.time_multiply = counted
+    try:
+        with environment({"TFQ_AUTOTUNE_CACHE": cache,
+                          "TFQ_AUTOTUNE_SEARCH": None,
+                          "TFQ_SOLVER_SUPER": None}):
+            zero()
+            t0 = time.perf_counter()
+            s, table = autotune.autotune_solver(a, x, b, precision="c",
+                                                device=dev)
+            wall = time.perf_counter() - t0
+    finally:
+        autotune.time_multiply = real
+    race = read()
+    for row in table:
+        print(f"phase 19 (d) autotune 'c' (8, 8) row: {json.dumps(row)}",
+              flush=True)
+    timed = [row for row in table if "error" not in row]
+    require(len(timed) == len(moved),
+            f"{len(timed)} timed rows, {len(moved)} measurements")
+    sup_rows = [(row, m) for row, m in zip(timed, moved)
+                if "TFQ_SOLVER_SUPER" in row["env"] and not row.get("search")]
+    want = {"0", "2", "4"}
+    require(sorted(row["env"]["TFQ_SOLVER_SUPER"] for row, _ in sup_rows)
+            == sorted(want)
+            and not any("TFQ_SOLVER_SUPER" in row["env"] for row in table
+                        if "error" in row),
+            f"autotune superblock rows {[r for r, _ in sup_rows]}")
+    require(all(m["k2"] > 0 and m["k1"] == m["k3"] == 0
+                for _, m in sup_rows),
+            f"autotune superblock launches {[m for _, m in sup_rows]}")
+    by_path["k2"]["phase 19 (d) autotune 'c' (8, 8) race"] = race["k2"]
+    by_path["k3"]["phase 19 (d) autotune 'c' (8, 8) race"] = race["k3"]
+    hit = min(timed, key=lambda row: row["ms_per_multiply"])
+    print(f"phase 19 (d) autotune 'c' golden class (8, 8): {len(table)} "
+          f"rows in {wall:.1f} s, the superblock candidates "
+          + ", ".join(f"TFQ_SOLVER_SUPER={row['env']['TFQ_SOLVER_SUPER']} "
+                      f"{row['ms_per_multiply']} ms" for row, _ in sup_rows)
+          + f" (each on K2); winner {hit['engine']} {hit['env']} "
+          f"({hit['ms_per_multiply']} ms a multiply); race launches {race}; "
+          f"phase 19 took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    shutil.rmtree(cache, ignore_errors=True)
+    return by_path, merged_ms
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device; none is available")
@@ -2170,8 +2475,9 @@ def main():
     k2 = phase_packed(dev, fd)
     golden_pairs = phase_golden_pairs_c(dev)
     k2_launches = golden_pairs[0]
-    phase_fd_c(dev, fd)
-    k1_file_z, k1_file_m, k2_file_m = phase_file_fd(dev, fd, fd_iterations)
+    fd_c_pack = phase_fd_c(dev, fd)
+    k1_file_z, k1_file_m, k2_file_m, fd_m = phase_file_fd(
+        dev, fd, fd_iterations, fd_c_pack)
     k1_golden_m, k3_golden_m = phase_golden_m(dev)
     k1_checkpoint = phase_checkpoint(dev, fd, fd_iterations)
     capi = phase_capi(dev, fd, card, fd_iterations,
@@ -2185,6 +2491,7 @@ def main():
     tuning = phase_tuning(dev, fd, k4, {
         3: fd_iterations, 4: golden_z_iterations, 6: golden_c_iterations,
         10: golden_pairs[2]})
+    small, merged_ms = phase_small_block(dev, fd, fd_m)
     print(json.dumps({"kernels": [
         {"name": "pairpanel_spmm", "route": "cuda",
          "source": "tfqmrgpu_tpu_torch/csrc/pairpanel_spmm.cu",
@@ -2197,7 +2504,7 @@ def main():
              "phase 13 golden m (residuals)": k1_golden_m,
              "phase 14 FD z solve_checkpointed": k1_checkpoint,
              **capi["k1"], **sharded["k1"], **pairs["k1"],
-             **tuning["k1"]}},
+             **tuning["k1"], **small["k1"]}},
         {"name": "rowtile_spmm", "route": "cuda",
          "source": "tfqmrgpu_tpu_torch/csrc/rowtile_spmm.cu",
          "replaces": "tfqmrgpu_tpu/ops/pallas_spmm.py:214",
@@ -2205,15 +2512,18 @@ def main():
          "launches_by_path": {
              "phase 6 golden c": k3_launches,
              "phase 13 golden m (c stage, corrections)": k3_golden_m,
-             **capi["k3"], **sharded["k3"], **tuning["k3"]}},
+             **capi["k3"], **sharded["k3"], **tuning["k3"],
+             **small["k3"]}},
         {"name": "pairpanel_tiles", "route": "cuda",
          "source": "tfqmrgpu_tpu_torch/csrc/pairpanel_tiles.cu",
          "replaces": "tfqmrgpu_tpu/ops/pairpanel.py:1706",
          "launches": k2_launches, **k2, "card": card,
+         "merged_ms": merged_ms,
          "launches_by_path": {
              "phase 10 golden c pairs": k2_launches,
              "phase 12 FD m file (c stage, corrections)": k2_file_m,
-             **capi["k2"], **pairs["k2"], **tuning["k2"]}},
+             **capi["k2"], **pairs["k2"], **tuning["k2"],
+             **small["k2"]}},
         {"name": "dma_probe", "route": "cuda",
          "source": "tfqmrgpu_tpu_torch/csrc/dma_probe.cu",
          "replaces": "tools/dma_probe.py:39", **k4, "card": card},

@@ -4,8 +4,11 @@ knobs it races, against the JAX package's on the CPU.
 * ``_pattern_key`` hashes the JAX package's bytes: equal to its key for
   the same pattern on the CPU, different for another pattern or card.
 * ``default_candidates`` is the JAX list less the knobs the card's engines
-  do not have (Ozaki layouts, VMEM and scalar-core knobs, and until the
-  superblock engine is ported its TFQ_SOLVER_SUPER variants).
+  do not have (Ozaki layouts, VMEM and scalar-core knobs, and in 'z' the
+  TFQ_SOLVER_SUPER variants: the port's 'z' never merges); in 'c' at
+  LM <= 8 its TFQ_SOLVER_SUPER entries are the JAX list's, and the race
+  has rows for them.
+* ``ops/rates.py`` holds no 'z' rows and no data-sheet peak.
 * TFQ_PALLAS_RTILE, TFQ_PAIRS_COLGROUP and TFQ_PAIRS_RTILE give the JAX
   Solver's packs (JAX packs on the host; its resident plan, no superblock);
   unset, the packs are the ones the engines built before the knobs.
@@ -41,8 +44,7 @@ KNOBS = ("TFQ_PALLAS_RTILE", "TFQ_PAIRS_COLGROUP", "TFQ_PAIRS_RTILE",
          "TFQ_AUTOTUNE_SEARCH", "TFQ_AUTOTUNE_CACHE")
 # the JAX candidates' knobs that the card's engines do not have
 DROPPED = {"TFQ_OZC_INT8", "TFQ_PAIRS_TSTEP", "TFQ_PAIRS_COPYG",
-           "TFQ_PAIRS_RESIDENT", "TFQ_PAIRS_VMEM_CAP", "TFQ_PAIRS_VMEM",
-           "TFQ_SOLVER_SUPER"}
+           "TFQ_PAIRS_RESIDENT", "TFQ_PAIRS_VMEM_CAP", "TFQ_PAIRS_VMEM"}
 CDTYPE = {"z": np.complex128, "c": np.complex64}
 
 
@@ -84,9 +86,42 @@ def test_pattern_key_is_the_jax_key_on_the_cpu(monkeypatch):
 @pytest.mark.parametrize("lm", [4, 8, 32])
 @pytest.mark.parametrize("precision", ["z", "c"])
 def test_default_candidates_are_the_jax_list_filtered(precision, lm):
+    dropped = DROPPED | ({"TFQ_SOLVER_SUPER"} if precision == "z" else set())
     want = [(e, env) for e, env in jautotune.default_candidates(precision, lm)
-            if not DROPPED & set(env)]
+            if not dropped & set(env)]
     assert tautotune.default_candidates(precision, lm) == want
+
+
+@pytest.mark.parametrize("lm", [4, 8])
+def test_superblock_candidates_are_the_jax_lists(lm):
+    def sup(cands):
+        return [(e, env) for e, env in cands if "TFQ_SOLVER_SUPER" in env]
+
+    want = sup(jautotune.default_candidates("c", lm))
+    got = tautotune.default_candidates("c", lm)
+    assert want and sup(got) == want == got[:len(want)]
+    assert [env["TFQ_SOLVER_SUPER"] for _, env in want] == (
+        ["0"] + [str(f) for f in sorted({16 // lm, 32 // lm})])
+    assert not sup(tautotune.default_candidates("z", lm))
+    assert not sup(tautotune.default_candidates("c", 16))
+
+
+def test_rates_hold_no_z_rows_and_no_peaks():
+    from tfqmrgpu_tpu_torch import profiling
+    from tfqmrgpu_tpu_torch.ops import rates
+
+    assert set(rates.ENGINE_TFLOPS) == set(rates.BASE_TFLOPS) == {"c"}
+    assert rates.engine_rate("z", 16) == rates.engine_rate("z", 32) == 0.0
+    assert rates.engine_rate("c", 64) == 0.0          # never measured
+    assert rates.base_rate("c", 2) == min(rates.BASE_TFLOPS["c"].values())
+    peaks = {v for row in profiling.DEVICE_PEAKS.values()
+             for v in row.values()}
+    for table in (rates.ENGINE_TFLOPS["c"], rates.BASE_TFLOPS["c"]):
+        assert table and all(0 < v for v in table.values())
+        assert not peaks & set(table.values())
+    # a merged size's rate is above the unmerged baseline it must beat
+    assert min(rates.ENGINE_TFLOPS["c"].values()) > max(
+        rates.BASE_TFLOPS["c"].values())
 
 
 # ------------------------------------------------------------- the knobs
@@ -205,9 +240,13 @@ def test_autotune_races_caches_and_hits(monkeypatch, tmp_path, precision,
     s, table = tt.autotune_solver(*port, precision=precision, nrep=2,
                                   device="cpu")
     assert dict(os.environ) == env_before
-    cands = tautotune.default_candidates(precision)
+    cands = tautotune.default_candidates(precision, 4)
     race = [r for r in table if not r.get("search")]
     assert [(r["engine"], r["env"]) for r in race] == cands
+    # at LM 4 in 'c' the superblock candidates race too
+    assert [r["env"].get("TFQ_SOLVER_SUPER") for r in race
+            if "TFQ_SOLVER_SUPER" in r["env"]] == (
+                ["0", "4", "8"] if precision == "c" else [])
     assert all("error" not in r and r["ms_per_multiply"] >= 0 for r in table)
     assert len(calls) == len(table)
     # the winner: the cache's one entry, which solves to the dense

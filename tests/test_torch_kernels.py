@@ -163,6 +163,90 @@ def test_packed_kernel_matches_plain_on_card():
         assert torch.equal(mult(x), got)           # no atomics: same bits
 
 
+def _merged(rng, lm, ln, f_row, group, device, ncols=4):
+    """K2 over a superblock-merged plan (``ops/superblock.py``, after a
+    column grouping of ``group``) of a random plan, and its fused X panel
+    with the dead merged slots zero."""
+    from tfqmrgpu_tpu_torch.ops import superblock as sb
+
+    plan = create_plan(*random_problem(rng, mb=16, lm=lm, ln=ln, ncols=ncols),
+                       device=device)
+    pairs = plan.pairs.cpu().numpy().astype(np.int64)
+    pair_y = plan.pair_y().cpu().numpy()
+    row_of = np.repeat(np.arange(plan.nrows), np.diff(plan.rowptr_x))
+    cols = plan.colindx.cpu().numpy().astype(np.int64)
+    xv = rng.standard_normal((plan.nnzb_x, lm, ln, 2)).astype(np.float32)
+    xre, xim = np.ascontiguousarray(xv[..., 0]), np.ascontiguousarray(
+        xv[..., 1])
+    if group > 1:
+        gp = pp.pack_grouped(pairs[:, 0], pairs[:, 1], pair_y, plan.nnzb_x,
+                             ln, group, row_of=row_of, col_of=cols)
+        rm = sb.pack_rowmerge(gp.pair_a2, gp.pair_x2, gp.pair_y2, gp.nnzb2,
+                              lm, gp.ln2, f_row, row_of=gp.row_of2,
+                              col_of=gp.col_of2, verify=False)
+        xre, xim = pp.grouped_blocks(gp, xre), pp.grouped_blocks(gp, xim)
+    else:
+        rm = sb.pack_rowmerge(pairs[:, 0], pairs[:, 1], pair_y, plan.nnzb_x,
+                              lm, ln, f_row, row_of=row_of, col_of=cols)
+    pplan = pp.pack_pair_plan(rm.pair_a2, rm.pair_x2, rm.pair_y2, rm.n_cells,
+                              rm.n_cells, rm.lm2, rm.ln, r_tile=1,
+                              row_of=rm.row_of2, col_of=rm.col_of2)
+    a_re, a_im = (sb.merge_a_blocks(rm, v) for v in planes(
+        rng.standard_normal((plan.nnzb_a, lm, lm, 2)) @ [1, 1j],
+        torch.float32, device))
+    mult = pp.PairPanelMultiply(pplan, pp.build_a_panels_device(pplan, a_re,
+                                                                a_im))
+    x = torch.from_numpy(pp.permute_x(pplan, sb.merge_xy_blocks(rm, xre),
+                                      sb.merge_xy_blocks(rm, xim)))
+    return mult, x.to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lm,ln", [(8, 8), (4, 8)])
+@pytest.mark.parametrize("f_row,group", [(2, 1), (4, 1), (2, 2), (4, 4)])
+def test_merged_packed_kernel_matches_plain_on_card(lm, ln, f_row, group):
+    """K2 on a superblock-merged plan (LM' = f*LM, lanes narrower than LM'
+    without groups) against its plain version, the same bits on a repeat."""
+    _needs_card()
+    mult, x = _merged(np.random.default_rng(8 + f_row + group), lm, ln,
+                      f_row, group, "cuda")
+    assert mult.lm == f_row * lm
+    before = PairPanelMultiply.launches
+    got = mult(x)
+    torch.cuda.synchronize()
+    assert PairPanelMultiply.launches == before + 1
+    assert _maxdev((got,), (mult.plain(x),)) <= 1e-4
+    assert torch.equal(mult(x), got)
+
+
+@pytest.mark.cuda
+def test_merged_solve_launches_k2_at_merged_lm_on_card(monkeypatch):
+    """A 'c' 'pairs' solve with TFQ_SOLVER_SUPER=4 at LM 8: every multiply
+    through K2 at LM 32, converged, X as on the CPU."""
+    _needs_card()
+    monkeypatch.setenv("TFQ_SOLVER_SUPER", "4")
+    rng = np.random.default_rng(9)
+    a, x, b = random_problem(rng, mb=24, lm=8, ln=8, ncols=4)
+    ad = rng.standard_normal((a.nnzb, 8, 8, 2)) @ [1, 1j]
+    ad[a.colind == np.repeat(np.arange(a.nrows), np.diff(a.rowptr))] += (
+        64.0 * np.eye(8))                       # diagonally dominant
+    a = a.with_data(ad.astype(np.complex64))
+    b = b.with_data((rng.standard_normal((b.nnzb, 8, 8, 2)) @ [1, 1j])
+                    .astype(np.complex64))
+    xs = []
+    for device in ("cpu", "cuda"):
+        s = Solver(a, x, b, precision="c", engine="pairs", device=device)
+        assert s._sup is not None and s._multiply.lm == 32
+        before = PairPanelMultiply.launches
+        info = s.solve(tolerance=1e-5, max_iterations=300)
+        assert info.return_status == 0
+        launches = PairPanelMultiply.launches - before
+        assert launches == (0 if device == "cpu" else
+                            2 * info.iterations_needed + info.n_probes)
+        xs.append(s.get_matrix("X"))
+    assert np.max(np.abs(xs[1] - xs[0])) <= 1e-4 * np.max(np.abs(xs[0]))
+
+
 def _staged_problem(seed, lm, ln, ncols, integer):
     rng = np.random.default_rng(seed)
     plan = create_plan(*random_problem(rng, mb=16, lm=lm, ln=ln, ncols=ncols),

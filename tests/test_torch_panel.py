@@ -17,6 +17,7 @@ from tfqmrgpu_tpu import solver as jsolver
 from tfqmrgpu_tpu.ops import panel as jpanel
 from tfqmrgpu_tpu.plan import create_plan as jcreate_plan
 from tfqmrgpu_tpu_torch import convert
+from tfqmrgpu_tpu_torch import solver as tsolver
 from tfqmrgpu_tpu_torch.bsr import Bsr as TBsr
 from tfqmrgpu_tpu_torch.errors import Status
 from tfqmrgpu_tpu_torch.ops import panel as tpanel
@@ -232,7 +233,7 @@ def _fd_patterns(rtb):
     ("fd12.75", "c", 8, "pairs"),
     ("golden", "c", 32, "pallas"),
 ])
-def test_auto_picks_jax_engine(case, precision, lm, want):
+def test_auto_picks_jax_engine(monkeypatch, case, precision, lm, want):
     if case == "random":
         a, x, b = (dataclasses.replace(m, data=None) for m in
                    make_random_problem(np.random.default_rng(8), mb=12,
@@ -246,9 +247,23 @@ def test_auto_picks_jax_engine(case, precision, lm, want):
                    device="cpu")
     assert js.engine == ts.engine == want
     if want == "pairs":
-        # the packed 'c' engine on the fine cells, ungrouped (one column)
+        # the packed 'c' engine, ungrouped (one column); at LM 8 'auto'
+        # merges block rows where the card's rates say it pays (the JAX
+        # package by its own table), as pack_superblock decides
         assert ts._pp_plan is not None and ts._gp is None
-        assert ts._pp_plan.n_slots == ts.plan.nnzb_x
+        try:
+            rm = tsolver.pack_superblock(ts.plan, lm, lm)[0]
+        except ValueError:
+            rm = None
+        assert (ts._sup is None) == (rm is None)
+        cells = ts.plan.nnzb_x if rm is None else rm.n_cells
+        assert ts._pp_plan.n_slots == cells
+        # with the merge off: the fine cells
+        monkeypatch.setenv("TFQ_SOLVER_SUPER", "0")
+        fine = tt.Solver(*_port(a, x, b), precision=precision, lm=lm, ln=lm,
+                         device="cpu")
+        assert fine._sup is None and fine._gp is None
+        assert fine._pp_plan.n_slots == fine.plan.nnzb_x
     if want == "pallas":
         assert (ts._pack.r_tile, ts._pack.ku) == (js._pack.r_tile,
                                                   js._pack.ku) == (2, 12)

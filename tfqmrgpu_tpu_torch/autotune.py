@@ -8,7 +8,7 @@ the engine ('dense', 'pallas' = the row tiles on K3, 'pairs' = K1 in 'z'
 and the packed plan on K2 in 'c', 'xla') and the knobs those engines
 really have, under the JAX package's names: TFQ_PALLAS_RTILE (K3's row
 tile), TFQ_PAIRS_COLGROUP and TFQ_PAIRS_RTILE (K2's column groups and row
-tile).
+tile), and at LM <= 8 in 'c' TFQ_SOLVER_SUPER (the superblock row merge).
 
 ``autotune_solver`` measures candidates on the actual problem and returns
 the fastest Solver.  As in the JAX package:
@@ -144,23 +144,28 @@ def default_candidates(precision: str, lm: int = 0) -> list:
     """(engine, env) candidates: the JAX package's list less the knobs the
     card's engines do not have.
 
-    * 'z': 'dense' (FP64 ``torch.matmul``), 'pairs' (K1) and 'xla'.  The
-      JAX list's TFQ_OZC_INT8 variants race its Ozaki slice layouts; K1
-      runs native FP64 and has none.
-    * 'c': 'dense'; 'pallas' at the model's r_tile and at
-      TFQ_PALLAS_RTILE=1; 'pairs' at TFQ_PAIRS_RTILE=1 (model-picked
-      column groups), with the groups off (TFQ_PAIRS_COLGROUP=1), and at
-      TFQ_PAIRS_RTILE=2; 'xla'.  The JAX list's TFQ_PAIRS_TSTEP, _COPYG,
+    * 'c': at 0 < LM <= 8 first the superblock candidates, in the JAX
+      list's order: 'pairs' with TFQ_SOLVER_SUPER=0 (the row merge off) and
+      at each factor f in {16 // LM, 32 // LM} with f >= 2 (the routing
+      cost model can misjudge an uncommon pattern); then 'dense'; 'pallas'
+      at the model's r_tile and at TFQ_PALLAS_RTILE=1; 'pairs' at
+      TFQ_PAIRS_RTILE=1 (model-picked column groups, and the superblock
+      where 'auto' merges), with the groups off (TFQ_PAIRS_COLGROUP=1), and
+      at TFQ_PAIRS_RTILE=2; 'xla'.  The JAX list's TFQ_PAIRS_TSTEP, _COPYG,
       _RESIDENT and _VMEM_CAP variants are the TPU's VMEM and scalar-core
       knobs, which the card does not have.
-
-    The JAX list adds TFQ_SOLVER_SUPER candidates at LM <= 8 (the
-    superblock row merge); they join when the superblock engine is ported,
-    and until then ``lm`` changes nothing."""
-    del lm
+    * 'z': 'dense' (FP64 ``torch.matmul``), 'pairs' (K1) and 'xla'.  The
+      JAX list's TFQ_OZC_INT8 variants race its Ozaki slice layouts, and its
+      TFQ_SOLVER_SUPER variants its merge to the Ozaki kernel's LM >= 16;
+      K1 runs native FP64 at every LM, and the port's 'z' never merges."""
     if precision == "z":
         return [("dense", {}), ("pairs", {}), ("xla", {})]
-    return [
+    sup: list = []
+    if 0 < lm <= 8:
+        sup = [("pairs", {"TFQ_SOLVER_SUPER": "0"})] + [
+            ("pairs", {"TFQ_SOLVER_SUPER": str(f)})
+            for f in sorted({16 // lm, 32 // lm}) if f >= 2]
+    return sup + [
         ("dense", {}),
         ("pallas", {}),                         # row tiles, model r_tile
         ("pallas", {"TFQ_PALLAS_RTILE": "1"}),

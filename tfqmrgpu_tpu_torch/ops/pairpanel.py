@@ -36,10 +36,10 @@ host (pattern only):
    ``csrc/pairpanel_tiles.cu``), the counterpart of ``kernel_tile_pipe``
    (line 1706), followed by the grouped lane mask.
 
-The JAX package merges block rows into superblocks for LM <= 8 before
-packing (its ``ops/superblock.py``); the port has no superblock yet and
-packs the fine cells, so FD-sized plans run K2 at their own LM and at
-narrow lanes.
+At LM <= 8 the solver may merge block rows into superblocks before
+packing (``ops/superblock.py``, ``solver.pack_superblock``): the packed
+plan is then the merged one, at LM' = f*LM, and ``fused_primitives``
+masks every product to its live slots (``sup_mask``).
 """
 
 from __future__ import annotations
@@ -1216,7 +1216,8 @@ class PairPanelMultiply:
 def fused_primitives(mult, plan: PairPanelPlan, ncc: int,
                      b_fused: torch.Tensor, gp: GroupedPairs = None, *,
                      slot_group: np.ndarray = None,
-                     lane_mask: np.ndarray = None, psum=None):
+                     lane_mask: np.ndarray = None, psum=None,
+                     sup_mask: torch.Tensor = None):
     """``core.TfqmrPrimitives`` over fused permuted panels
     [n_slots*LM, 2*LN'] (JAX: ``fused_primitives`` in 'c' without col_pad,
     and ``_fused_primitives_grouped``).
@@ -1233,7 +1234,16 @@ def fused_primitives(mult, plan: PairPanelPlan, ncc: int,
     rows): ``slot_group`` gives the group of each (-1 for a pad slot),
     ``lane_mask`` its rows of the grouped lane mask, and ``psum`` sums the
     float32 group partials over the shards, in place, once a ``dotp`` (re
-    and im stacked) or ``nrm2``, before the remap to columns."""
+    and im stacked) or ``nrm2``, before the remap to columns.
+
+    With ``sup_mask`` (the fused live-slot mask [n_slots*LM, 2*LN'] of a
+    superblock row merge, ``superblock.merged_mask_full`` through
+    ``permute_x``, on the device) the plan runs in merged space: every
+    multiply's output is multiplied by it, so junk products on dead merged
+    slots never re-enter the recurrence, and the reductions stay exact
+    because dead slots hold zeros.  With column groups the mask already
+    holds the grouped lane mask, which cannot index merged cells and is
+    not built (JAX: ``fused_primitives``' ``sup_mask``)."""
     from ..core import TfqmrPrimitives
     from .linalg import _segment_sum, columns
 
@@ -1256,7 +1266,7 @@ def fused_primitives(mult, plan: PairPanelPlan, ncc: int,
         for gi, grp in enumerate(gp.groups):
             gc[grp] = gi * gsz + np.arange(len(grp))
     gc = torch.from_numpy(gc).to(dev)
-    if lane_mask is None and gp is not None:
+    if lane_mask is None and gp is not None and sup_mask is None:
         lane_mask = grouped_lane_mask(plan, gp)
     mask = (torch.from_numpy(lane_mask).to(dev)[:, None, :]
             if lane_mask is not None else None)
@@ -1267,6 +1277,8 @@ def fused_primitives(mult, plan: PairPanelPlan, ncc: int,
 
     def multiply(x):
         y = mult(x)
+        if sup_mask is not None:
+            return y * sup_mask
         if mask is None:
             return y
         return (y.view(nslots, lm, 2 * ln2) * mask).view(-1, 2 * ln2)

@@ -232,8 +232,8 @@ def _a_bytes(solver, rsize: int) -> int:
         p = solver._pack
         return 2 * p.ntiles * p.r_tile * lm * p.ku * lm * 4
     if solver._packed:                         # K2's packed panels, float32
-        p = solver._pp_plan
-        return 2 * p.ntiles * p.r_tile * lm * p.ku * lm * 4
+        p = solver._pp_plan                    # (at LM' when merged)
+        return 2 * p.ntiles * p.r_tile * p.lm * p.ku * p.lm * 4
     return plan.nnzb_a * 2 * lm * lm * rsize   # the block list
 
 

@@ -21,7 +21,15 @@ Engines (``ENGINES``), as in the JAX package:
   ``choose_group_size``, or TFQ_PAIRS_COLGROUP), a Cuthill-McKee-relabelled
   resident union-ELL plan with ``r_tile`` 1 (or TFQ_PAIRS_RTILE), vectors
   as fused permuted panels, and the multiply K2
-  (``csrc/pairpanel_tiles.cu``).  On the CPU both run their plain
+  (``csrc/pairpanel_tiles.cu``).  At LM <= 8 the 'c' engine first tries
+  the JAX package's superblock composition (``pack_superblock``): f block
+  rows merged into LM' = f*LM (16 or 32), so that K2 runs the merged plan.
+  TFQ_SOLVER_SUPER picks it: 'auto' (the default) where the problem has
+  at least TFQ_SUPER_MIN_MACS fine MACs (1e6) and the card's measured
+  rates (``ops/rates.py``) say it pays, N forces the factor N, 0 turns it
+  off; a pattern it cannot pack falls back to the fine pack.  'z' never
+  merges (its 'pairs' runs K1 on the plan's pair table at every LM), so
+  TFQ_SOLVER_SUPER has no effect there.  On the CPU both run their plain
   versions.
 * ``'xla'``    -- the block-list engine: the plain ``spmm_pairs``.
 * ``'auto'``   -- the JAX package's rules (its solver.py:113-184): 'dense'
@@ -60,6 +68,8 @@ from .ops import layout as layout_ops
 from .ops import linalg
 from .ops import pairpanel as pp_ops
 from .ops import panel as panel_ops
+from .ops import rates
+from .ops import superblock as sb_ops
 from .ops.blocksparse import BlockSparseAction
 from .ops.pallas_spmm import (RowTileMultiply, build_a_panels_device,
                               choose_row_tile)
@@ -101,6 +111,18 @@ def choose_group_size(pairs: np.ndarray, pair_y: np.ndarray, nnzb_x: int,
     return g
 
 
+def _pair_lists(plan) -> tuple:
+    """The plan's pair list on the host: (pairs int64[nPairs, 2] of (A, X)
+    blocks, the Y block of each pair, the block row and the compressed
+    column of each X block)."""
+    pair_y = np.repeat(np.arange(plan.nnzb_x, dtype=np.int64),
+                       np.diff(plan.starts.cpu().numpy()))
+    row_of = np.repeat(np.arange(plan.nrows, dtype=np.int64),
+                       np.diff(plan.rowptr_x))
+    return (plan.pairs.cpu().numpy().astype(np.int64), pair_y, row_of,
+            plan.colindx.cpu().numpy().astype(np.int64))
+
+
 def pack_pairs(plan, lm: int, ln: int, group_size: Optional[int] = None,
                r_tile: Optional[int] = None) -> tuple:
     """The packed plan of the 'c' 'pairs' engine, from the plan's pair list
@@ -116,12 +138,7 @@ def pack_pairs(plan, lm: int, ln: int, group_size: Optional[int] = None,
         group_size = int(os.environ.get("TFQ_PAIRS_COLGROUP", "0"))
     if r_tile is None:
         r_tile = int(os.environ.get("TFQ_PAIRS_RTILE", "1"))
-    pairs = plan.pairs.cpu().numpy().astype(np.int64)
-    pair_y = np.repeat(np.arange(plan.nnzb_x, dtype=np.int64),
-                       np.diff(plan.starts.cpu().numpy()))
-    row_of = np.repeat(np.arange(plan.nrows, dtype=np.int64),
-                       np.diff(plan.rowptr_x))
-    colindx = plan.colindx.cpu().numpy().astype(np.int64)
+    pairs, pair_y, row_of, colindx = _pair_lists(plan)
     g = int(group_size) or choose_group_size(
         pairs, pair_y, plan.nnzb_x, lm, ln, row_of, colindx, plan.ncols)
     gp = None
@@ -139,6 +156,76 @@ def pack_pairs(plan, lm: int, ln: int, group_size: Optional[int] = None,
     return None, pp_ops.pack_pair_plan(
         pairs[:, 0], pairs[:, 1], pair_y, plan.nnzb_x, plan.nnzb_x, lm, ln,
         r_tile=r_tile, row_of=row_of, col_of=colindx)
+
+
+def pack_superblock(plan, lm: int, ln: int, sup_env: str = "auto",
+                    precision: str = "c") -> tuple:
+    """The superblock composition of the packed 'c' engine (JAX: its
+    solver's ``_build_superblock``, solver.py:473-570): for each factor f
+    (``sup_env`` forces one; 'auto' tries {16 // LM, 32 // LM}, f >= 2) the
+    lanes are widened first by ``pack_grouped`` toward
+    max(ceil(LM'/LN), ceil(32/LN)) column groups, capped at the columns
+    (a narrow-lane merged plan, LN < LM', is legal inside merged space),
+    then f block rows merge (``superblock.pack_rowmerge``); the factor with
+    the least MAC inflation / ``rates.engine_rate`` wins, and the merged
+    pair list is packed at TFQ_PAIRS_RTILE (default 1).
+
+    Under 'auto' a problem below TFQ_SUPER_MIN_MACS fine MACs (1e6),
+    merged sizes the card's table has not measured, and a winner whose
+    cost is not below 1 / ``rates.base_rate`` are refused; a forced factor
+    bypasses the floor and the rates.  Host numpy only; raises ValueError
+    where nothing packs or merging does not pay.  Returns
+    (``RowMerge``, ``GroupedPairs`` or None, ``PairPanelPlan``)."""
+    auto = sup_env in ("auto", "")
+    pairs, pair_y, row_of, col_of = _pair_lists(plan)
+    pa, px = pairs[:, 0], pairs[:, 1]
+    # too small a problem: the transform's masking, permutes and MAC
+    # inflation swamp the rates the cost model is built on
+    mac_fine = float(pa.shape[0]) * lm * lm * ln
+    min_macs = float(os.environ.get("TFQ_SUPER_MIN_MACS", "1e6"))
+    if auto and mac_fine < min_macs:
+        raise ValueError("problem too small for the superblock transform "
+                         f"({mac_fine:.0f} fine MACs < {min_macs:.0f})")
+    rt = int(os.environ.get("TFQ_PAIRS_RTILE", "1"))
+    cands = ([int(sup_env)] if not auto else
+             sorted({f for f in (16 // lm, 32 // lm) if f >= 2}))
+    best = None
+    for f in cands:
+        lm2 = f * lm
+        fc = min(max(-(-lm2 // ln), -(-32 // ln)), plan.ncols)
+        gp = None
+        if fc > 1:
+            try:
+                gp = pp_ops.pack_grouped(pa, px, pair_y, plan.nnzb_x, ln, fc,
+                                         row_of=row_of, col_of=col_of)
+            except ValueError:
+                gp = None
+        if gp is not None:
+            rm = sb_ops.pack_rowmerge(gp.pair_a2, gp.pair_x2, gp.pair_y2,
+                                      gp.nnzb2, lm, gp.ln2, f,
+                                      row_of=gp.row_of2, col_of=gp.col_of2,
+                                      verify=False)
+        else:
+            rm = sb_ops.pack_rowmerge(pa, px, pair_y, plan.nnzb_x, lm, ln, f,
+                                      row_of=row_of, col_of=col_of)
+        rate = rates.engine_rate(precision, lm2)
+        if not rate:
+            if auto:
+                continue          # unmeasured merged size: not for 'auto'
+            rate = 1.0
+        cost = rm.mac_inflation / rate
+        if best is None or cost < best[0]:
+            best = (cost, gp, rm)
+    if best is None:
+        raise ValueError("no feasible superblock factor")
+    if auto and best[0] >= 1.0 / rates.base_rate(precision, lm):
+        raise ValueError(f"superblock does not pay on this pattern (cost "
+                         f"{best[0]:.4f} vs fine-grained "
+                         f"{1.0 / rates.base_rate(precision, lm):.4f})")
+    _, gp, rm = best
+    return rm, gp, pp_ops.pack_pair_plan(
+        rm.pair_a2, rm.pair_x2, rm.pair_y2, rm.n_cells, rm.n_cells, rm.lm2,
+        rm.ln, r_tile=rt, row_of=rm.row_of2, col_of=rm.col_of2)
 
 
 def _dtype_for(precision: str) -> torch.dtype:
@@ -223,6 +310,9 @@ class Solver:
         self._packed = self.engine == "pairs" and precision == "c"
         self._pp_plan: Optional[pp_ops.PairPanelPlan] = None
         self._gp: Optional[pp_ops.GroupedPairs] = None
+        # the superblock row merge and its fused live-slot mask (device)
+        self._sup: Optional[sb_ops.RowMerge] = None
+        self._sup_mask: Optional[torch.Tensor] = None
         if self._packed:
             try:
                 self._pack_pairs(echo)
@@ -234,7 +324,7 @@ class Solver:
                         f"the packed 'pairs' engine cannot pack this "
                         f"pattern ({e}); use engine='xla'") from e
                 self.engine, self._packed = "xla", False
-                self._pp_plan = self._gp = None
+                self._pp_plan = self._gp = self._sup = self._sup_mask = None
 
         self._panel = self.engine in PANEL_ENGINES
         self._layout = (panel_ops.PanelLayout.from_plan(self.plan)
@@ -293,8 +383,31 @@ class Solver:
         return engine
 
     def _pack_pairs(self, echo: int):
-        """The packed plan of the 'c' 'pairs' engine (``pack_pairs`` under
-        TFQ_PAIRS_COLGROUP and TFQ_PAIRS_RTILE)."""
+        """The packed plan of the 'c' 'pairs' engine: at LM <= 8 the
+        superblock (``pack_superblock`` under TFQ_SOLVER_SUPER, unless it
+        is 0), where it packs, else ``pack_pairs`` under
+        TFQ_PAIRS_COLGROUP and TFQ_PAIRS_RTILE."""
+        sup_env = os.environ.get("TFQ_SOLVER_SUPER", "auto")
+        if sup_env != "0" and self.lm <= 8:
+            try:
+                self._sup, self._gp, self._pp_plan = pack_superblock(
+                    self.plan, self.lm, self.ln, sup_env, self.precision)
+            except ValueError as e:
+                if echo > 2:
+                    print(f"# superblock unavailable ({e}); fine-grained "
+                          "pairs")
+        if self._sup is not None:
+            rm = self._sup
+            mask = sb_ops.merged_mask_full(rm, self._gp)
+            self._sup_mask = torch.from_numpy(
+                pp_ops.permute_x(self._pp_plan, mask, mask)).to(self.device)
+            if echo > 2:
+                pp = self._pp_plan
+                print(f"# superblock: f_row {rm.f_row}, LM' {rm.lm2}, lanes "
+                      f"{2 * rm.ln}, {rm.n_cells} cells, {rm.n_acells} A "
+                      f"cells, MAC inflation {rm.mac_inflation:.2f}x; "
+                      f"{pp.ntiles} tiles, ku {pp.ku}")
+            return
         self._gp, self._pp_plan = pack_pairs(self.plan, self.lm, self.ln)
         if echo > 2:
             pp, gp = self._pp_plan, self._gp
@@ -304,15 +417,22 @@ class Solver:
 
     def _pairs_permute(self, re: np.ndarray, im: np.ndarray) -> np.ndarray:
         """X-shaped block planes -> the packed engine's fused panel
-        (column grouping, then the relabelling)."""
+        (column grouping, then the superblock row merge, which zeroes the
+        dead slots, then the relabelling)."""
         if self._gp is not None:
             re = pp_ops.grouped_blocks(self._gp, re)
             im = pp_ops.grouped_blocks(self._gp, im)
+        if self._sup is not None:
+            re = sb_ops.merge_xy_blocks(self._sup, re)
+            im = sb_ops.merge_xy_blocks(self._sup, im)
         return pp_ops.permute_x(self._pp_plan, re, im)
 
     def _pairs_unpermute(self, fused: np.ndarray) -> tuple:
         """The fused panel -> (re, im) block planes [nnzbX, LM, LN]."""
         re, im = pp_ops.unpermute_y(self._pp_plan, fused)
+        if self._sup is not None:
+            re = sb_ops.unmerge_xy_blocks(self._sup, re)
+            im = sb_ops.unmerge_xy_blocks(self._sup, im)
         if self._gp is not None:
             re = pp_ops.ungroup_blocks(self._gp, re)
             im = pp_ops.ungroup_blocks(self._gp, im)
@@ -423,6 +543,9 @@ class Solver:
                                             lay.lm, lay.ncc, lay.ln)
         a_re, a_im = self._upload(re, im)
         if self._packed:
+            if self._sup is not None:     # fine A blocks into merged cells
+                a_re = sb_ops.merge_a_blocks(self._sup, a_re)
+                a_im = sb_ops.merge_a_blocks(self._sup, a_im)
             return pp_ops.PairPanelMultiply(
                 self._pp_plan,
                 pp_ops.build_a_panels_device(self._pp_plan, a_re, a_im))
@@ -509,7 +632,8 @@ class Solver:
 
     def _fused_primitives(self, b: torch.Tensor) -> core.TfqmrPrimitives:
         return pp_ops.fused_primitives(self._multiply, self._pp_plan,
-                                       self.plan.ncols, b, self._gp)
+                                       self.plan.ncols, b, self._gp,
+                                       sup_mask=self._sup_mask)
 
     def _solve_fused(self, tolerance, max_iterations, rhs_trivial):
         """The packed 'pairs' engine, as the JAX package's _solve_pairs."""
@@ -600,6 +724,7 @@ class Solver:
                         + 10 * linalg.flops_axpy(nb_panel, lay.lm, lay.ln))
             per_probe = spmm + linalg.flops_nrm2(nb_panel, lay.lm, lay.ln)
         else:
+            # the fine plan's count, merged or not (JAX: solver.py:1030-1033)
             per_iter = core.flops_per_iteration(p.n_pairs, p.nnzb_x,
                                                 self.lm, self.ln)
             per_probe = core.flops_per_probe(p.n_pairs, p.nnzb_x, self.lm,
