@@ -155,13 +155,49 @@ two for each:
    converged to 1e-9, one K1 launch per float64 residual, the c stage's
    K2 launches, the iterations beside phase 12's; (d) ``autotune_solver``
    at the golden class (8, 8) in 'c' with a fresh cache: the superblock
-   candidates are rows, each timed with K2's counter raised.
+   candidates are rows, each timed with K2's counter raised;
+20. the reduced-precision layer (the bf16 split modes of K2 and K3 on the
+   BF16 tensor cores, ``ops/ozaki.py``), run after phase 17 on phase 16's
+   process group: (a) K3 in bf16x3, bf16x4 and bf16x6 against its plain
+   version at the 15 block sizes x r_tile (1, 4) and the staged shapes of
+   phase 5 (maxdev <= 1e-5, the same bits on a repeat, from a misaligned
+   x and from other work lists), 'bf16' through the FP32 K3 with the bits
+   of 'highest', and at the golden class with cos/sin data per mode: the
+   maxdev against the float64 product (bf16x6 <= 1e-4, the others at most
+   1.05 times their plain version's, which tells bf16x4 from bf16x3),
+   device, back-to-back and single-call
+   times, the plain time and the bound (the mode's bf16 products at the
+   data sheet's BF16 rate), beside phase 5's 'highest'; (b) K2 in bf16,
+   bf16x3, bf16x4 and bf16x6 the same way at the six sizes with LM >= 16 x
+   G (1, 2), on a merged (8, 8) pack at LM' 16 and at the golden class at
+   G 8, beside phase 9's; (c) golden 'c' through ``Solver(engine='auto')``
+   -> 'pallas' under TFQ_PALLAS_MM_PREC and ``Solver(engine='pairs')`` (G
+   8) under TFQ_PAIRS_MM_PREC, each in bf16x3 and bf16x6: converged to
+   1e-5 with every multiply through the split kernel, the float64
+   residual < 1e-3 (bf16x3) or < 1e-4 (bf16x6), ms an iteration over 10
+   (CUDA events) beside phases 6 and 10; (d) golden 'm' through
+   ``bsrsv_m`` under TFQ_PALLAS_MM_PREC=bf16x3: SUCCESS at 1e-9, float64
+   residual < 1e-8, the c stage on the split K3 and one K1 launch a float64
+   residual, rounds beside phase 13's; (e) golden 'z' through 'xla' under
+   TFQ_XLA_OZ=1 and FD rtb=6.75 'z' through 'dense' under TFQ_Z_OZAKI=1:
+   the native solve's iterations, X within 1e-10 of it (FD, which stops at
+   1e-9: within 1e-9), the residual < 1e-8, and both walls; for FD also
+   the residuum of both solves after 60 and 100 iterations with no stop,
+   where each has stagnated; (f)
+   ``ShardedPairsSolver(precision='bf16x6')`` and
+   ``ShardedRowTileSolver(mm_prec='bf16x3')`` at world size 1 on golden
+   'c': (c)'s iterations and X to the bit.  Phase 18 (c) also times the
+   golden 'c' row tiles in bf16x3 against ``solver_roofline``'s BF16
+   ceiling over 3 products (``mm_passes``).
 
 Then one JSON line on the kernels (time, launches on their path, bound,
 plain and library times; the launches of every path that runs the kernel
 under ``launches_by_path``; for K1 also the bytes staged, for K2 and K3
 also ``kernel_ms`` and ``burst_ms``, for K2 ``merged_ms``, its device
-time on phase 19's plans) and, last, one JSON line on the device.
+time on phase 19's plans; the split kernels ``rowtile_spmm_bf16`` and
+``pairpanel_tiles_bf16`` head with bf16x3, their ``launches`` phase 20
+(c)'s bf16x3 solve's, and give every mode under ``modes``) and, last,
+one JSON line on the device.
 K1's times in phase 2 are CUDA events around 20 calls issued back to back
 (``burst_ms`` for K2 and K3); ``kernel_ms`` is the kernel's device time
 from ``torch.profiler``; phase 19's kernel times are CUDA events around 20
@@ -339,11 +375,13 @@ def c_onecall(lib, precision: str, a, x, b, threshold: float,
 # --------------------------------------------------------------- phases
 
 def packed_multiply(plan, lm: int, ln: int, av: np.ndarray, xv: np.ndarray,
-                    dev, group: int = 1, r_tile: int = 1, slots: int = None):
+                    dev, group: int = 1, r_tile: int = 1, slots: int = None,
+                    precision: str = "highest"):
     """PairPanelMultiply (K2) on ``dev`` over the plan's packed pairs at
     column group size ``group`` and ``r_tile`` (its work list dealt to
-    ``slots`` CTAs, by default those the card holds at once), the fused X
-    panel of the complex blocks ``xv``, and the packed plan."""
+    ``slots`` CTAs, by default those the card holds at once) in
+    ``precision``, the fused X panel of the complex blocks ``xv``, and the
+    packed plan."""
     from tfqmrgpu_tpu_torch.ops import pairpanel as pp
 
     pairs = plan.pairs.cpu().numpy().astype(np.int64)
@@ -367,7 +405,8 @@ def packed_multiply(plan, lm: int, ln: int, av: np.ndarray, xv: np.ndarray,
                                   r_tile=r_tile, row_of=row_of, col_of=cols)
     a_re, a_im = planes(av, torch.float32, dev)
     mult = pp.PairPanelMultiply(
-        pplan, pp.build_a_panels_device(pplan, a_re, a_im), slots=slots)
+        pplan, pp.build_a_panels_device(pplan, a_re, a_im), slots=slots,
+        precision=precision)
     x = torch.from_numpy(pp.permute_x(pplan, xre, xim)).to(dev)
     return mult, x, pplan
 
@@ -641,10 +680,11 @@ def phase_golden(dev, timed_iterations: int = 20):
     return info.iterations_needed
 
 
-def _rowtile_multiply(plan, lm, ln, av, xv, dev, r_tile=None, slots=None):
+def _rowtile_multiply(plan, lm, ln, av, xv, dev, r_tile=None, slots=None,
+                      precision="highest"):
     """RowTileMultiply on ``dev`` over the plan's pack (the solver's choice,
     or ``r_tile``; its work list dealt to ``slots`` CTAs, by default those
-    the card holds at once), and the X panel of ``xv``."""
+    the card holds at once) in ``precision``, and the X panel of ``xv``."""
     from tfqmrgpu_tpu_torch.ops.pallas_spmm import (
         RowTileMultiply, build_a_panels_device, choose_row_tile,
         pack_row_tiles)
@@ -656,7 +696,7 @@ def _rowtile_multiply(plan, lm, ln, av, xv, dev, r_tile=None, slots=None):
     a_re, a_im = planes(av, torch.float32, dev)
     mult = RowTileMultiply(pack, build_a_panels_device(pack, a_re),
                            build_a_panels_device(pack, a_im), lay.mask, ln,
-                           slots=slots)
+                           slots=slots, precision=precision)
     return mult, xp, pack
 
 
@@ -825,7 +865,7 @@ def phase_golden_c(dev, timed_iterations: int = 10):
           f"|AX-B|/|B| {res:.3e}, K3 launches {launches}, wall "
           f"{wall_ms:.1f} ms; {per_it:.3f} ms per iteration over "
           f"{timed_iterations} iterations", flush=True)
-    return launches, info.iterations_needed
+    return launches, info.iterations_needed, per_it
 
 
 def phase_dense(dev):
@@ -1045,7 +1085,7 @@ def phase_golden_pairs_c(dev, timed_iterations: int = 10):
           f"|AX-B|/|B| {res:.3e}, K2 launches {launches}, wall {wall_ms:.1f} "
           f"ms; {per_it:.3f} ms per iteration over {timed_iterations} "
           f"iterations", flush=True)
-    return launches, x_solved, info.iterations_needed, info.n_probes
+    return launches, x_solved, info.iterations_needed, info.n_probes, per_it
 
 
 def phase_fd_c(dev, fd):
@@ -1220,7 +1260,7 @@ def phase_golden_m(dev):
           f"residuum {info.residuum_reached:.3e}, |AX-B|/|B| {res:.3e}, K3 "
           f"launches {k3}, K1 launches {k1}, wall {wall_ms:.1f} ms (set-up "
           f"included)", flush=True)
-    return k1, k3
+    return k1, k3, (r["c_iterations"], r["iterations"], r["rounds"])
 
 
 def phase_checkpoint(dev, fd, z_iterations: int):
@@ -1780,7 +1820,7 @@ def phase_sharded_pairs(dev, mesh, golden_pairs: tuple):
                                              solve_sharded)
 
     t_phase = time.perf_counter()
-    k2_10, x_10, its_10, probes_10 = golden_pairs
+    k2_10, x_10, its_10, probes_10 = golden_pairs[:4]
 
     def timed(fn):
         torch.cuda.synchronize()
@@ -2066,6 +2106,37 @@ def phase_tuning(dev, fd, k4: dict, iterations: dict) -> dict:
               f"{roof.fraction_of_light:.4f}, of sheet light "
               f"{roof.fraction_of_sheet_light:.4f}", flush=True)
         del s
+    # a split mode: the ceiling is the BF16 peak over its bf16 products
+    with environment({"TFQ_PALLAS_MM_PREC": "bf16x3"}):
+        s = Solver(*golden_c_problem(), precision="c", engine="pallas",
+                   device=dev)
+    zero()
+    RowTileMultiply.split_launches = 0
+    info, best_s, roof = profiling.timed_solve(
+        s, tolerance=1e-5, max_iterations=500, repeats=TIMED_REPEATS)
+    its, split = info.iterations_needed, RowTileMultiply.split_launches
+    bf16 = profiling.DEVICE_PEAKS[profiling.device_kind(dev)]["bf16_tflops"]
+    explicit = profiling.solver_roofline(s, best_s / its, mm_passes=3)
+    fracs = (roof.fraction_of_light, roof.fraction_of_sheet_light)
+    require(info.return_status == 0 and sum(read().values()) == 0
+            and split == TIMED_REPEATS * (2 * its + info.n_probes)
+            and roof.peak_tflops == explicit.peak_tflops == bf16 / 3
+            and all(0.0 < f <= 1.05 for f in fracs),
+            f"timed golden 'c' bf16x3: status {info.return_status}, "
+            f"launches {read()} and {split} split, ceiling "
+            f"{roof.peak_tflops}, fractions {fracs}")
+    by_path["k3s"] = {"phase 18 (c) golden c row tiles bf16x3 timed_solve":
+                      split}
+    print(f"phase 18 (c) golden 'c' row tiles under TFQ_PALLAS_MM_PREC="
+          f"bf16x3 (mm_passes 3): {its} iterations; "
+          f"{roof.bytes_per_iteration:.4e} B an iteration, light "
+          f"{roof.light_speed_s * 1e6:.1f} us "
+          f"({'compute' if roof.compute_bound else 'bandwidth'}-bound at "
+          f"{roof.peak_tflops:.1f} TFlop/s = BF16 {bf16:.0f} / 3); measured "
+          f"{roof.measured_s * 1e6:.1f} us an iteration; fraction of light "
+          f"{roof.fraction_of_light:.4f}, of sheet light "
+          f"{roof.fraction_of_sheet_light:.4f}", flush=True)
+    del s
 
     # (d) autotune on the golden class, with a fresh cache
     cache = os.path.join(os.path.dirname(os.path.abspath(__file__)),
@@ -2454,6 +2525,442 @@ def phase_small_block(dev, fd, fd_m: tuple) -> tuple:
     return by_path, merged_ms
 
 
+SPLIT_MODES = ("bf16", "bf16x3", "bf16x4", "bf16x6")
+
+
+def f64_product(mult, x):
+    """The float64 product of a K2 or K3 wrapper's operands: its plain
+    version in 'highest' on float64 copies of A and x."""
+    import copy
+
+    ref = copy.copy(mult)
+    ref.split, ref.mode, ref.precision = False, "highest", "highest"
+    if hasattr(mult, "a_fused"):                       # K3
+        ref.a_fused = mult.a_fused.double()
+        return ref.plain(tuple(v.double() for v in x))
+    ref.a_panels = mult.a_panels.double()              # K2
+    return (ref.plain(x.double()),)
+
+
+# a split kernel against its plain version, relative to the largest entry:
+# both sum the same exact bf16 products in float32, in other orders
+SPLIT_GATE = 1e-5
+
+
+def check_split(mult, x, what: str, gate: float = SPLIT_GATE) -> float:
+    """A split-mode K2 or K3 against its plain version (maxdev <= ``gate``
+    of the largest entry) and the same bits on a repeated launch; returns
+    the maxdev."""
+    got = _as_tuple(mult(x))
+    rel, _ = _maxdev(got, _as_tuple(mult.plain(x)))
+    again = _as_tuple(mult(x))
+    torch.cuda.synchronize()
+    require(rel <= gate, f"{what} maxdev {rel:.3e} > {gate}")
+    require(all(torch.equal(p, q) for p, q in zip(got, again)),
+            f"{what}: repeated launch differs")
+    return rel
+
+
+def time_split(mult, x, kernel: str, flops: float, nbytes: float,
+               products: int) -> dict:
+    """A split-mode kernel at the golden class: its maxdev against the
+    float64 product beside its plain version's, its device time
+    (``torch.profiler``), back-to-back and single-call times, the plain
+    version's time and the bound (the mode's bf16 products at the data
+    sheet's BF16 rate against ``nbytes``)."""
+    got, want = _as_tuple(mult(x)), f64_product(mult, x)
+    plain = _as_tuple(mult.plain(x))
+    rel, abs_err = _maxdev(tuple(g.double() for g in got), want)
+    plain_rel, _ = _maxdev(tuple(p.double() for p in plain), want)
+    rel_plain, _ = _maxdev(got, plain)
+    bound_ms, bound_by = bound(nbytes, flops * products, "bf16_tflops")
+    kernel_ms = _kernel_ms(lambda: mult(x), kernel)
+    return dict(maxdev_f64=rel, plain_maxdev_f64=plain_rel,
+                max_abs_err=abs_err, maxdev_plain=rel_plain,
+                kernel_ms=kernel_ms, burst_ms=_burst_ms(lambda: mult(x)),
+                ms=_time_ms(lambda: mult(x)),
+                plain_ms=_time_ms(lambda: mult.plain(x)), bound_ms=bound_ms,
+                bound_by=bound_by, mbytes=nbytes / 1e6)
+
+
+def _gate_f64(row: dict, mode: str, what: str):
+    """bf16x6 within 1e-4 of the float64 product; every other mode within
+    1.05 times its plain version's own deviation from it (bf16x3 sits
+    more than 1.05 times as far as bf16x4 on cos/sin data, so a bf16x4
+    kernel that dropped its fourth product fails)."""
+    gate = 1e-4 if mode == "bf16x6" else 1.05 * row["plain_maxdev_f64"]
+    require(row["maxdev_f64"] <= gate, f"{what} {mode}: maxdev against "
+            f"float64 {row['maxdev_f64']:.3e} > {gate:.3e}")
+
+
+def _split_line(tag: str, mode: str, row: dict) -> str:
+    return (f"{tag} {mode}: {row['kernel_ms']:.4f} ms of device time "
+            f"({100 * row['bound_ms'] / row['kernel_ms']:.1f}% of the "
+            f"bound), {row['burst_ms']:.4f} ms back to back, {row['ms']:.4f} "
+            f"ms single; plain {row['plain_ms']:.4f} ms; maxdev against "
+            f"float64 {row['maxdev_f64']:.3e} (plain "
+            f"{row['plain_maxdev_f64']:.3e}), against plain "
+            f"{row['maxdev_plain']:.3e}; bound {row['bound_ms']:.4f} ms "
+            f"({row['bound_by']}, {row['mbytes']:.1f} MB)")
+
+
+def phase_precision(dev, mesh, k3: dict, k2: dict, refs: dict) -> dict:
+    """Phase 20: the reduced-precision layer.  (a) K3 and (b) K2 in the bf16
+    split modes on the BF16 tensor cores, (c) golden 'c' solves under
+    TFQ_PALLAS_MM_PREC and TFQ_PAIRS_MM_PREC, (d) golden 'm' with its c
+    stage in bf16x3, (e) the Ozaki opt-ins TFQ_XLA_OZ and TFQ_Z_OZAKI, (f)
+    the sharded engines' ``precision`` / ``mm_prec`` at world size 1 on
+    phase 16's group.  ``k3`` and ``k2`` are phases 5 and 9 ('highest' at
+    the golden class); ``refs`` phase 6's and 10's (iterations, ms an
+    iteration) and phase 13's (c-iterations, iterations, rounds).  Returns
+    the split kernels' JSON rows."""
+    import tfqmrgpu_tpu_torch as tt
+    from tfqmrgpu_tpu_torch import create_plan
+    from tfqmrgpu_tpu_torch.autotune import environment
+    from tfqmrgpu_tpu_torch.generator import generate_fd_problem
+    from tfqmrgpu_tpu_torch.ops.pairpanel import (SPLIT_PRODUCTS,
+                                                  PairPanelMultiply,
+                                                  PairPlanMultiply)
+    from tfqmrgpu_tpu_torch.ops.pallas_spmm import RowTileMultiply
+    from tfqmrgpu_tpu_torch.parallel import (ShardedPairsSolver,
+                                             ShardedRowTileSolver)
+
+    t_phase = time.perf_counter()
+    K2, K3 = PairPanelMultiply, RowTileMultiply
+
+    def zero():
+        PairPlanMultiply.launches = 0
+        for c in (K2, K3):
+            c.launches = c.split_launches = 0
+
+    def read() -> dict:
+        return dict(k1=PairPlanMultiply.launches, k2=K2.launches,
+                    k2s=K2.split_launches, k3=K3.launches,
+                    k3s=K3.split_launches)
+
+    by_path = {"k2s": {}, "k3s": {}}
+    rng = np.random.default_rng(2027)
+    from tfqmrgpu_tpu_torch import ALLOWED_BLOCK_SIZES
+
+    # (a) K3 in bf16x3, bf16x4, bf16x6 at the 15 sizes and the staged shapes
+    worst = {m: 0.0 for m in SPLIT_MODES[1:]}
+    for lm, ln in ALLOWED_BLOCK_SIZES:
+        a, x, b = random_problem(rng, mb=24, lm=lm, ln=ln, ncols=5)
+        plan = create_plan(a, x, b, device=dev)
+        av = rng.standard_normal((plan.nnzb_a, lm, lm, 2)) @ [1, 1j]
+        xv = rng.standard_normal((plan.nnzb_x, lm, ln, 2)) @ [1, 1j]
+        for mode in worst:
+            for r_tile in (1, 4):
+                mult, xp, _ = _rowtile_multiply(plan, lm, ln, av, xv, dev,
+                                                r_tile, precision=mode)
+                worst[mode] = max(worst[mode], check_split(
+                    mult, xp, f"K3 ({lm},{ln}) r_tile {r_tile} {mode}"))
+    for lm, ln, ncols, r_tile in STAGED_SHAPES:
+        a, x, b = random_problem(rng, mb=24, lm=lm, ln=ln, ncols=ncols)
+        plan = create_plan(a, x, b, device=dev)
+        av = rng.standard_normal((plan.nnzb_a, lm, lm, 2)) @ [1, 1j]
+        xv = rng.standard_normal((plan.nnzb_x, lm, ln, 2)) @ [1, 1j]
+        for mode in worst:
+            def make(slots):
+                return _rowtile_multiply(plan, lm, ln, av, xv, dev, r_tile,
+                                         slots, precision=mode)[:2]
+
+            worst[mode] = max(worst[mode], check_staged(
+                make, f"K3 ({lm},{ln}) x {ncols} columns, r_tile {r_tile}, "
+                f"{mode}", SPLIT_GATE))
+    # 'bf16' runs the exact-FP32 kernel, as the JAX kernel runs it
+    plan = create_plan(*golden_class_patterns(), device=dev)
+    av, xv = cos_sin(plan.nnzb_a, 32, 32), cos_sin(plan.nnzb_x, 32, 32)
+    zero()
+    mult, xp, pack = _rowtile_multiply(plan, 32, 32, av, xv, dev,
+                                       precision="bf16")
+    href = _rowtile_multiply(plan, 32, 32, av, xv, dev)[0]
+    require(all(torch.equal(p, q) for p, q in zip(mult(xp), href(xp)))
+            and K3.launches == 2 and K3.split_launches == 0,
+            f"K3 'bf16': launches {read()}")
+    print(f"phase 20 (a) K3 split modes vs plain: 15 block sizes x r_tile "
+          f"(1, 4) and {len(STAGED_SHAPES)} added shapes (misaligned x; work "
+          f"lists for 1, 7 and units/2 CTAs: the same bits), worst maxdev "
+          + ", ".join(f"{m} {v:.3e}" for m, v in worst.items())
+          + "; 'bf16' runs the FP32 K3 (its counter 2, the split one 0, the "
+          "bits of 'highest')", flush=True)
+    nr, c = plan.nrows * 32, plan.ncols * 32
+    flops = plan.nnzb_a * 8.0 * 32 * 32 * c
+    k3_rows = {}
+    for mode in worst:
+        mult, xp, pack = _rowtile_multiply(plan, 32, 32, av, xv, dev,
+                                           precision=mode)
+        nbytes = (4 * (mult.a_planes.numel() + 4 * nr * c)
+                  + 4 * pack.xcols.size + plan.nrows * plan.ncols)
+        row = time_split(mult, xp, "rowtile_spmm_bf16_kernel", flops, nbytes,
+                         SPLIT_PRODUCTS[mode])
+        _gate_f64(row, mode, "K3 golden")
+        k3_rows[mode] = row
+        print(_split_line("phase 20 (a) golden-class K3", mode, row),
+              flush=True)
+        del mult, xp
+    print(f"phase 20 (a) golden-class K3 'highest' (phase 5): "
+          f"{k3['kernel_ms']:.4f} ms of device time, bound "
+          f"{k3['bound_ms']:.4f} ms; library (complex64 BSR torch.sparse.mm, "
+          "FP32) "
+          + (f"{k3['library_ms']:.4f} ms" if k3["library_ms"] else "refused"),
+          flush=True)
+
+    # (b) K2 in the four modes: LM >= 16 with G 1 and 2, a merged pack at
+    # LM' 16, the golden class at G 8
+    worst2 = {m: 0.0 for m in SPLIT_MODES}
+    for lm, ln in ALLOWED_BLOCK_SIZES:
+        if lm < 16:
+            continue
+        a, x, b = random_problem(rng, mb=24, lm=lm, ln=ln, ncols=5)
+        plan = create_plan(a, x, b, device=dev)
+        av = rng.standard_normal((plan.nnzb_a, lm, lm, 2)) @ [1, 1j]
+        xv = rng.standard_normal((plan.nnzb_x, lm, ln, 2)) @ [1, 1j]
+        for mode in worst2:
+            for group in (1, 2):
+                mult, xf, _ = packed_multiply(plan, lm, ln, av, xv, dev,
+                                              group, precision=mode)
+                worst2[mode] = max(worst2[mode], check_split(
+                    mult, xf, f"K2 ({lm},{ln}) G {group} {mode}"))
+    a, x, b = small_block_problem(8, 8)
+    merged = {}
+    for mode in worst2:
+        with environment({"TFQ_SOLVER_SUPER": "2",
+                          "TFQ_PAIRS_MM_PREC": mode}):
+            s = tt.Solver(a, x, b, precision="c", engine="pairs", device=dev)
+        m = s._multiply
+        require(s._sup is not None and m.lm == 16 and m.mode == mode,
+                f"merged pack {s._sup}, K2 at LM {m.lm} in {m.mode}")
+        merged[mode] = check_split(m, s._v3, f"K2 merged LM' 16 {mode}")
+        del s, m
+    print(f"phase 20 (b) K2 split modes vs plain: 6 block sizes with LM >= "
+          f"16 x G (1, 2), worst maxdev "
+          + ", ".join(f"{m} {v:.3e}" for m, v in worst2.items())
+          + "; merged (8, 8) pack at LM' 16 "
+          + ", ".join(f"{m} {v:.3e}" for m, v in merged.items())
+          + "; repeated launches bit-identical", flush=True)
+    plan = create_plan(*golden_class_patterns(), device=dev)
+    av, xv = cos_sin(plan.nnzb_a, 32, 32), cos_sin(plan.nnzb_x, 32, 32)
+    flops = plan.n_pairs * 8.0 * 32 ** 3
+    k2_rows = {}
+    for mode in worst2:
+        mult, xf, pplan = packed_multiply(plan, 32, 32, av, xv, dev, 8,
+                                          precision=mode)
+        nbytes = 4 * (mult.a_planes.numel() + 2 * xf.numel()
+                      + mult.xloc.numel())
+        row = time_split(mult, xf, "pairpanel_tiles_bf16_kernel", flops,
+                         nbytes, SPLIT_PRODUCTS[mode])
+        _gate_f64(row, mode, "K2 golden G 8")
+        k2_rows[mode] = row
+        print(_split_line("phase 20 (b) golden-class K2 G 8", mode, row),
+              flush=True)
+        del mult, xf
+    print(f"phase 20 (b) golden-class K2 'highest' (phase 9, G "
+          f"{k2['group']}): {k2['kernel_ms']:.4f} ms of device time, bound "
+          f"{k2['bound_ms']:.4f} ms; library (complex64 BSR torch.sparse.mm, "
+          "FP32) "
+          + (f"{k2['library_ms']:.4f} ms" if k2["library_ms"] else "refused"),
+          flush=True)
+
+    # (c) golden 'c' solves in bf16x3 and bf16x6
+    a, x, b = golden_c_problem()
+    solved = {}
+    for engine, knob, key in (("auto", "TFQ_PALLAS_MM_PREC", "k3s"),
+                              ("pairs", "TFQ_PAIRS_MM_PREC", "k2s")):
+        for mode, res_gate in (("bf16x3", 1e-3), ("bf16x6", 1e-4)):
+            with environment({knob: mode}):
+                s = tt.Solver(a, x, b, precision="c", engine=engine,
+                              device=dev)
+            want_engine = "pallas" if engine == "auto" else "pairs"
+            require(s.engine == want_engine and s._multiply.mode == mode,
+                    f"{engine} under {knob}={mode}: {s.engine}, "
+                    f"{getattr(s._multiply, 'mode', None)}")
+            if engine == "pairs":
+                require(s._gp is not None and s._gp.group_size == 8,
+                        f"pairs under {mode}: groups {s._gp}")
+            zero()
+            t0 = time.perf_counter()
+            info = s.solve(tolerance=1e-5, max_iterations=500)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+            n = read()
+            its = info.iterations_needed
+            require(info.return_status == 0,
+                    f"golden 'c' {engine} {mode}: status "
+                    f"{info.return_status}")
+            others = sum(v for k, v in n.items() if k != key)
+            require(n[key] == 2 * its + info.n_probes and others == 0,
+                    f"golden 'c' {engine} {mode}: launches {n} for {its} "
+                    f"iterations and {info.n_probes} probes")
+            xs = s.get_matrix("X")
+            res = pattern_residual(s.plan, xs, a, b, dev)
+            require(res < res_gate, f"golden 'c' {engine} {mode}: "
+                    f"|AX-B|/|B| {res:.3e} >= {res_gate}")
+            timed, ms = _events_ms(lambda: s.solve(tolerance=0.0,
+                                                   max_iterations=10))
+            per_it = ms / max(timed.iterations_needed, 1)
+            ref = refs[6 if engine == "auto" else 10]
+            path = (f"phase 20 (c) golden c {'auto -> pallas' if engine == 'auto' else 'pairs'} "
+                    f"{mode}")
+            by_path[key][path] = n[key]
+            solved[(want_engine, mode)] = (xs, its)
+            print(f"phase 20 (c) golden-class 'c' Solver(engine='{engine}') "
+                  f"-> {s.engine} under {knob}={mode}: {its} iterations, "
+                  f"{info.n_probes} probes, |AX-B|/|B| {res:.3e}, split "
+                  f"launches {n[key]}, wall {wall_ms:.1f} ms; {per_it:.3f} ms "
+                  f"per iteration over {timed.iterations_needed} iterations "
+                  f"(CUDA events); 'highest' (phase "
+                  f"{6 if engine == 'auto' else 10}): {ref[0]} iterations, "
+                  f"{ref[1]:.3f} ms per iteration",
+                  flush=True)
+            del s
+
+    # (d) golden 'm' with its c stage in bf16x3
+    am = a.with_data(a.data.astype(np.complex128))
+    bm = b.with_data(b.data.astype(np.complex128))
+    zero()
+    with environment({"TFQ_PALLAS_MM_PREC": "bf16x3"}):
+        t0 = time.perf_counter()
+        xs, info = tt.bsrsv_m(am, x, bm, tolerance=1e-9, max_iterations=500,
+                              device=dev)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    n = read()
+    r = info.refinement
+    require(info.return_status == 0 and info.residuum_reached <= 1e-9,
+            f"golden 'm' bf16x3: status {info.return_status}, residuum "
+            f"{info.residuum_reached:.3e}")
+    require(r["c_engine"] == "pallas", f"golden 'm' c stage on {r['c_engine']}")
+    res = pattern_residual(create_plan(am, x, bm, device=dev), xs.data, am,
+                           bm, dev)
+    require(res < 1e-8, f"golden 'm' bf16x3 |AX-B|/|B| = {res:.3e}")
+    want_k1 = residual_checks(r["rounds"]) + fallback_k1(info)
+    require(n["k1"] == want_k1 and n["k3"] == 0
+            and n["k3s"] >= 2 * r["c_iterations"],
+            f"golden 'm' bf16x3: launches {n}, want {want_k1} K1")
+    by_path["k3s"]["phase 20 (d) golden m bf16x3 (c stage, corrections)"] = \
+        n["k3s"]
+    ref = refs[13]
+    print(f"phase 20 (d) golden-class bsrsv_m under TFQ_PALLAS_MM_PREC="
+          f"bf16x3: c stage {r['c_iterations']} iterations + "
+          f"{r['iterations'] - r['c_iterations']} over {r['rounds']} rounds "
+          f"(phase 13: {ref[0]} + {ref[1] - ref[0]} over {ref[2]}), "
+          f"fallback {'ran' if r['fallback'] else 'not needed'}, residuum "
+          f"{info.residuum_reached:.3e}, |AX-B|/|B| {res:.3e}, split K3 "
+          f"{n['k3s']}, K1 {n['k1']} (one a float64 residual), wall "
+          f"{wall_ms:.1f} ms", flush=True)
+
+    # (e) the Ozaki opt-ins against the native float64 solves
+    za, zx, zb = golden_z_problem()
+    fd = generate_fd_problem(rtb=6.75, reference=True)
+    # X against the native solve's: 1e-10 at the golden class; FD rtb=6.75
+    # stops at 1e-9, since the Ozaki solve stagnates just below (the
+    # residua after 60 and 100 iterations are printed), where the two
+    # products' roundings leave the iterates 3.3e-10 apart on the CPU
+    for name, engine, knob, abx, tol, x_gate in (
+            ("golden-class 'z'", "xla", "TFQ_XLA_OZ", (za, zx, zb), 1e-10,
+             1e-10),
+            ("FD rtb=6.75 'z'", "dense", "TFQ_Z_OZAKI",
+             (fd.a_with_data(), fd.x, fd.b_with_data()), 1e-9, 1e-9)):
+        out, flat = {}, {}
+        for val in ("0", "1"):
+            with environment({knob: val}):
+                t0 = time.perf_counter()
+                s = tt.Solver(*abx, precision="z", engine=engine, device=dev)
+                info = s.solve(tolerance=tol, max_iterations=2000)
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t0) * 1e3
+            require(info.return_status == 0,
+                    f"{name} {knob}={val}: status {info.return_status}")
+            sliced = (s._multiply.oz_pq is not None if engine == "xla" else
+                      s._multiply.__qualname__.startswith(
+                          "_dense_multiply_oz"))
+            require(sliced == (val == "1"),
+                    f"{name} {knob}={val}: Ozaki slices {sliced}")
+            out[val] = (info, s.get_matrix("X"), wall)
+            if engine == "dense":       # no stop: where each one stagnates
+                flat[val] = [s.solve(tolerance=0.0, max_iterations=k)
+                             .residuum_reached for k in (60, 100)]
+                flat[val].append(pattern_residual(
+                    create_plan(*abx, device=dev), s.get_matrix("X"),
+                    abx[0], abx[2], dev))
+            del s
+        (ni, nx, nw), (oi, ox, ow) = out["0"], out["1"]
+        dx = float(np.max(np.abs(ox - nx)) / np.max(np.abs(nx)))
+        res = pattern_residual(create_plan(*abx, device=dev), ox, abx[0],
+                               abx[2], dev)
+        require(oi.iterations_needed == ni.iterations_needed,
+                f"{name} Ozaki: {oi.iterations_needed} iterations, native "
+                f"{ni.iterations_needed}")
+        require(dx <= x_gate and res < 1e-8,
+                f"{name} Ozaki: X {dx:.3e} from native, |AX-B|/|B| "
+                f"{res:.3e}")
+        print(f"phase 20 (e) {name} through '{engine}' with {knob}=1: "
+              f"{oi.iterations_needed} iterations (native "
+              f"{ni.iterations_needed}), X {dx:.3e} from the native solve's, "
+              f"|AX-B|/|B| {res:.3e}, wall {ow:.1f} ms (native {nw:.1f} ms; "
+              "set-up included)", flush=True)
+        if flat:
+            print(f"phase 20 (e) {name} with no stop: residuum after 60 and "
+                  f"100 iterations, native {flat['0'][0]:.3e} and "
+                  f"{flat['0'][1]:.3e}, {knob}=1 {flat['1'][0]:.3e} and "
+                  f"{flat['1'][1]:.3e}; |AX-B|/|B| at 100 native "
+                  f"{flat['0'][2]:.3e}, {knob}=1 {flat['1'][2]:.3e}",
+                  flush=True)
+
+    # (f) the sharded engines at world size 1 on phase 16's group
+    plan = create_plan(a, x, b, device=dev)
+    plan.lm, plan.ln = 32, 32
+    for cls, kw, key, eng, mode in (
+            (ShardedPairsSolver, {"precision": "bf16x6"}, "k2s", "pairs",
+             "bf16x6"),
+            (ShardedRowTileSolver, {"mm_prec": "bf16x3", "r_tile": 2}, "k3s",
+             "pallas", "bf16x3")):
+        zero()
+        sp = cls(plan, mesh, **kw)
+        got, info = sp.solve(a.data.real, a.data.imag, b.data.real,
+                             b.data.imag, tolerance=1e-5, max_iterations=500)
+        n = read()
+        want, its = solved[(eng, mode)]
+        its_s = int(info["iterations"])
+        same = bool(np.array_equal(got.astype(np.complex64), want))
+        dx = float(np.max(np.abs(got - want)) / np.max(np.abs(want)))
+        others = sum(v for k, v in n.items() if k != key)
+        require(info["return_status"] == 0 and its_s == its and same
+                and others == 0 and n[key] == 2 * its + info["n_probes"],
+                f"sharded {cls.__name__} {mode}: status "
+                f"{info['return_status']}, {its_s} iterations ((c): {its}), "
+                f"X {dx:.3e} from (c)'s, launches {n}")
+        by_path[key][f"phase 20 (f) {cls.__name__} {mode} (world 1)"] = n[key]
+        print(f"phase 20 (f) golden-class 'c' {cls.__name__}"
+              f"({', '.join(f'{k}={v!r}' for k, v in kw.items())}) at world "
+              f"size 1: {its_s} iterations ((c): {its}), X equal to (c)'s to "
+              f"the bit, split launches {n[key]}", flush=True)
+        del sp
+    print(f"phase 20 took {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+    def entry(name, replaces, rows, key, library, main_path):
+        head = rows["bf16x3"]
+        return {"name": name, "route": "cuda",
+                "source": f"tfqmrgpu_tpu_torch/csrc/{name}.cu",
+                "replaces": replaces, "mode": "bf16x3",
+                "launches": by_path[key][main_path],
+                "max_abs_err": head["max_abs_err"], "ms": head["ms"],
+                "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
+                "bound_by": head["bound_by"], "library_ms": library,
+                "kernel_ms": head["kernel_ms"], "burst_ms": head["burst_ms"],
+                "modes": rows, "launches_by_path": by_path[key]}
+
+    # the launches of each row's main path: (c)'s golden 'c' solve in the
+    # head mode; every other run stays under launches_by_path
+    return [entry("rowtile_spmm_bf16", "tfqmrgpu_tpu/ops/pallas_spmm.py:214",
+                  k3_rows, "k3s", k3["library_ms"],
+                  "phase 20 (c) golden c auto -> pallas bf16x3"),
+            entry("pairpanel_tiles_bf16",
+                  "tfqmrgpu_tpu/ops/pairpanel.py:1706", k2_rows, "k2s",
+                  k2["library_ms"], "phase 20 (c) golden c pairs bf16x3")]
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device; none is available")
@@ -2469,7 +2976,7 @@ def main():
     launches, fd_iterations, fd_x = phase_fd(dev, fd)
     golden_z_iterations = phase_golden(dev)
     k3 = phase_rowtile(dev)
-    k3_launches, golden_c_iterations = phase_golden_c(dev)
+    k3_launches, golden_c_iterations, golden_c_per_it = phase_golden_c(dev)
     dense_iterations = phase_dense(dev)
     k4 = phase_probe(dev)
     k2 = phase_packed(dev, fd)
@@ -2478,7 +2985,7 @@ def main():
     fd_c_pack = phase_fd_c(dev, fd)
     k1_file_z, k1_file_m, k2_file_m, fd_m = phase_file_fd(
         dev, fd, fd_iterations, fd_c_pack)
-    k1_golden_m, k3_golden_m = phase_golden_m(dev)
+    k1_golden_m, k3_golden_m, golden_m_counts = phase_golden_m(dev)
     k1_checkpoint = phase_checkpoint(dev, fd, fd_iterations)
     capi = phase_capi(dev, fd, card, fd_iterations,
                       launches - 2 * fd_iterations)
@@ -2486,11 +2993,17 @@ def main():
                                   golden_c_iterations, dense_iterations,
                                   (k1_golden_m, k3_golden_m))
     pairs = phase_sharded_pairs(dev, mesh, golden_pairs)
+    split_kernels = phase_precision(dev, mesh, k3, k2, {
+        6: (golden_c_iterations, golden_c_per_it),
+        10: (golden_pairs[2], golden_pairs[4]), 13: golden_m_counts})
+    for row in split_kernels:
+        row["card"] = card
     torch.distributed.destroy_process_group()
     phase_sharded_example()
     tuning = phase_tuning(dev, fd, k4, {
         3: fd_iterations, 4: golden_z_iterations, 6: golden_c_iterations,
         10: golden_pairs[2]})
+    split_kernels[0]["launches_by_path"].update(tuning.pop("k3s"))
     small, merged_ms = phase_small_block(dev, fd, fd_m)
     print(json.dumps({"kernels": [
         {"name": "pairpanel_spmm", "route": "cuda",
@@ -2527,6 +3040,7 @@ def main():
         {"name": "dma_probe", "route": "cuda",
          "source": "tfqmrgpu_tpu_torch/csrc/dma_probe.cu",
          "replaces": "tools/dma_probe.py:39", **k4, "card": card},
+        *split_kernels,
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

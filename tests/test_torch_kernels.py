@@ -15,8 +15,9 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (STAGED_SHAPES, _rowtile_multiply, c_onecall,
-                        check_staged, dominant_fill, golden_c_problem,
+from chip_smoke import (SPLIT_GATE, STAGED_SHAPES, _as_tuple,
+                        _rowtile_multiply, c_onecall, check_staged, cos_sin,
+                        dominant_fill, f64_product, golden_c_problem,
                         golden_class_patterns, golden_z_problem,
                         packed_multiply, planes, random_problem)
 from tfqmrgpu_tpu_torch import (ALLOWED_BLOCK_SIZES, Solver, _build,
@@ -567,3 +568,156 @@ def test_time_multiply_and_roofline_at_the_golden_class_on_card(
     assert roof.device_kind == torch.cuda.get_device_name(0)
     for frac in (roof.fraction_of_light, roof.fraction_of_sheet_light):
         assert 0.0 < frac <= 1.05
+
+
+# ------------------------------------------- the bf16 split modes of K2, K3
+
+SPLIT_MODES = ("bf16", "bf16x3", "bf16x4", "bf16x6")
+
+
+def test_cpu_split_multiplies_never_build(monkeypatch):
+    """A split mode on a CPU tensor runs its plain version and never builds
+    or counts the tensor-core kernel."""
+    def refuse():
+        raise AssertionError("a CPU tensor must not reach the kernel")
+
+    monkeypatch.setattr(_build, "load_kernels", refuse)
+    rng = np.random.default_rng(20)
+    plan = create_plan(*random_problem(rng, mb=10, lm=16, ln=16, ncols=3),
+                       device="cpu")
+    av = rng.standard_normal((plan.nnzb_a, 16, 16, 2)) @ [1, 1j]
+    xv = rng.standard_normal((plan.nnzb_x, 16, 16, 2)) @ [1, 1j]
+    for mode in SPLIT_MODES:
+        before = (RowTileMultiply.split_launches,
+                  PairPanelMultiply.split_launches)
+        m3, x3, _ = _rowtile_multiply(plan, 16, 16, av, xv, "cpu", 2,
+                                      precision=mode)
+        assert torch.equal(m3(x3)[0], m3.plain(x3)[0])
+        m2, x2, _ = packed_multiply(plan, 16, 16, av, xv, "cpu", 2,
+                                    precision=mode)
+        assert torch.equal(m2(x2), m2.plain(x2))
+        assert (RowTileMultiply.split_launches,
+                PairPanelMultiply.split_launches) == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", SPLIT_MODES[1:])
+def test_split_rowtile_kernel_matches_plain_on_card(mode):
+    """K3's tensor-core kernel at all 15 block sizes (LM 4 and 8 padded to
+    the m16n8k16 depth) against its plain version, the same bits on a
+    repeat, one split launch a call."""
+    _needs_card()
+    rng = np.random.default_rng(21)
+    for lm, ln in ALLOWED_BLOCK_SIZES:
+        for r_tile in (1, 4):
+            plan = create_plan(*random_problem(rng, mb=12, lm=lm, ln=ln,
+                                               ncols=3), device="cuda")
+            av = rng.standard_normal((plan.nnzb_a, lm, lm, 2)) @ [1, 1j]
+            xv = rng.standard_normal((plan.nnzb_x, lm, ln, 2)) @ [1, 1j]
+            mult, x, _ = _rowtile_multiply(plan, lm, ln, av, xv, "cuda",
+                                           r_tile, precision=mode)
+            before = (RowTileMultiply.launches,
+                      RowTileMultiply.split_launches)
+            got = mult(x)
+            torch.cuda.synchronize()
+            assert (RowTileMultiply.launches,
+                    RowTileMultiply.split_launches) == (before[0],
+                                                        before[1] + 1)
+            assert _maxdev(got, mult.plain(x)) <= SPLIT_GATE, (lm, ln,
+                                                               r_tile)
+            again = mult(x)
+            assert all(torch.equal(p, q) for p, q in zip(got, again))
+
+
+@pytest.mark.cuda
+def test_rowtile_bf16_runs_the_fp32_kernel_on_card():
+    _needs_card()
+    plan = create_plan(*random_problem(np.random.default_rng(22), mb=12,
+                                       lm=8, ln=8, ncols=3), device="cuda")
+    rng = np.random.default_rng(23)
+    av = rng.standard_normal((plan.nnzb_a, 8, 8, 2)) @ [1, 1j]
+    xv = rng.standard_normal((plan.nnzb_x, 8, 8, 2)) @ [1, 1j]
+    ys = []
+    for mode in ("highest", "bf16"):
+        m, xp, _ = _rowtile_multiply(plan, 8, 8, av, xv, "cuda", 2,
+                                     precision=mode)
+        before = (RowTileMultiply.launches, RowTileMultiply.split_launches)
+        ys.append(m(xp))
+        assert (RowTileMultiply.launches,
+                RowTileMultiply.split_launches) == (before[0] + 1, before[1])
+    assert all(torch.equal(p, q) for p, q in zip(*ys))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", SPLIT_MODES)
+def test_split_packed_kernel_matches_plain_on_card(mode):
+    """K2's tensor-core kernel at the LM >= 16 sizes with G 1 and 2 and at
+    a merged (8, 8) pack of LM' 16."""
+    _needs_card()
+    rng = np.random.default_rng(24)
+    for lm, ln in ALLOWED_BLOCK_SIZES:
+        if lm < 16:
+            continue
+        plan = create_plan(*random_problem(rng, mb=12, lm=lm, ln=ln,
+                                           ncols=3), device="cuda")
+        av = rng.standard_normal((plan.nnzb_a, lm, lm, 2)) @ [1, 1j]
+        xv = rng.standard_normal((plan.nnzb_x, lm, ln, 2)) @ [1, 1j]
+        for group in (1, 2):
+            mult, x, _ = packed_multiply(plan, lm, ln, av, xv, "cuda", group,
+                                         precision=mode)
+            before = PairPanelMultiply.split_launches
+            got = mult(x)
+            torch.cuda.synchronize()
+            assert PairPanelMultiply.split_launches == before + 1
+            assert _maxdev((got,), (mult.plain(x),)) <= SPLIT_GATE, (
+                lm, ln, group)
+            assert torch.equal(got, mult(x))
+    a, x, b = golden_c_problem(mb=40, lm=8)
+    with autotune.environment({"TFQ_SOLVER_SUPER": "2",
+                               "TFQ_PAIRS_MM_PREC": mode}):
+        s = Solver(a, x, b, precision="c", engine="pairs", device="cuda")
+    assert s._multiply.lm == 16 and s._multiply.mode == mode
+    assert _maxdev((s._multiply(s._v3),),
+                   (s._multiply.plain(s._v3),)) <= SPLIT_GATE
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["k2", "k3"])
+@pytest.mark.parametrize("mode", ["bf16x3", "bf16x4"])
+def test_split_kernel_keeps_its_products_on_card(mode, kernel):
+    """On golden-class cos/sin data the kernel lies no farther from the
+    float64 product than 1.05 times its plain version does: a bf16x4
+    kernel that dropped A_lo X_lo would sit as far as bf16x3, more than
+    1.05 times as far (tests/test_torch_precision.py)."""
+    _needs_card()
+    plan = create_plan(*golden_class_patterns(mb=24), device="cuda")
+    av, xv = cos_sin(plan.nnzb_a, 32, 32), cos_sin(plan.nnzb_x, 32, 32)
+    if kernel == "k3":
+        mult, x, _ = _rowtile_multiply(plan, 32, 32, av, xv, "cuda",
+                                       precision=mode)
+    else:
+        mult, x, _ = packed_multiply(plan, 32, 32, av, xv, "cuda", 8,
+                                     precision=mode)
+    want = f64_product(mult, x)
+    dev = _maxdev(tuple(g.double() for g in _as_tuple(mult(x))), want)
+    plain_dev = _maxdev(tuple(p.double() for p in _as_tuple(mult.plain(x))),
+                        want)
+    assert dev <= 1.05 * plain_dev, (dev, plain_dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("engine,knob", [("pairs", "TFQ_PAIRS_MM_PREC"),
+                                         ("pallas", "TFQ_PALLAS_MM_PREC")])
+def test_split_solve_launches_the_split_kernel_on_card(engine, knob):
+    """A 'c' solve under the knob sends every multiply through the split
+    kernel and none through the FP32 one."""
+    _needs_card()
+    a, x, b = golden_c_problem(mb=40, lm=16)
+    with autotune.environment({knob: "bf16x6"}):
+        s = Solver(a, x, b, precision="c", engine=engine, device="cuda")
+    cls = PairPanelMultiply if engine == "pairs" else RowTileMultiply
+    cls.launches = cls.split_launches = 0
+    info = s.solve(tolerance=1e-5, max_iterations=300)
+    assert info.return_status == 0
+    assert cls.launches == 0
+    assert cls.split_launches == 2 * info.iterations_needed + info.n_probes

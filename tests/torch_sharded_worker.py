@@ -298,6 +298,34 @@ def case_pairs(d: dict) -> dict:
     return out
 
 
+def case_precision(d: dict) -> dict:
+    """The sharded engines in a bf16 split mode over all ranks:
+    ``ShardedPairsSolver(precision=pairs_prec)`` and
+    ``ShardedRowTileSolver(mm_prec=rowtile_prec, r_tile=r_tile)``."""
+    import torch.distributed as dist
+
+    from tfqmrgpu_tpu_torch.parallel import (ShardedPairsSolver,
+                                             ShardedRowTileSolver, make_mesh)
+
+    a, x, b = _problem(d)
+    mesh = make_mesh(dist.get_world_size(), 1, device="cpu")
+    out = {}
+    for engine in ("pairs", "pallas"):
+        plan = _plan(d, a, x, b)
+        if engine == "pairs":
+            sp = ShardedPairsSolver(plan, mesh,
+                                    precision=str(d["pairs_prec"]))
+        else:
+            sp = ShardedRowTileSolver(plan, mesh, r_tile=int(d["r_tile"]),
+                                      mm_prec=str(d["rowtile_prec"]))
+        got, info = sp.solve(a.data.real, a.data.imag, b.data.real,
+                             b.data.imag, tolerance=float(d["tol"]),
+                             max_iterations=int(d["maxit"]))
+        out[f"{engine}_x"] = got
+        out.update({f"{engine}_{k}": v for k, v in _info(info).items()})
+    return out
+
+
 def case_dryrun(d: dict) -> dict:
     from tfqmrgpu_tpu_torch.parallel.dryrun import dryrun_multichip
 

@@ -44,9 +44,16 @@ SIGNATURES = {
     # cta_start, nctas, ntiles, rlm, ku, lm, nr, c, ln, nt, ksteps, bm, bn,
     # stream
     "tfq_rowtile_spmm_f32": [_P] * 11 + [_I] * 12 + [_P],
+    # the bf16 split modes (panel_mma.cuh): the same arguments over the A
+    # planes, then the mode (1, 3, 4 or 6 bf16 products)
+    "tfq_pairpanel_tiles_bf16": [_P] * 8 + [_I] * 12 + [_P],
+    "tfq_rowtile_spmm_bf16": [_P] * 11 + [_I] * 13 + [_P],
     # bm, bn, lm, c -> CTAs the card holds at once (or -cudaError_t)
     "tfq_pairpanel_tiles_slots": [_I] * 4,
     "tfq_rowtile_spmm_slots": [_I] * 4,
+    # bm, bn, lm, c, mode -> the same for the split modes
+    "tfq_pairpanel_tiles_bf16_slots": [_I] * 5,
+    "tfq_rowtile_spmm_bf16_slots": [_I] * 5,
     # stage_bytes, n_ops -> CTAs of one wave (or -cudaError_t)
     "tfq_dma_probe_ctas": [_I] * 2,
     # x, n_ops, nsteps, rows, cols, stage_bytes, ctas, partial, out, stream

@@ -15,7 +15,12 @@
                      row-tile engines, and the dense multiply.
 * ``pallas_spmm`` -- the row-tile packing and the wrapper of the
                      hand-written Hopper row-tile kernel (the 'pallas'
-                     engine).
+                     engine); ``recover_grid``.
+* ``ozaki``       -- float64-quality products from exact bf16 slice
+                     products (the opt-ins TFQ_XLA_OZ and TFQ_Z_OZAKI).
+
+``pairpanel`` also holds the 'c' precision modes (``PRECISIONS``, the bf16
+splits) that K2 and K3 run.
 """
 
 from . import blocksparse, decisions, layout, linalg, pairpanel, pallas_spmm, panel

@@ -84,6 +84,138 @@ FP32_FLOPS_PER_S = 67e12
 GROUP_TIE = 1e-3
 
 
+# ================================================= the precision modes of 'c'
+#
+# The packed 'c' engine's K2 and the row tiles' K3 run one of the JAX
+# package's matmul precisions: 'highest' (exact FP32, the default) or a
+# bf16 split mode, in which every float32 operand is split into bf16 planes
+# and the product is a sum of bf16 plane products.  On the card the split
+# modes run on the BF16 tensor cores (csrc/panel_mma.cuh), each with exactly
+# the products of the TPU kernels' dots.  The solver reads TFQ_PAIRS_MM_PREC
+# for K2 and TFQ_PALLAS_MM_PREC for K3, as the JAX package does.
+
+PRECISIONS = ("bf16", "bf16x3", "bf16x4", "bf16x6", "highest")
+# modes whose X windows are bf16 splits (the JAX kernel needs LM >= 16)
+SPLIT_X_PRECISIONS = ("bf16", "bf16x3", "bf16x4", "bf16x6")
+# bf16 products a split mode takes per float32 product: the divisor of the
+# card's BF16 peak in profiling.solver_roofline (the JAX package's
+# ``passes`` count MXU passes instead)
+SPLIT_PRODUCTS = {"bf16": 1, "bf16x3": 3, "bf16x4": 4, "bf16x6": 6}
+FLT_MIN = float(np.finfo(np.float32).tiny)      # the least normal float32
+# the (A plane, X plane) products of each mode, in the order the split
+# kernel (csrc/panel_mma.cuh) sums them for K2 and K3 alike: the order of
+# K2's TPU dots (pairpanel.py:1663-1693).  K3's TPU kernel takes bf16x6's
+# six in another order (pallas_spmm.py:244-254); the products are exact,
+# so the orders differ by float32 rounding only.
+SPLIT_TERMS = {"bf16": ((0, 0),),
+               "bf16x3": ((0, 0), (0, 1), (1, 0)),
+               "bf16x4": ((0, 0), (0, 1), (1, 0), (1, 1)),
+               "bf16x6": ((0, 0), (0, 1), (1, 0), (1, 1), (0, 2), (2, 0))}
+
+
+def precision_props(precision: str) -> dict:
+    """Shape and cost properties of a precision mode, the JAX package's
+    (its pairpanel.py:531-579): ``xsplit`` bf16 planes of X (1: raw
+    float32), ``a_presplit`` bf16 planes A ships as (0: raw float32),
+    ``passes`` the TPU's MXU pass-equivalents a product.  The Ozaki modes
+    'ozN' / 'ozcN' of K1 are not ported (ROADMAP item 17b); they and any
+    other string raise KeyError, as an unknown one does there."""
+    return {
+        "highest": dict(xsplit=1, a_presplit=0, passes=6.0),
+        "bf16":    dict(xsplit=2, a_presplit=2, passes=1.0),
+        "bf16x3":  dict(xsplit=2, a_presplit=2, passes=3.0),
+        "bf16x4":  dict(xsplit=2, a_presplit=2, passes=4.0),
+        "bf16x6":  dict(xsplit=3, a_presplit=0, passes=4.0),
+    }[precision]
+
+
+def check_precision(precision: str) -> str:
+    """``precision`` if it is one of ``PRECISIONS``, else ValueError (the
+    JAX row-tile kernel runs 'highest' for an unknown string instead)."""
+    if precision not in PRECISIONS:
+        raise ValueError(f"precision must be one of {PRECISIONS}, got "
+                         f"{precision!r}")
+    return precision
+
+
+def rn16_f32(v: torch.Tensor) -> torch.Tensor:
+    """Round a float32 tensor to the nearest bf16-representable value,
+    returned as float32, by the JAX package's mantissa mask: add 0x8000 to
+    the bits and keep the upper 16 (ties away from zero; a value within
+    2^-8 of the float32 maximum rounds to infinity).  Not
+    ``.to(torch.bfloat16)``, which breaks ties to even."""
+    bits = v.contiguous().view(torch.int32).to(torch.int64)
+    r = (bits + 0x8000) & 0xFFFF0000
+    r = r - ((r >> 31) << 32)                 # back into int32's range
+    return r.to(torch.int32).view(torch.float32)
+
+
+def _flush(v: torch.Tensor) -> torch.Tensor:
+    """float32 subnormals to zero of the same sign."""
+    return torch.where(v.abs() < FLT_MIN, v * 0.0, v)
+
+
+def _sub(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a - b as XLA computes it on the CPU (and the TPU): subnormal
+    operands read as zero and a subnormal difference is flushed to zero.
+    The split residuals use it, so that the planes are the JAX package's to
+    the bit."""
+    return _flush(_flush(a) - _flush(b))
+
+
+def _bf16(v: torch.Tensor) -> torch.Tensor:
+    """float32 -> bfloat16, rounded to nearest even as XLA converts; a NaN
+    keeps the upper half of its float32 bits (quieted), as XLA keeps it."""
+    nan = ((v.contiguous().view(torch.int32) >> 16) | 0x40).to(torch.int16)
+    return torch.where(torch.isnan(v), nan.view(torch.bfloat16),
+                       v.to(torch.bfloat16))
+
+
+def split_bf16x2(a: torch.Tensor) -> tuple:
+    """(hi, lo) bfloat16 planes of a float32 tensor, a == hi + lo +
+    O(2^-16): hi by ``rn16_f32``, lo the residual rounded to nearest even."""
+    hi_f32 = rn16_f32(a)
+    return hi_f32.to(torch.bfloat16), _bf16(_sub(a, hi_f32))
+
+
+def split_bf16x3(a: torch.Tensor) -> tuple:
+    """(hi, mid, lo) bfloat16 planes of a float32 tensor, a == hi + mid +
+    lo + O(2^-25): hi and mid by ``rn16_f32``, lo rounded to nearest even."""
+    hi_f32 = rn16_f32(a)
+    r1 = _sub(a, hi_f32)
+    mid_f32 = rn16_f32(r1)
+    return (hi_f32.to(torch.bfloat16), mid_f32.to(torch.bfloat16),
+            _bf16(_sub(r1, mid_f32)))
+
+
+def split_planes(v: torch.Tensor, precision: str) -> tuple:
+    """The bf16 planes of a split mode as float32 tensors: hi alone for
+    'bf16' (the JAX kernel multiplies the hi half only), (hi, lo) for
+    'bf16x3' and 'bf16x4', (hi, mid, lo) for 'bf16x6'."""
+    if precision == "bf16":
+        return (rn16_f32(v),)
+    parts = split_bf16x3(v) if precision == "bf16x6" else split_bf16x2(v)
+    return tuple(t.to(torch.float32) for t in parts)
+
+
+def split_product(a: torch.Tensor, x: torch.Tensor,
+                  precision: str) -> torch.Tensor:
+    """``a @ x`` (batched float32) in a split mode: the products
+    ``SPLIT_TERMS[precision]`` of the operands' bf16 planes, each a float32
+    ``torch.matmul``, summed left to right in the split kernel's order.  Every
+    product is exact in float32 (8-bit by 8-bit significands); TF32 must be
+    off, as for the dense engine."""
+    from .panel import _refuse_tf32
+
+    _refuse_tf32()
+    ap, xp = split_planes(a, precision), split_planes(x, precision)
+    y = None
+    for i, j in SPLIT_TERMS[precision]:
+        d = torch.matmul(ap[i], xp[j])
+        y = d if y is None else y + d
+    return y
+
+
 # ======================================================= K1's tile schedule
 #
 # In 'z' a CTA of K1 owns a tile of Y blocks: R consecutive block rows x W
@@ -1084,13 +1216,29 @@ class PairPanelMultiply:
     ``len(tiles)*r_tile*LM`` rows of the tiles.  ``out`` and
     ``row0`` put those rows into a Y the caller gives, from row ``row0``
     on, so that the parts of one multiply fill one Y.
+
+    ``precision`` is one of ``PRECISIONS``.  'highest' runs the exact FP32
+    kernel above; a split mode ('bf16', 'bf16x3', 'bf16x4', 'bf16x6') runs
+    ``csrc/pairpanel_tiles_bf16.cu`` on the BF16 tensor cores, over A split
+    once into bf16 planes (``paneltiles.bf16_planes``) and the union tables
+    of its own CTA shape (``paneltiles.mma_shape``), and its plain version
+    is ``split_product`` in the order of the kernel's products.  A split
+    mode needs LM >= 16, as the JAX kernel's bf16 windows do, and raises
+    ValueError below.  ``split_launches`` counts that kernel's launches.
     """
 
     launches: int = 0
+    split_launches: int = 0
 
     def __init__(self, plan: PairPanelPlan, a_panels: torch.Tensor,
                  slots: int = None, *, tiles=None, src_base: int = 0,
-                 span: int = 0):
+                 span: int = 0, precision: str = "highest"):
+        self.precision = self.mode = check_precision(precision)
+        self.split = precision != "highest"
+        if self.split and plan.lm < 16:
+            raise ValueError(f"precision {precision!r} needs a kernel LM >= "
+                             f"16 (the JAX kernel's bf16 windows), got "
+                             f"{plan.lm}")
         self.ku, self.lm = plan.ku, plan.lm
         self.ln = plan.ln
         self.rlm = plan.r_tile * plan.lm
@@ -1120,13 +1268,18 @@ class PairPanelMultiply:
             raise TfqmrgpuError(encode_status(Status.BLOCKSIZE_MISSING),
                                 "the packed pairs kernel takes LM in "
                                 f"multiples of 4, got {self.lm}")
-        self.units = paneltiles.unit_tables_for(xloc, kcount, self.rlm,
-                                                self.ln)
+        shape = paneltiles.mma_shape(self.ln) if self.split else None
+        self.units = (paneltiles.unit_tables(xloc, kcount, self.rlm, shape[0],
+                                             union=True) if self.split else
+                      paneltiles.unit_tables_for(xloc, kcount, self.rlm,
+                                                 self.ln))
         if dev.type == "cuda":
             self.a_dm = paneltiles.depth_major(a_panels)
             self.a_panels = self.a_dm.transpose(1, 2)
+            if self.split:
+                self.a_planes = paneltiles.bf16_planes(self.a_dm, precision)
             self.launch_tables = paneltiles.PanelLaunch(
-                self.units, self.lm, self.ln, dev, slots)
+                self.units, self.lm, self.ln, dev, slots, shape=shape)
         else:
             self.a_panels = a_panels
         self.xloc = torch.from_numpy(
@@ -1161,10 +1314,13 @@ class PairPanelMultiply:
 
     def plain(self, x: torch.Tensor) -> torch.Tensor:
         """The plain PyTorch version, on any device: gather the tiles'
-        union rows by ``xloc``, one ``torch.bmm``, combine the halves."""
+        union rows by ``xloc``, one ``torch.bmm`` (or the split mode's
+        products), combine the halves."""
         nt, rlm, c = self.ntiles, self.rlm, self.ln
         xs = x.reshape(-1, self.lm, 2 * c)[self.xloc.to(torch.int64)]
-        d = torch.bmm(self.a_panels, xs.reshape(nt, self.ku * self.lm, 2 * c))
+        xs = xs.reshape(nt, self.ku * self.lm, 2 * c)
+        d = (split_product(self.a_panels, xs, self.precision)
+             if self.split else torch.bmm(self.a_panels, xs))
         p, q = d[:, :rlm], d[:, rlm:]
         y = torch.cat([p[..., :c] - q[..., c:], p[..., c:] + q[..., :c]], 2)
         return y.reshape(nt * rlm, 2 * c)[: self.n_rows].contiguous()
@@ -1196,18 +1352,31 @@ class PairPanelMultiply:
         if y is None:
             y = self._rows_of(None, 0)
         lt = self.launch_tables
+        dims = (self.ntiles, self.rlm, self.ku, self.lm, self.ln, self.n_rows,
+                self.units.nt, self.units.ksteps, lt.bm, lt.bn)
         with torch.cuda.device(self.device):
-            tables, nctas = lt.args(lib.tfq_pairpanel_tiles_slots)
             stream = torch.cuda.current_stream(self.device).cuda_stream
-            rc = lib.tfq_pairpanel_tiles_f32(
-                self.a_dm.data_ptr(), x.data_ptr(), y.data_ptr(), *tables,
-                nctas, self.ntiles, self.rlm, self.ku, self.lm, self.ln,
-                self.n_rows, self.units.nt, self.units.ksteps, lt.bm, lt.bn,
-                stream)
+            if self.split:
+                mode = SPLIT_PRODUCTS[self.precision]
+                tables, nctas = lt.args(
+                    lambda *shape: lib.tfq_pairpanel_tiles_bf16_slots(
+                        *shape, mode))
+                rc = lib.tfq_pairpanel_tiles_bf16(
+                    self.a_planes.data_ptr(), x.data_ptr(), y.data_ptr(),
+                    *tables, nctas, *dims, mode, stream)
+            else:
+                tables, nctas = lt.args(lib.tfq_pairpanel_tiles_slots)
+                rc = lib.tfq_pairpanel_tiles_f32(
+                    self.a_dm.data_ptr(), x.data_ptr(), y.data_ptr(),
+                    *tables, nctas, *dims, stream)
         if rc != 0:
             raise TfqmrgpuError(encode_status(Status.LAUNCH_FAILED),
-                                f"packed pairs kernel returned {rc}")
-        PairPanelMultiply.launches += 1
+                                f"packed pairs kernel ({self.precision}) "
+                                f"returned {rc}")
+        if self.split:
+            PairPanelMultiply.split_launches += 1
+        else:
+            PairPanelMultiply.launches += 1
         return y
 
 

@@ -18,8 +18,11 @@ panel, re and im rows fused:
     d_r = [ar; ai] @ xs_re,   d_i = [ar; ai] @ xs_im
     y_re = d_r[:rlm] - d_i[rlm:],   y_im = d_i[:rlm] + d_r[rlm:]
 
-cut to ``nr`` rows and masked to X's pattern.  FP32 only, as in the JAX
-package.
+cut to ``nr`` rows and masked to X's pattern.  float32 operands only, as
+in the JAX package, multiplied in exact FP32 ('highest') or in the JAX
+package's bf16 split modes (``RowTileMultiply``'s ``precision``, the
+solver's ``TFQ_PALLAS_MM_PREC``).  ``recover_grid`` factors a bare pair
+list into a (row slot x column) grid, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -32,6 +35,12 @@ import torch
 
 from ..errors import Status, TfqmrgpuError, encode_status
 from . import paneltiles
+from .pairpanel import (SPLIT_PRODUCTS, check_precision,
+                        split_product)
+
+# the modes the row-tile kernel splits; its 'bf16' runs 'highest', as the
+# JAX kernel's does (its pallas_spmm.py:209-263)
+SPLIT_ROWTILE = ("bf16x3", "bf16x4", "bf16x6")
 
 Pair = tuple
 
@@ -108,6 +117,59 @@ def choose_row_tile(plan, lm: int, r_tile: Optional[int] = None
     return best[1]
 
 
+class PairGrid(NamedTuple):
+    """A (row-slot x column) grid factorization of a bare pair list, for
+    the row-tile engine (the JAX package's ``PairGrid``).
+
+    Row slots are the pair list's connected row fragments
+    (``pairpanel.recover_geometry``), ordered by Cuthill-McKee rank so that
+    neighbouring slots share A operands.  Fragments of one true matrix row
+    that never share an A block stay separate slots, so the grid's density
+    is nnzb / (nfrag * ncol); a caller checks it before choosing the
+    engine."""
+
+    nslots: int
+    ncols: int
+    slot_of: np.ndarray      # int32[nnzb] row slot of each X/Y block
+    col_of: np.ndarray       # int32[nnzb]
+    rowptr: np.ndarray       # int64[nslots+1] slot-A CSR
+    colind: np.ndarray       # int64[nnzbA] operand slots
+    a_order: np.ndarray      # int64[nnzbA]: slot-A position -> original pa
+
+
+def recover_grid(pair_a, pair_x, pair_y, nnzb: int) -> PairGrid:
+    """Factor a bare pair list into a (slot x col) grid (see ``PairGrid``).
+    A block ids that no pair uses (plan files carry them) appear nowhere."""
+    from .pairpanel import _cuthill_mckee, recover_geometry
+
+    pa = np.asarray(pair_a, dtype=np.int64)
+    px = np.asarray(pair_x, dtype=np.int64)
+    py = np.asarray(pair_y, dtype=np.int64)
+    frag, col = recover_geometry(pa, px, py, nnzb)
+    nfrag = int(frag.max()) + 1
+    ncol = int(col.max()) + 1
+    # one slot per fragment, in Cuthill-McKee order: the rank is the slot
+    slot_of_frag = _cuthill_mckee(nfrag, frag[py], frag[px])
+
+    # the A blocks' endpoints in fragment space (each used id has one)
+    o = np.argsort(pa, kind="stable")
+    first = np.concatenate([[True], pa[o][1:] != pa[o][:-1]])
+    used = pa[o][first]                   # the used ids, ascending
+    fy = frag[py[o][first]]
+    fx = frag[px[o][first]]
+
+    slot_of = slot_of_frag[frag].astype(np.int32)
+    ra = slot_of_frag[fy]
+    ca = slot_of_frag[fx]
+    csr_order = np.lexsort((ca, ra))
+    rowptr = np.searchsorted(ra[csr_order], np.arange(nfrag + 1))
+    return PairGrid(nslots=int(nfrag), ncols=int(ncol), slot_of=slot_of,
+                    col_of=col.astype(np.int32),
+                    rowptr=rowptr.astype(np.int64),
+                    colind=ca[csr_order],
+                    a_order=used[csr_order])
+
+
 def build_a_panels(pack: RowTilePack, a_blocks: np.ndarray) -> np.ndarray:
     """Scatter [nnzbA, LM, LM] block data into [ntiles, R*LM, ku*LM] panels
     on the host (duplicate pattern entries add up)."""
@@ -146,13 +208,28 @@ class RowTileMultiply:
     it is not the mask's (a shard reads a gathered panel); y has the
     mask's rows.  ``launches`` counts the kernel's launches by every
     instance in this process; the plain version never adds to it.
+
+    ``precision`` is one of ``pairpanel.PRECISIONS`` (an unknown string
+    raises ValueError, where the JAX kernel silently runs 'highest').
+    'highest' and 'bf16' run the exact FP32 kernel above, as the JAX
+    kernel runs its 'bf16' at HIGHEST; 'bf16x3', 'bf16x4' and 'bf16x6' run
+    ``csrc/rowtile_spmm_bf16.cu`` on the BF16 tensor cores over A split once
+    into bf16 planes, with ``split_launches`` counting its launches, and
+    their plain version is ``pairpanel.split_product`` in the order of the
+    kernel's products (K2's).
     """
 
     launches: int = 0
+    split_launches: int = 0
 
     def __init__(self, pack: RowTilePack, a_re: torch.Tensor,
                  a_im: torch.Tensor, mask: np.ndarray, ln: int,
-                 slots: int = None, x_rows: int = None):
+                 slots: int = None, x_rows: int = None,
+                 precision: str = "highest"):
+        self.precision = check_precision(precision)
+        # the mode that runs: the JAX kernel splits only x3, x4 and x6
+        self.mode = precision if precision in SPLIT_ROWTILE else "highest"
+        self.split = self.mode != "highest"
         self.ntiles, self.ku, self.lm = pack.ntiles, pack.ku, pack.lm
         self.rlm = pack.r_tile * pack.lm
         self.mb, self.ncc = (int(s) for s in mask.shape)
@@ -179,15 +256,21 @@ class RowTileMultiply:
         kcount = np.zeros(self.ntiles, np.int64)
         np.maximum.at(kcount, pack.tile_of, pack.kslot_of.astype(np.int64) + 1)
         self.kcount = kcount
-        self.units = paneltiles.unit_tables_for(pack.xcols, kcount, self.rlm,
-                                                self.c)
+        shape = paneltiles.mma_shape(self.c) if self.split else None
+        self.units = (paneltiles.unit_tables(pack.xcols, kcount, self.rlm,
+                                             shape[0], union=True)
+                      if self.split else
+                      paneltiles.unit_tables_for(pack.xcols, kcount,
+                                                 self.rlm, self.c))
         # fused re/im rows: [ntiles, 2*rlm, ku*LM]
         if dev.type == "cuda":
             self.a_dm = torch.cat([a_re.transpose(1, 2), a_im.transpose(1, 2)],
                                   dim=2).contiguous()
             self.a_fused = self.a_dm.transpose(1, 2)
+            if self.split:
+                self.a_planes = paneltiles.bf16_planes(self.a_dm, self.mode)
             self.launch_tables = paneltiles.PanelLaunch(
-                self.units, self.lm, self.c, dev, slots)
+                self.units, self.lm, self.c, dev, slots, shape=shape)
         else:
             self.a_fused = torch.cat([a_re, a_im], dim=1).contiguous()
         self.xcols = torch.from_numpy(
@@ -212,8 +295,8 @@ class RowTileMultiply:
 
     def plain(self, x: Pair) -> Pair:
         """The plain PyTorch version, on any device: gather the tiles'
-        union rows, one ``torch.bmm`` against the fused panels, combine,
-        cut to ``nr`` rows and mask."""
+        union rows, one ``torch.bmm`` against the fused panels (or the
+        split mode's products), combine, cut to ``nr`` rows and mask."""
         from .panel import apply_mask
 
         nt, rlm, c = self.ntiles, self.rlm, self.c
@@ -221,7 +304,8 @@ class RowTileMultiply:
         xs = torch.cat([x[0].reshape(self.x_mb, self.lm, c),
                         x[1].reshape(self.x_mb, self.lm, c)], dim=2)
         xs = xs[self.xcols.to(torch.int64)].reshape(nt, kulm, 2 * c)
-        d = torch.bmm(self.a_fused, xs)          # [nt, 2*rlm, 2*c]
+        d = (split_product(self.a_fused, xs, self.mode)
+             if self.split else torch.bmm(self.a_fused, xs))  # [nt, 2rlm, 2c]
         d_r, d_i = d[..., :c], d[..., c:]        # [ar; ai] @ xr, [ar; ai] @ xi
         y_re = (d_r[:, :rlm] - d_i[:, rlm:]).reshape(nt * rlm, c)[:self.nr]
         y_im = (d_i[:, :rlm] + d_r[:, rlm:]).reshape(nt * rlm, c)[:self.nr]
@@ -249,19 +333,32 @@ class RowTileMultiply:
         shape = (self.nr, self.ncc, self.ln)
         y_re, y_im = x[0].new_empty(shape), x[1].new_empty(shape)
         lt = self.launch_tables
+        ptrs = (x[0].data_ptr(), x[1].data_ptr(), self.mask.data_ptr(),
+                y_re.data_ptr(), y_im.data_ptr())
+        dims = (self.ntiles, self.rlm, self.ku, self.lm, self.nr, self.c,
+                self.ln, self.units.nt, self.units.ksteps, lt.bm, lt.bn)
         with torch.cuda.device(self.device):
-            tables, nctas = lt.args(lib.tfq_rowtile_spmm_slots)
             stream = torch.cuda.current_stream(self.device).cuda_stream
-            rc = lib.tfq_rowtile_spmm_f32(
-                self.a_dm.data_ptr(), x[0].data_ptr(), x[1].data_ptr(),
-                self.mask.data_ptr(), y_re.data_ptr(), y_im.data_ptr(),
-                *tables, nctas, self.ntiles, self.rlm, self.ku, self.lm,
-                self.nr, self.c, self.ln, self.units.nt, self.units.ksteps,
-                lt.bm, lt.bn, stream)
+            if self.split:
+                mode = SPLIT_PRODUCTS[self.mode]
+                tables, nctas = lt.args(
+                    lambda *shp: lib.tfq_rowtile_spmm_bf16_slots(*shp, mode))
+                rc = lib.tfq_rowtile_spmm_bf16(
+                    self.a_planes.data_ptr(), *ptrs, *tables, nctas, *dims,
+                    mode, stream)
+            else:
+                tables, nctas = lt.args(lib.tfq_rowtile_spmm_slots)
+                rc = lib.tfq_rowtile_spmm_f32(
+                    self.a_dm.data_ptr(), *ptrs, *tables, nctas, *dims,
+                    stream)
         if rc != 0:
             raise TfqmrgpuError(encode_status(Status.LAUNCH_FAILED),
-                                f"row-tile kernel returned {rc}")
-        RowTileMultiply.launches += 1
+                                f"row-tile kernel ({self.mode}) returned "
+                                f"{rc}")
+        if self.split:
+            RowTileMultiply.split_launches += 1
+        else:
+            RowTileMultiply.launches += 1
         return y_re, y_im
 
 

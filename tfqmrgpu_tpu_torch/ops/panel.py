@@ -20,6 +20,7 @@ the primitives act on torch tensors on any device.
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Callable
 
 import numpy as np
@@ -161,11 +162,23 @@ def dense_multiply(a_re: torch.Tensor, a_im: torch.Tensor,
     ``torch.matmul`` calls over the full depth NR = mb*LM, native float64
     for 'z' and full float32 for 'c' (a float32 call raises while TF32 is
     allowed).  The JAX package leaves this product to XLA outside any
-    kernel, so it is no kernel of the port either."""
+    kernel, so it is no kernel of the port either.
+
+    ``TFQ_Z_OZAKI=1`` sends float64 operands through the JAX package's
+    Ozaki slice products instead (``_dense_multiply_oz``), and back to the
+    plain product where the depth is too deep for them.  The port's default
+    is '0', the JAX package's '1': the TPU has no float64 unit, the card
+    has."""
     nr, c = mb * lm, ncc * ln
     f32 = a_re.dtype == torch.float32
     if f32:
         _refuse_tf32()
+    if (a_re.dtype == torch.float64
+            and os.environ.get("TFQ_Z_OZAKI", "0") != "0"):
+        try:
+            return _dense_multiply_oz(a_re, a_im, mask4, mb, lm, ncc, ln)
+        except ValueError:
+            pass    # contraction too deep for exact float32 products
 
     def multiply(x: Pair) -> Pair:
         if f32:
@@ -173,6 +186,43 @@ def dense_multiply(a_re: torch.Tensor, a_im: torch.Tensor,
         xr, xi = x[0].reshape(nr, c), x[1].reshape(nr, c)
         yr = a_re @ xr - a_im @ xi
         yi = a_re @ xi + a_im @ xr
+        return apply_mask((yr.reshape(nr, ncc, ln), yi.reshape(nr, ncc, ln)),
+                          mask4, mb, lm, ncc, ln)
+
+    return multiply
+
+
+def _dense_multiply_oz(a_re, a_im, mask4, mb, lm, ncc, ln, bits=53):
+    """'z' dense product through the Ozaki scheme (``ops/ozaki.py``): the
+    p(p+1)/2 exact slice products of each real product, combined in
+    float64.  A's slices are built once here, X's every call.  Raises
+    ValueError where NR is too deep for exact float32 slice products."""
+    from . import ozaki
+
+    nr, cc = mb * lm, ncc * ln
+    # each product is combined in float64 on its own: slice_params_comp
+    p, q = ozaki.slice_params_comp(nr, bits)
+    ar_sl, sig_r = ozaki.slice_operand(a_re, axis=1, p=p, q=q,
+                                       spare_binade=True)
+    ai_sl, sig_i = ozaki.slice_operand(a_im, axis=1, p=p, q=q,
+                                       spare_binade=True)
+    s_idx, t_idx = ozaki.slice_pairs(p)
+
+    def multiply(x: Pair) -> Pair:
+        xr = x[0].reshape(nr, cc).to(torch.float64)
+        xi = x[1].reshape(nr, cc).to(torch.float64)
+        xr_sl, tau_r = ozaki.slice_operand(xr, axis=0, p=p, q=q,
+                                           spare_binade=True)
+        xi_sl, tau_i = ozaki.slice_operand(xi, axis=0, p=p, q=q,
+                                           spare_binade=True)
+
+        def prod(a_sl, x_sl):
+            return ozaki.oz_products(a_sl, x_sl, s_idx, t_idx, p, q)
+
+        yr = (prod(ar_sl, xr_sl) * (sig_r * tau_r)
+              - prod(ai_sl, xi_sl) * (sig_i * tau_i))
+        yi = (prod(ar_sl, xi_sl) * (sig_r * tau_i)
+              + prod(ai_sl, xr_sl) * (sig_i * tau_r))
         return apply_mask((yr.reshape(nr, ncc, ln), yi.reshape(nr, ncc, ln)),
                           mask4, mb, lm, ncc, ln)
 

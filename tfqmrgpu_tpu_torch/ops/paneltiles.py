@@ -23,6 +23,10 @@ to ``ku``).  This module builds, on the host and from the pattern only,
   sums each tile's blocks in the tile's own ascending order, as the kernel
   does, and counts how often the work list writes each output.
 
+The bf16 split modes of both kernels run ``csrc/panel_mma.cuh`` over the
+same tables at their own CTA shapes (``mma_shape``; the union tables at
+every lane count), with A split once into bf16 planes (``bf16_planes``).
+
 Units stay whole: where equal units leave a last, partly filled round, a
 CTA alone on an SM runs at nearly the rate of two, so that round costs about
 half a unit's time, and a half unit cut along the lanes and run by half of a
@@ -45,15 +49,45 @@ WIDE, NARROW = (64, 64), (32, 8)
 MAX_RUN = 64
 
 
+# CTA shapes of the bf16 split modes' tensor-core product
+# (``csrc/panel_mma.cuh``): 64 rows (four m16 blocks) by 64 lanes for
+# c >= 64, else by 16; its units always share one X slab (the union tables).
+MMA_WIDE, MMA_NARROW = (64, 64), (64, 16)
+
+
 def cta_shape(c: int) -> tuple:
     """(rows, lanes) of the CTA that multiplies planes of ``c`` lanes."""
     return WIDE if c >= WIDE[1] else NARROW
+
+
+def mma_shape(c: int) -> tuple:
+    """(rows, lanes) of the split modes' CTA for planes of ``c`` lanes."""
+    return MMA_WIDE if c >= MMA_WIDE[1] else MMA_NARROW
 
 
 def depth_major(panels: torch.Tensor) -> torch.Tensor:
     """Fused panels [ntiles, 2*rlm, ku*LM] -> [ntiles, ku*LM, 2*rlm],
     contiguous."""
     return panels.transpose(1, 2).contiguous()
+
+
+def bf16_planes(a_dm: torch.Tensor, precision: str) -> torch.Tensor:
+    """The bf16 planes of depth-major float32 panels [ntiles, ku*LM, 2*rlm]
+    in a split mode (``pairpanel.split_planes``: 1, 2 or 3 planes), laid out
+    as the tensor-core product loads them: int32 [planes, ntiles, ku*LM/2,
+    2*rlm], word (d, r) holding the bf16 entries of depth rows 2d (low half)
+    and 2d+1 (high half) of column r, the pair one mma fragment register
+    takes.  Made once per A."""
+    from .pairpanel import split_planes
+
+    nt, kd, cols = a_dm.shape
+    if kd % 2:
+        raise ValueError(f"the panels' depth {kd} is odd")
+    planes = torch.stack(split_planes(a_dm, precision))
+    bits = planes.to(torch.bfloat16).view(torch.int16)   # exact: bf16 values
+    pairs = bits.reshape(-1, nt, kd // 2, 2, cols).transpose(3, 4)
+    return pairs.contiguous().view(torch.int32).reshape(-1, nt, kd // 2,
+                                                         cols)
 
 
 @dataclasses.dataclass
@@ -222,12 +256,13 @@ class PanelLaunch:
     the unit tables on the device and, from the first launch on, the work
     list for the CTAs the card holds at once (``slots``; by default what
     the library reports for the kernel, ``slots_fn(bm, bn, lm, c)``), or
-    the work list given as ``work`` (items, cta_start)."""
+    the work list given as ``work`` (items, cta_start).  ``shape`` is the
+    kernel's CTA (rows, lanes), by default ``cta_shape(c)``."""
 
     def __init__(self, tables: UnitTables, lm: int, c: int, device,
-                 slots: int = None, work: tuple = None):
+                 slots: int = None, work: tuple = None, shape: tuple = None):
         self.tables, self.lm, self.c = tables, int(lm), int(c)
-        self.bm, self.bn = cta_shape(c)
+        self.bm, self.bn = shape or cta_shape(c)
         if tables.bm != self.bm:
             raise ValueError(f"unit tables for CTAs of {tables.bm} rows, the "
                              f"kernel runs {self.bm}")

@@ -28,9 +28,11 @@ sharded over the "rows" axis:
   over every rank, so stopping agrees with the single-device engine.
 
 At one rank every tile is local and X equals ``Solver(engine='pairs')``'s
-to the bit.  Not ported, as for the single-device engine: the TPU's
-windowed layouts, ``t_step``, the VMEM and copy-code limits, and the
-bf16 split precisions.
+to the bit, in every matmul precision (``precision``: K2's exact FP32
+'highest', the default, or a bf16 split mode on the BF16 tensor cores, as
+``PairPanelMultiply`` takes it).  Not ported, as for the single-device
+engine: the TPU's windowed layouts, ``t_step``, and the VMEM and copy-code
+limits.
 """
 
 from __future__ import annotations
@@ -233,11 +235,14 @@ class ShardedPairsSolver:
     ``mesh``: the layout (``ShardedPairsLayout``) and, once A is set, K2
     (``PairPanelMultiply``) over the shard's local run, its remote prefix
     and its remote suffix.  ``r_tile``, ``overlap``, ``halo`` and
-    ``group_size`` go to the layout."""
+    ``group_size`` go to the layout; ``precision`` is K2's matmul precision
+    (the JAX package's argument and default; a split mode needs LM >= 16
+    and raises ValueError below)."""
 
     def __init__(self, plan, mesh: Mesh, r_tile: int = 1,
                  overlap: bool = True, halo: bool = True,
-                 group_size: int = 0):
+                 group_size: int = 0, precision: str = "highest"):
+        self.precision = pp.check_precision(precision)
         if mesh.pc != 1:
             raise ValueError("the packed pairs engine shards tiles only: it "
                              "takes a (pr, 1) mesh")
@@ -246,6 +251,9 @@ class ShardedPairsSolver:
         self.layout = lay = ShardedPairsLayout(
             plan, mesh.pr, r_tile=r_tile, overlap=overlap, halo=halo,
             group_size=group_size)
+        if precision != "highest" and lay.lm < 16:
+            raise ValueError(f"precision {precision!r} needs LM >= 16, got "
+                             f"{lay.lm}")
         self.tiles = lay.shards[mesh.row]
         self._k2 = None
         rows, c2 = lay.vrows_local, 2 * lay.ln
@@ -268,7 +276,8 @@ class ShardedPairsSolver:
                 return None
             return pp.PairPanelMultiply(
                 p0, pp.build_a_panels_device(p0, *a, tiles=tiles),
-                tiles=tiles, src_base=base, span=span)
+                tiles=tiles, src_base=base, span=span,
+                precision=self.precision)
 
         self._k2 = (k2(t.local, t.local_base, lay.blocks_local),
                     k2(t.prefix, t.remote_base, t.remote_span),

@@ -12,8 +12,9 @@ convergence control takes maxima over every rank, so stopping agrees with
 the single-device engine.
 
 Compared to ``ShardedPanelSolver`` (dense slabs) this keeps A block-sparse:
-the per-multiply A traffic is nnzbA-proportional, not (mb*LM)^2.  FP32
-only, as in the JAX package.
+the per-multiply A traffic is nnzbA-proportional, not (mb*LM)^2.  float32
+only, as in the JAX package, in K3's exact FP32 or a bf16 split mode
+(``mm_prec``).
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ import torch
 from .. import core
 from ..errors import Status, TfqmrgpuError, encode_status
 from ..ops import pallas_spmm as rt
+from ..ops.pairpanel import check_precision
 from ..ops.panel import PanelLayout
 from .multihost import gather_global, put_global
 from .sharded import Halo, Mesh, halo_index
@@ -33,10 +35,14 @@ from .sharded_panel import _ceil_to, panel_loop
 class ShardedRowTileSolver:
     """Host side: packs each shard's row slab into row-tile panels.
 
-    ``r_tile`` 0 takes max(1, 128 // LM), the JAX package's default."""
+    ``r_tile`` 0 takes max(1, 128 // LM), the JAX package's default;
+    ``mm_prec`` is K3's matmul precision (``RowTileMultiply``'s
+    ``precision``: 'highest', or a bf16 split mode), the JAX package's
+    argument and default."""
 
     def __init__(self, plan, mesh: Mesh, precision: str = "c",
-                 r_tile: int = 0):
+                 r_tile: int = 0, mm_prec: str = "highest"):
+        self.mm_prec = check_precision(mm_prec)
         if precision != "c":
             raise TfqmrgpuError(encode_status(Status.PRECISION_MISSMATCH),
                                 "the row-tile engine is float32-only")
@@ -113,7 +119,7 @@ class ShardedRowTileSolver:
                 self.mesh.device)) for v in (a_re, a_im)]
         self._k3 = rt.RowTileMultiply(
             self.pack, *panels, self.mask_sh[self.mesh.row], self.ln,
-            x_rows=(2 * self.pr - 1) * self.mb_local)
+            x_rows=(2 * self.pr - 1) * self.mb_local, precision=self.mm_prec)
 
     def multiply(self, x) -> tuple:
         """The halo ``all_gather`` of the X panel, then K3 (masked)."""

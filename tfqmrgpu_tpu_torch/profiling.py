@@ -31,16 +31,20 @@ from .errors import Status, TfqmrgpuError, encode_status
 
 # Peak rates by device kind (``device_kind``).  The H100 row is NVIDIA's
 # data sheet for the SXM part at 700 W: 'z' runs K1 on the FP64 tensor
-# cores, 'c' runs K2 and K3 as exact FP32 FMAs (TF32 is refused), so both
-# precisions peak at 67 TFlop/s; HBM3 3.35 TB/s; 50 MB of L2.  The "cpu"
-# row is the JAX package's CPU row as its solver_roofline reads it (1
-# TFlop/s of bf16 over 40 for 'z' and over 6 passes for 'c', 50 GB/s) with
-# its 72 MB residency budget.  A device without a row has no ceiling here.
+# cores and 'c' in 'highest' runs K2 and K3 as exact FP32 FMAs (TF32 is
+# refused), so both peak at 67 TFlop/s; the bf16 split modes of 'c' run K2
+# and K3 on the BF16 tensor cores, 989 TFlop/s dense, over the mode's bf16
+# products (1, 3, 4 or 6 a float32 product); HBM3 3.35 TB/s; 50 MB of L2.
+# The "cpu" row is the JAX package's CPU row as its solver_roofline reads
+# it (1 TFlop/s of bf16, over 40 for 'z' and over ``mm_passes``, 6 by
+# default, for 'c'; 50 GB/s) with its 72 MB residency budget.  A device
+# without a row has no ceiling here.
 DEVICE_PEAKS = {
     "NVIDIA H100 80GB HBM3": dict(fp64_tflops=67.0, fp32_tflops=67.0,
-                                  hbm_gbps=3350.0, l2_mb=50),
-    "cpu": dict(fp64_tflops=1.0 / 40, fp32_tflops=1.0 / 6, hbm_gbps=50.0,
-                l2_mb=72),
+                                  bf16_tflops=989.0, hbm_gbps=3350.0,
+                                  l2_mb=50),
+    "cpu": dict(fp64_tflops=1.0 / 40, fp32_tflops=1.0 / 6, bf16_tflops=1.0,
+                hbm_gbps=50.0, l2_mb=72),
 }
 H100 = "NVIDIA H100 80GB HBM3"
 
@@ -223,23 +227,46 @@ def _vector_bytes(solver, rsize: int) -> int:
 
 
 def _a_bytes(solver, rsize: int) -> int:
-    """Bytes of A that one multiply reads."""
+    """Bytes of A that one multiply reads: in a split mode K2 and K3 read
+    the A panels as 1, 2 or 3 bf16 planes."""
     plan, lm = solver.plan, solver.lm
     if solver.engine == "dense":
         nr = plan.nrows * lm
         return 2 * nr * nr * rsize
+    products = _split_products(solver)
+    esize = 4 if products is None else 2 * {1: 1, 3: 2, 4: 2, 6: 3}[products]
     if solver.engine == "pallas":              # K3's row-tile panels
         p = solver._pack
-        return 2 * p.ntiles * p.r_tile * lm * p.ku * lm * 4
-    if solver._packed:                         # K2's packed panels, float32
+        return 2 * p.ntiles * p.r_tile * lm * p.ku * lm * esize
+    if solver._packed:                         # K2's packed panels
         p = solver._pp_plan                    # (at LM' when merged)
-        return 2 * p.ntiles * p.r_tile * p.lm * p.ku * p.lm * 4
+        return 2 * p.ntiles * p.r_tile * p.lm * p.ku * p.lm * esize
     return plan.nnzb_a * 2 * lm * lm * rsize   # the block list
 
 
-def solver_roofline(solver,
-                    measured_iteration_s: Optional[float] = None) -> Roofline:
+def _split_products(solver) -> Optional[int]:
+    """The bf16 products a float32 product takes in the mode the solver's
+    K2 or K3 runs, or None for exact FP32."""
+    from .ops.pairpanel import SPLIT_PRODUCTS
+
+    mode = getattr(getattr(solver, "_multiply", None), "mode", "highest")
+    return SPLIT_PRODUCTS.get(mode)
+
+
+def solver_roofline(solver, measured_iteration_s: Optional[float] = None,
+                    mm_passes: Optional[int] = None) -> Roofline:
     """Audit a Solver's per-iteration cost against its device's peaks.
+
+    ``mm_passes`` is the number of bf16 products a float32 product of 'c'
+    takes (1, 3, 4 or 6 for 'bf16', 'bf16x3', 'bf16x4', 'bf16x6'): the
+    compute ceiling is then the device's bf16 peak over it (on the "cpu"
+    row the JAX package's value, 1 TFlop/s over ``mm_passes``).  It is
+    the mode the solver's kernel runs: left at None it is worked out from
+    that mode, and a value that contradicts it (any value where the kernel
+    runs exact FP32 or FP64) raises ValueError.  Exact FP32 takes the FP32
+    peak.  (The JAX package's ``mm_passes`` counts MXU passes, 6 for its
+    exact FP32, and prices any value it is given; on the H100 exact FP32
+    is no bf16 product.)
 
     Flops are the reference's accounting (``core.flops_per_iteration``).
     Bytes are two reads of A as the engine holds it, plus
@@ -262,8 +289,19 @@ def solver_roofline(solver,
     vec_passes = 0 if vectors_resident else VECTOR_PASSES
     bytes_ = 2 * _a_bytes(solver, rsize) + vec_passes * nvec
 
-    peak_tflops = peaks["fp64_tflops" if solver.precision == "z"
-                        else "fp32_tflops"]
+    runs = None if solver.precision == "z" else _split_products(solver)
+    if mm_passes is not None and mm_passes != runs:
+        raise ValueError(
+            f"mm_passes={mm_passes}, but the solver's kernel runs "
+            + ("FP64" if solver.precision == "z" else "exact FP32"
+               if runs is None else f"{runs} bf16 products"))
+    mm_passes = runs
+    if solver.precision == "z":
+        peak_tflops = peaks["fp64_tflops"]
+    elif mm_passes is None:
+        peak_tflops = peaks["fp32_tflops"]
+    else:
+        peak_tflops = peaks["bf16_tflops"] / mm_passes
     hbm_gbps = float(os.environ.get("TFQ_HBM_GBPS", peaks["hbm_gbps"]))
     t_compute = flops / (peak_tflops * 1e12)
     t_bw = bytes_ / (hbm_gbps * 1e9)

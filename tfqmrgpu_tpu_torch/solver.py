@@ -45,6 +45,17 @@ the plan's block order, the panel engines as [mb*LM, ncc, LN] panels, and
 the packed 'pairs' engine as one fused panel [n_slots*LM, 2*G*LN].
 Everything runs on the CUDA card unless ``device="cpu"`` is given.
 
+Precision modes of 'c', the JAX package's knobs: TFQ_PAIRS_MM_PREC picks
+K2's matmul precision in the packed 'pairs' engine and TFQ_PALLAS_MM_PREC
+K3's in 'pallas', each one of ``ops/pairpanel.PRECISIONS`` ('highest', the
+default, is exact FP32; 'bf16', 'bf16x3', 'bf16x4' and 'bf16x6' run the
+bf16 split products on the BF16 tensor cores).  As in the JAX package the
+packed engine runs 'highest' at a kernel LM below 16, and K3 runs 'highest'
+for 'bf16'; an unknown string raises ValueError.  The float64 engines take
+the JAX package's Ozaki opt-ins: TFQ_XLA_OZ=1 for 'xla' and TFQ_Z_OZAKI=1
+for 'dense' (both '0' by default here, '1' in the JAX package, whose TPU
+has no float64 unit).
+
 Mixed precision 'm' is no ``Solver`` precision: ``solve(precision='m')``,
 ``solve_mixed`` and ``bsrsv_m`` run a 'c' solve, refine it against a
 float64 residual (``refine_mixed``, ``refine.py``) and fall back to 'z'
@@ -325,6 +336,15 @@ class Solver:
                         f"pattern ({e}); use engine='xla'") from e
                 self.engine, self._packed = "xla", False
                 self._pp_plan = self._gp = self._sup = self._sup_mask = None
+        # K2's matmul precision (the JAX solver's, its solver.py:241-248):
+        # TFQ_PAIRS_MM_PREC, coerced to 'highest' at a kernel LM below 16,
+        # where the JAX kernel's bf16 windows cannot tile (a superblock's
+        # merged LM' of 16 or 32 lifts that)
+        self.pairs_prec = "highest"
+        if self._packed:
+            prec = pp_ops.check_precision(
+                os.environ.get("TFQ_PAIRS_MM_PREC", "highest"))
+            self.pairs_prec = prec if self._pp_plan.lm >= 16 else "highest"
 
         self._panel = self.engine in PANEL_ENGINES
         self._layout = (panel_ops.PanelLayout.from_plan(self.plan)
@@ -533,7 +553,11 @@ class Solver:
             self._x0 = self._upload_x(re, im)
 
     def _make_multiply(self, re: np.ndarray, im: np.ndarray):
-        """The engine's y = A @ x over A's (re, im) block planes."""
+        """The engine's y = A @ x over A's (re, im) block planes.  K2 runs
+        ``pairs_prec``; K3 runs TFQ_PALLAS_MM_PREC (default 'highest'), read
+        here as the JAX package's ``bsr_panel_multiply`` reads it when it
+        builds the multiply.  The float64 engines take the Ozaki opt-ins
+        TFQ_XLA_OZ and TFQ_Z_OZAKI (``ops/ozaki.py``)."""
         if self.engine == "dense":
             lay = self._layout
             a_re, a_im = self._upload(*lay.densify_a(self.plan, re, im))
@@ -548,12 +572,14 @@ class Solver:
                 a_im = sb_ops.merge_a_blocks(self._sup, a_im)
             return pp_ops.PairPanelMultiply(
                 self._pp_plan,
-                pp_ops.build_a_panels_device(self._pp_plan, a_re, a_im))
+                pp_ops.build_a_panels_device(self._pp_plan, a_re, a_im),
+                precision=self.pairs_prec)
         if self.engine == "pallas":
             return RowTileMultiply(
                 self._pack, build_a_panels_device(self._pack, a_re),
                 build_a_panels_device(self._pack, a_im), self._layout.mask,
-                self.ln)
+                self.ln,
+                precision=os.environ.get("TFQ_PALLAS_MM_PREC") or "highest")
         if self.engine == "pairs":
             return pp_ops.PairPlanMultiply(self.plan, a_re, a_im, self.ln)
         return BlockSparseAction.from_plan(self.plan, a_re, a_im)
