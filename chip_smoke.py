@@ -137,9 +137,11 @@ two for each:
    moves, every search row timed on K2);
 19. the small-block layer (``ops/superblock.py``, ``ops/rates.py``,
    ``tools/blocksize_sweep.py``): (a) the block-size sweep: K2 and K3 in
-   'c' and K1 in 'z' at the 15 block sizes on the golden-class plan, each
-   held against the float64 product (maxdev <= 1e-4 'c', <= 1e-12 'z', the
-   same bits on a repeat), every row printed, K2's rates at LM 4, 8, 16
+   'c' and K1 in 'z' at the 15 block sizes on the golden-class plan, and
+   the oz kernel's whole 'z' multiply at (4, 4), (8, 8), (16, 32) and (32,
+   32), each held against the float64 product (maxdev <= 1e-4 'c', <= 1e-12
+   'z', the oz rows of the largest entry of |A|.|X|; the same bits on a
+   repeat), every row printed, K2's rates at LM 4, 8, 16
    and 32 beside ``rates.py``'s, and the factor ``auto_f_row`` picks from
    each; (b) the golden-class pattern at (LM, LN) = (8, 8) and (4, 8) in
    'c' through ``Solver(engine='pairs')`` with cos/sin-dominant data at
@@ -188,7 +190,29 @@ two for each:
    ``ShardedRowTileSolver(mm_prec='bf16x3')`` at world size 1 on golden
    'c': (c)'s iterations and X to the bit.  Phase 18 (c) also times the
    golden 'c' row tiles in bf16x3 against ``solver_roofline``'s BF16
-   ceiling over 3 products (``mm_passes``).
+   ceiling over 3 products (``mm_passes``);
+21. K1's Ozaki modes on the oz kernel (``csrc/pairpanel_oz.cu``) and the
+   JAX package's packed 'z' route under TFQ_PAIRS_Z_OZ=1, run last: (a)
+   the kernel against its plain version to the bit, and on a repeat, in
+   each body ('xi8', 'ozc' with bf16 or int8 A, the mixed fallback, legacy
+   'oz' with int8 or bf16 A) at the kernel block sizes with LM >= 16 x G
+   (1, 2) x r_tile (1, 2) on wide-exponent data with lanes outside
+   float32's range, and each body at its depth bound (every slice int at
+   full scale and positive); (b) the golden class per body ('z' rule's
+   G 8): maxdev against the float64 product <= 1e-12, device time
+   (``torch.profiler``), back-to-back and single-call times, the whole
+   multiply's time, the plain version's, the bound (the body's slice
+   products at the data sheet's INT8 or BF16 rate against the A and X
+   slices and the output), beside phase 2's K1 and library call; (c)
+   golden 'z' through ``Solver(engine='pairs')`` under TFQ_PAIRS_Z_OZ=1
+   ('xi8'): phase 4's iterations, every multiply through the oz kernel, X
+   within 1e-10 of phase 4's, the float64 residual < 1e-8, ms an iteration
+   over 10 (CUDA events); (d) FD rtb=12.75 'z' under it at
+   TFQ_SOLVER_SUPER 'auto', 2 and 4: converged to 1e-9 within 2 of phase
+   3's iterations with X within 1e-9, or, as the JAX route does on FD,
+   stopped at ``OZ_FD_CAP`` iterations with the residuum and X within
+   ``OZ_FD_FLOOR``; every multiply through the oz kernel where the engine
+   is 'pairs'; (e) phase 19 (a)'s 'z' rows beside ``ops/rates.py``'s.
 
 Then one JSON line on the kernels (time, launches on their path, bound,
 plain and library times; the launches of every path that runs the kernel
@@ -196,8 +220,9 @@ under ``launches_by_path``; for K1 also the bytes staged, for K2 and K3
 also ``kernel_ms`` and ``burst_ms``, for K2 ``merged_ms``, its device
 time on phase 19's plans; the split kernels ``rowtile_spmm_bf16`` and
 ``pairpanel_tiles_bf16`` head with bf16x3, their ``launches`` phase 20
-(c)'s bf16x3 solve's, and give every mode under ``modes``) and, last,
-one JSON line on the device.
+(c)'s bf16x3 solve's, and give every mode under ``modes``; the oz kernel
+``pairpanel_oz`` heads with 'xi8', its ``launches`` phase 21 (c)'s, every
+body under ``modes``) and, last, one JSON line on the device.
 K1's times in phase 2 are CUDA events around 20 calls issued back to back
 (``burst_ms`` for K2 and K3); ``kernel_ms`` is the kernel's device time
 from ``torch.profiler``; phase 19's kernel times are CUDA events around 20
@@ -384,31 +409,47 @@ def packed_multiply(plan, lm: int, ln: int, av: np.ndarray, xv: np.ndarray,
     packed plan."""
     from tfqmrgpu_tpu_torch.ops import pairpanel as pp
 
+    gp, pplan = pack_plan(plan, lm, ln, group, r_tile)
+    a_re, a_im = planes(av, torch.float32, dev)
+    mult = pp.PairPanelMultiply(
+        pplan, pp.build_a_panels_device(pplan, a_re, a_im), slots=slots,
+        precision=precision)
+    return mult, fused_x(pplan, gp, xv, torch.float32, dev), pplan
+
+
+def pack_plan(plan, lm: int, ln: int, group: int = 1, r_tile: int = 1):
+    """The packed pairs of a plan at column group size ``group`` (1: none)
+    and ``r_tile``: (``GroupedPairs`` or None, ``PairPanelPlan``)."""
+    from tfqmrgpu_tpu_torch.ops import pairpanel as pp
+
     pairs = plan.pairs.cpu().numpy().astype(np.int64)
     pair_y = np.repeat(np.arange(plan.nnzb_x),
                        np.diff(plan.starts.cpu().numpy()))
     row_of = np.repeat(np.arange(plan.nrows), np.diff(plan.rowptr_x))
     cols = plan.colindx.cpu().numpy().astype(np.int64)
-    xre, xim = (np.ascontiguousarray(v, dtype=np.float32)
-                for v in (xv.real, xv.imag))
     if group > 1:
         gp = pp.pack_grouped(pairs[:, 0], pairs[:, 1], pair_y, plan.nnzb_x,
                              ln, group, row_of=row_of, col_of=cols)
-        pplan = pp.pack_pair_plan(gp.pair_a2, gp.pair_x2, gp.pair_y2,
-                                  gp.nnzb2, gp.nnzb2, lm, gp.ln2,
-                                  r_tile=r_tile, row_of=gp.row_of2,
-                                  col_of=gp.col_of2)
+        return gp, pp.pack_pair_plan(gp.pair_a2, gp.pair_x2, gp.pair_y2,
+                                     gp.nnzb2, gp.nnzb2, lm, gp.ln2,
+                                     r_tile=r_tile, row_of=gp.row_of2,
+                                     col_of=gp.col_of2)
+    return None, pp.pack_pair_plan(pairs[:, 0], pairs[:, 1], pair_y,
+                                   plan.nnzb_x, plan.nnzb_x, lm, ln,
+                                   r_tile=r_tile, row_of=row_of, col_of=cols)
+
+
+def fused_x(pplan, gp, xv: np.ndarray, dtype, dev) -> torch.Tensor:
+    """The fused permuted X panel of the complex blocks ``xv`` on a packed
+    plan (grouped by ``gp`` where given), in ``dtype`` on ``dev``."""
+    from tfqmrgpu_tpu_torch.ops import pairpanel as pp
+
+    npdt = np.float64 if dtype == torch.float64 else np.float32
+    xre, xim = (np.ascontiguousarray(v, dtype=npdt)
+                for v in (xv.real, xv.imag))
+    if gp is not None:
         xre, xim = pp.grouped_blocks(gp, xre), pp.grouped_blocks(gp, xim)
-    else:
-        pplan = pp.pack_pair_plan(pairs[:, 0], pairs[:, 1], pair_y,
-                                  plan.nnzb_x, plan.nnzb_x, lm, ln,
-                                  r_tile=r_tile, row_of=row_of, col_of=cols)
-    a_re, a_im = planes(av, torch.float32, dev)
-    mult = pp.PairPanelMultiply(
-        pplan, pp.build_a_panels_device(pplan, a_re, a_im), slots=slots,
-        precision=precision)
-    x = torch.from_numpy(pp.permute_x(pplan, xre, xim)).to(dev)
-    return mult, x, pplan
+    return torch.from_numpy(pp.permute_x(pplan, xre, xim)).to(dev)
 
 
 def pattern_residual(p, xc: np.ndarray, a, b, dev) -> float:
@@ -499,17 +540,22 @@ def _kernel_ms(fn, kernel: str, reps: int = 50) -> float:
     """Mean device duration (ms) of the kernels named ``kernel`` over
     ``reps`` calls, from ``torch.profiler``: the kernel's own time where the
     host dispatch of a call outlasts it.  The trace may lose a few of the
-    events; the mean is over those it kept, at least half."""
+    events; the mean is over those it kept, at least half.  A trace that
+    kept fewer is taken once more (the profiler has returned a trace with
+    none of a kernel's events on an H100, once in some twenty runs)."""
     fn()
     torch.cuda.synchronize()
-    with torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = [e.time_range.elapsed_us() for e in prof.events()
-          if e.device_type == torch.autograd.DeviceType.CUDA
-          and kernel in e.name]
+    for _ in range(2):
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = [e.time_range.elapsed_us() for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and kernel in e.name]
+        if reps // 2 <= len(us) <= reps:
+            break
     require(reps // 2 <= len(us) <= reps, f"the profiler saw {len(us)} "
             f"{kernel} launches for {reps} calls")
     return sum(us) / len(us) / 1e3
@@ -664,7 +710,8 @@ def phase_golden(dev, timed_iterations: int = 20):
     info = s.solve(tolerance=1e-10, max_iterations=500)
     wall_ms = (time.perf_counter() - t0) * 1e3
     require(info.return_status == 0, f"golden solve status {info.return_status}")
-    res = pattern_residual(s.plan, s.get_matrix("X"), a, b, dev)
+    x_solved = s.get_matrix("X")
+    res = pattern_residual(s.plan, x_solved, a, b, dev)
     require(res < 1e-8, f"golden |AX-B|/|B| = {res:.3e}")
     # a fixed number of iterations (tolerance 0 never converges; one probe
     # at the cap) times the iteration itself rather than a short solve
@@ -677,7 +724,7 @@ def phase_golden(dev, timed_iterations: int = 20):
           f"iterations, {info.n_probes} probes, |AX-B|/|B| {res:.3e}, wall "
           f"{wall_ms:.1f} ms; {per_it:.3f} ms per iteration over "
           f"{timed_iterations} iterations", flush=True)
-    return info.iterations_needed
+    return info.iterations_needed, x_solved
 
 
 def _rowtile_multiply(plan, lm, ln, av, xv, dev, r_tile=None, slots=None,
@@ -1986,14 +2033,15 @@ def phase_tuning(dev, fd, k4: dict, iterations: dict) -> dict:
 
     from tfqmrgpu_tpu_torch import Solver, autotune, profiling
     from tfqmrgpu_tpu_torch.autotune import environment
-    from tfqmrgpu_tpu_torch.ops.pairpanel import (PairPanelMultiply,
+    from tfqmrgpu_tpu_torch.ops.pairpanel import (OzPairPanelMultiply,
+                                                  PairPanelMultiply,
                                                   PairPlanMultiply)
     from tfqmrgpu_tpu_torch.ops.pallas_spmm import RowTileMultiply
 
     t_phase = time.perf_counter()
     counters = {"k1": PairPlanMultiply, "k2": PairPanelMultiply,
-                "k3": RowTileMultiply}
-    by_path = {"k1": {}, "k2": {}, "k3": {}}
+                "k3": RowTileMultiply, "oz": OzPairPanelMultiply}
+    by_path = {"k1": {}, "k2": {}, "k3": {}, "oz": {}}
 
     def zero():
         for c in counters.values():
@@ -2151,8 +2199,16 @@ def phase_tuning(dev, fd, k4: dict, iterations: dict) -> dict:
         moved.append({k: v - before[k] for k, v in read().items()})
         return dt
 
-    kernel_of = {("pallas", "c"): "k3", ("pairs", "c"): "k2",
-                 ("pairs", "z"): "k1"}
+    kernels = {("pallas", "c"): "k3", ("pairs", "c"): "k2",
+               ("pairs", "z"): "k1"}
+
+    def kernel_of(row, prec):
+        """The counter of the kernel a candidate runs ('pairs' 'z' under
+        TFQ_PAIRS_Z_OZ: the oz kernel), or None."""
+        if (row["engine"], prec) == ("pairs", "z") and row["env"].get(
+                "TFQ_PAIRS_Z_OZ", "0") != "0":
+            return "oz"
+        return kernels.get((row["engine"], prec))
     autotune.time_multiply = counted
     try:
         with environment({"TFQ_AUTOTUNE_CACHE": cache,
@@ -2174,13 +2230,13 @@ def phase_tuning(dev, fd, k4: dict, iterations: dict) -> dict:
                 require(len(timed) == len(moved),
                         f"{len(timed)} timed rows, {len(moved)} measurements")
                 for row, m in zip(timed, moved):
-                    kern = kernel_of.get((row["engine"], prec))
+                    kern = kernel_of(row, prec)
                     want = {k: (m[k] > 0 if k == kern else m[k] == 0)
                             for k in m}
                     require(all(want.values()),
                             f"autotune '{prec}' {row}: launches {m}")
                 require(all("error" not in row for row in table
-                            if (row["engine"], prec) in kernel_of),
+                            if kernel_of(row, prec)),
                         f"autotune '{prec}': a hand-written candidate failed")
                 for k, n in race.items():
                     if n:
@@ -2318,6 +2374,7 @@ def phase_small_block(dev, fd, fd_m: tuple) -> tuple:
     for k, n in read().items():
         by_path[k]["phase 19 (a) block-size sweep"] = n
     engine, base = blocksize_sweep.rates_from(rows)
+    engine, base = engine["c"], base["c"]
     measured = {**base, **engine}
     table = {**rates.BASE_TFLOPS["c"], **rates.ENGINE_TFLOPS["c"]}
     require(sorted(measured) == [4, 8, 16, 32],
@@ -2522,7 +2579,7 @@ def phase_small_block(dev, fd, fd_m: tuple) -> tuple:
           f"({hit['ms_per_multiply']} ms a multiply); race launches {race}; "
           f"phase 19 took {time.perf_counter() - t_phase:.1f} s", flush=True)
     shutil.rmtree(cache, ignore_errors=True)
-    return by_path, merged_ms
+    return by_path, merged_ms, rows
 
 
 SPLIT_MODES = ("bf16", "bf16x3", "bf16x4", "bf16x6")
@@ -2961,6 +3018,381 @@ def phase_precision(dev, mesh, k3: dict, k2: dict, refs: dict) -> dict:
                   k2["library_ms"], "phase 20 (c) golden c pairs bf16x3")]
 
 
+# ------------------------------------------------------------ phase 21
+
+# K1's Ozaki bodies on the oz kernel: id -> (knobs, body, A int8).  The
+# mixed body is what a 'xi8' request runs at LM % 32 != 0.
+OZ_CASES = {
+    "xi8": ({"TFQ_OZC_INT8": "2"}, "xi8", True),
+    "ozc": ({"TFQ_OZC_INT8": "0"}, "ozc", False),
+    "ozc-int8a": ({"TFQ_OZC_INT8": "1"}, "ozc", True),
+    "ozc-mixed": ({"TFQ_OZC_INT8": "2"}, "ozc", True),
+    "oz": ({"TFQ_OZ_COMP": "0"}, "oz", True),
+    "oz-bf16": ({"TFQ_OZ_COMP": "0", "TFQ_OZ_INT8": "0"}, "oz", False),
+}
+OZ_KNOBS = ("TFQ_OZ_COMP", "TFQ_OZC_INT8", "TFQ_OZ_INT8")
+# FD rtb=12.75 'z' under TFQ_PAIRS_Z_OZ=1: the iteration cap, and the
+# residuum and X deviation a solve that stagnates at the cap must stay
+# within (the JAX route stagnates at 5-8e-9 on FD, on the card and in JAX
+# on the CPU, ``python tests/test_torch_oz_pairs.py fd F_ROW``; K1 reaches
+# 1e-9 in 73 iterations)
+OZ_FD_CAP = 300
+OZ_FD_FLOOR = 1e-8
+# the largest contraction each body admits, every slice int at full scale
+# and of one sign: (p, q, LM, ku, A int, X int).  ozc: k (2^7 + 2)^2 <=
+# 2^24 at q 8 (k 992); int8 A: k 66^2 <= 2^24 (k 3840 of 3851); xi8: p k
+# 66^2 <= 2^31 (k 61600 of 61624); oz: p k (A int)(X int) <= 2^24 for the
+# diagonal sums (int8 A ints <= 64 under the spare binade)
+OZ_BOUND = {
+    "ozc": (7, 8, 32, 31, 130, 130),
+    "ozc-int8a": (8, 7, 16, 240, 66, 66),
+    "xi8": (8, 7, 32, 1925, 66, 66),
+    "oz": (8, 7, 16, 16, 64, 128),
+    "oz-bf16": (8, 7, 16, 8, 128, 128),
+}
+
+
+def oz_sizes(case: str) -> list:
+    """The block sizes of the oz kernel's checks: the kernel block sizes
+    with LM >= 16 ('xi8' at LM 32 and 64, its mixed fallback at LM 16)."""
+    from tfqmrgpu_tpu_torch.ops.pairpanel import KERNEL_BLOCK_SIZES
+
+    sizes = [(lm, ln) for lm, ln in KERNEL_BLOCK_SIZES if lm >= 16]
+    if case == "xi8":
+        return [s for s in sizes if s[0] % 32 == 0]
+    if case == "ozc-mixed":
+        return [s for s in sizes if s[0] % 32]
+    return sizes
+
+
+def oz_multiply(pplan, av: np.ndarray, dev, case: str):
+    """The oz kernel's multiply (``OzPairPanelMultiply``) in the body
+    ``case`` over a packed plan, from complex128 A blocks."""
+    from tfqmrgpu_tpu_torch.autotune import environment
+    from tfqmrgpu_tpu_torch.ops import pairpanel as pp
+
+    knobs, body, a_int8 = OZ_CASES[case]
+    with environment({**{k: None for k in OZ_KNOBS}, **knobs}):
+        mult = pp.make_pairpanel_multiply_oz(
+            pplan, *planes(av, torch.float64, dev))
+    require(mult.body == body and mult.a_int8 == a_int8,
+            f"oz {case}: built the {mult.body} body, int8 A {mult.a_int8}")
+    return mult
+
+
+def wide_blocks(rng, nnzb: int, d1: int, d2: int, lanes: bool = False):
+    """Complex blocks with 10^+-6 block scales; with ``lanes`` also lanes
+    far below float32's subnormals, far above its maximum and zero (the
+    X prologue's float64 lanes)."""
+    v = (rng.standard_normal((nnzb, d1, d2, 2)) @ [1, 1j]) * 10.0 ** (
+        rng.uniform(-6, 6, (nnzb, 1, 1)))
+    if lanes:
+        v[:, :, 0::5] *= 1e-60
+        v[:, :, 1::5] *= 1e60
+        v[:, :, 2::5] = 0.0
+    return v
+
+
+def check_oz(mult, x: torch.Tensor, what: str):
+    """The oz kernel's output (``body_out`` on the X slices of ``x``) equal
+    to its plain version's to the bit, and again on a repeated launch."""
+    from tfqmrgpu_tpu_torch.ops.pairpanel import OzPairPanelMultiply
+
+    xw, _ = mult.slice_x(x)
+    before = OzPairPanelMultiply.launches
+    got = mult.body_out(xw)
+    again = mult.body_out(xw)
+    want = mult.body_plain(xw)
+    torch.cuda.synchronize()
+    require(OzPairPanelMultiply.launches == before + 2,
+            f"{what}: {OzPairPanelMultiply.launches - before} launches")
+    bits = got.view(torch.int32)
+    require(torch.equal(bits, want.view(torch.int32)),
+            f"{what}: {int((got != want).sum())} of {got.numel()} outputs "
+            f"differ from the plain version, by up to "
+            f"{float((got - want).abs().max()):.3e}")
+    require(torch.equal(bits, again.view(torch.int32)),
+            f"{what}: repeated launch differs")
+
+
+def oz_bound_case(case: str, dev):
+    """One tile at the largest contraction the body admits (``OZ_BOUND``),
+    every slice of A and X at full scale and positive: (the multiply, its
+    X slices)."""
+    import types
+
+    from tfqmrgpu_tpu_torch.ops import pairpanel as pp
+
+    p, q, lm, ku, a_int, x_int = OZ_BOUND[case]
+    _, body, a_int8 = OZ_CASES[case]
+    xi8 = body == "xi8"
+    k, m2, c = ku * lm, 2 * lm, lm
+    plan = types.SimpleNamespace(
+        r_tile=1, lm=lm, ln=c, ku=ku, ntiles=1, n_slots=ku,
+        xloc=np.arange(ku, dtype=np.int32)[None], kcount=np.array([ku]))
+
+    def slices(value, shape, as_int8):
+        if as_int8:
+            return [torch.full(shape, value, dtype=torch.int8, device=dev)
+                    for _ in range(p)]
+        return [torch.full(shape, value * 2.0 ** (-(s + 1) * q),
+                           dtype=torch.float32, device=dev).to(torch.bfloat16)
+                for s in range(p)]
+
+    a = torch.cat(slices(a_int, (1, m2, k), a_int8), dim=1).contiguous()
+    xw = torch.cat(slices(x_int, (k, 2 * c), xi8), dim=1).contiguous()
+    sigma = torch.ones((1, lm if body != "oz" else m2, 1),
+                       dtype=torch.float64, device=dev)
+    mult = pp.OzPairPanelMultiply(plan, a, sigma, p, q, body != "oz", xi8,
+                                  a_int8)
+    return mult, xw
+
+
+def phase_oz(dev, k1: dict, golden: tuple, fd, fd_ref: tuple,
+             sweep_rows: list) -> dict:
+    """Phase 21: K1's Ozaki modes on the oz kernel (``csrc/pairpanel_oz.cu``)
+    and the JAX package's packed 'z' route under TFQ_PAIRS_Z_OZ=1.  ``k1``
+    is phase 2's K1 row (its library call's time), ``golden`` phase 4's
+    (iterations, X), ``fd_ref`` phase 3's (iterations, X), ``sweep_rows``
+    phase 19 (a)'s block-size sweep.  Returns the kernel's JSON row."""
+    import tfqmrgpu_tpu_torch as tt
+    from tfqmrgpu_tpu_torch import solver as tsolver
+    from tfqmrgpu_tpu_torch.autotune import environment
+    from tfqmrgpu_tpu_torch.ops import rates
+    from tfqmrgpu_tpu_torch.ops.blocksparse import spmm_pairs
+    from tfqmrgpu_tpu_torch.ops.pairpanel import OzPairPanelMultiply
+    from tfqmrgpu_tpu_torch.tools import blocksize_sweep
+
+    t_phase = time.perf_counter()
+    by_path = {}
+    off = {k: None for k in OZ_KNOBS + ("TFQ_PAIRS_Z_OZ",
+                                        "TFQ_SOLVER_SUPER")}
+
+    # (a) the kernel against its plain version, to the bit
+    OzPairPanelMultiply.launches = 0
+    rng = np.random.default_rng(2114)
+    ncase = 0
+    for case in OZ_CASES:
+        for lm, ln in oz_sizes(case):
+            for group in (1, 2):
+                for r_tile in (1, 2):
+                    plan = tt.create_plan(*random_problem(
+                        rng, mb=12, lm=lm, ln=ln, ncols=4), device=dev)
+                    gp, pplan = pack_plan(plan, lm, ln, group, r_tile)
+                    mult = oz_multiply(
+                        pplan, wide_blocks(rng, plan.nnzb_a, lm, lm), dev,
+                        case)
+                    x = fused_x(pplan, gp, wide_blocks(
+                        rng, plan.nnzb_x, lm, ln, lanes=True),
+                        torch.float64, dev)
+                    check_oz(mult, x, f"oz {case} ({lm}, {ln}) G {group} "
+                             f"r_tile {r_tile}")
+                    ncase += 1
+    for case in OZ_BOUND:
+        mult, xw = oz_bound_case(case, dev)
+        got, want = mult.body_out(xw), mult.body_plain(xw)
+        torch.cuda.synchronize()
+        require(torch.equal(got.view(torch.int32), want.view(torch.int32)),
+                f"oz {case} at its depth bound: {int((got != want).sum())} "
+                f"outputs differ from the plain version")
+        ncase += 1
+    by_path["phase 21 (a) kernel against plain"] = (
+        OzPairPanelMultiply.launches)
+    print(f"phase 21 (a) oz kernel vs plain: {ncase} cases (bodies "
+          f"{', '.join(OZ_CASES)} at the kernel block sizes with LM >= 16 x "
+          f"G (1, 2) x r_tile (1, 2) on wide-exponent data with float64 "
+          f"lanes, and each body at its depth bound, "
+          + ", ".join(f"{c} k {OZ_BOUND[c][2] * OZ_BOUND[c][3]}"
+                      for c in OZ_BOUND)
+          + "): every output to the bit, repeated launches the same bits",
+          flush=True)
+
+    # (b) the golden class per body, beside phase 2's K1
+    plan = tt.create_plan(*golden_class_patterns(), device=dev)
+    av, xv = cos_sin(plan.nnzb_a, 32, 32), cos_sin(plan.nnzb_x, 32, 32)
+    gp, pplan = tsolver.pack_pairs(plan, 32, 32, group_size=0, r_tile=1,
+                                   lane_limit=tsolver.Z_GROUP_LANE_LIMIT)
+    ref = spmm_pairs(planes(av, torch.float64, dev),
+                     planes(xv, torch.float64, dev), plan.pairs[:, 0],
+                     plan.pairs[:, 1], plan.pair_y(), plan.nnzb_x)
+    x = fused_x(pplan, gp, xv, torch.float64, dev)
+    flops = plan.n_pairs * 8.0 * 32 ** 3
+    modes = {}
+    for case in ("xi8", "ozc", "ozc-int8a", "oz", "oz-bf16"):
+        mult = oz_multiply(pplan, av, dev, case)
+        y = mult(x)
+        re, im = pp_unpermute(pplan, gp, y)
+        rel, abs_err = _maxdev((re, im), tuple(v.cpu() for v in ref))
+        require(rel <= 1e-12, f"golden oz {case}: maxdev against float64 "
+                f"{rel:.3e} > 1e-12")
+        # the kernel at the main path's shape against its plain version, to
+        # the bit: its raw output, and the whole multiply through it
+        require(torch.equal(y.view(torch.int64),
+                            mult.plain(x).view(torch.int64)),
+                f"golden oz {case}: the multiply differs from its plain "
+                f"version")
+        xw, _ = mult.slice_x(x)
+        check_oz(mult, x, f"golden oz {case}")
+        products = mult.p * (mult.p + 1) // 2
+        nbytes = (mult.planes.numel() * mult.planes.element_size()
+                  + xw.numel() * xw.element_size()
+                  + 4 * int(np.prod(mult.raw_shape)))
+        bound_ms, bound_by = bound(
+            nbytes, flops * products,
+            "int8_tops" if mult.xi8 else "bf16_tflops")
+        kernel_ms = _kernel_ms(lambda: mult.body_out(xw),
+                               "pairpanel_oz_kernel", reps=20)
+        modes[case] = dict(
+            body=mult.body, p=mult.p, q=mult.q, a_int8=mult.a_int8,
+            maxdev_f64=rel, max_abs_err=abs_err, maxdev_plain=0.0,
+            kernel_ms=kernel_ms,
+            burst_ms=_burst_ms(lambda: mult.body_out(xw)),
+            ms=_time_ms(lambda: mult.body_out(xw)),
+            multiply_ms=_time_ms(lambda: mult(x)),
+            plain_ms=_time_ms(lambda: mult.body_plain(xw), reps=5, warm=1),
+            bound_ms=bound_ms, bound_by=bound_by, products=products,
+            mbytes=nbytes / 1e6)
+        r = modes[case]
+        print(f"phase 21 (b) golden-class oz {case} ({mult.body}, p {mult.p} "
+              f"q {mult.q}, G {gp.group_size if gp else 1}, {pplan.ntiles} "
+              f"tiles, ku {pplan.ku}): {kernel_ms:.4f} ms of device time "
+              f"({100 * bound_ms / kernel_ms:.1f}% of the bound), "
+              f"{r['burst_ms']:.4f} ms back to back, {r['ms']:.4f} ms single; "
+              f"the whole multiply {r['multiply_ms']:.4f} ms; plain "
+              f"{r['plain_ms']:.4f} ms; the raw output and the multiply "
+              f"equal the plain version's to the bit; maxdev against "
+              f"float64 {rel:.3e}; "
+              f"bound {bound_ms:.4f} ms ({bound_by}, {products} products, "
+              f"{nbytes / 1e6:.1f} MB); K1 {k1['ms']:.4f} ms, library "
+              f"(complex128) {k1['library_ms']} ms (phase 2)", flush=True)
+        del mult, xw, y
+    by_path["phase 21 (b) golden class"] = OzPairPanelMultiply.launches - sum(
+        by_path.values())
+
+    # (c) golden 'z' through Solver(engine='pairs') under TFQ_PAIRS_Z_OZ=1
+    a, xpat, b = golden_z_problem()
+    its4, x4 = golden
+    with environment({**off, "TFQ_PAIRS_Z_OZ": "1"}):
+        s = tt.Solver(a, xpat, b, precision="z", engine="pairs", device=dev)
+    mult = s._multiply
+    require(isinstance(mult, OzPairPanelMultiply) and mult.body == "xi8",
+            f"golden 'z' under TFQ_PAIRS_Z_OZ=1 built {type(mult).__name__}")
+    OzPairPanelMultiply.launches = 0
+    t0 = time.perf_counter()
+    info = s.solve(tolerance=1e-10, max_iterations=500)
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    launches = OzPairPanelMultiply.launches
+    require(info.return_status == 0 and info.iterations_needed == its4,
+            f"golden oz solve: status {info.return_status}, "
+            f"{info.iterations_needed} iterations (phase 4: {its4})")
+    require(launches == 2 * info.iterations_needed + info.n_probes,
+            f"golden oz solve: {launches} oz launches for "
+            f"{info.iterations_needed} iterations, {info.n_probes} probes")
+    xz = s.get_matrix("X")
+    xdev = float(np.max(np.abs(xz - x4)) / np.max(np.abs(x4)))
+    require(xdev <= 1e-10, f"golden oz X {xdev:.3e} from phase 4's")
+    res = pattern_residual(s.plan, xz, a, b, dev)
+    require(res < 1e-8, f"golden oz |AX-B|/|B| = {res:.3e}")
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    timed = s.solve(tolerance=0.0, max_iterations=10)
+    end.record()
+    end.synchronize()
+    per_it = start.elapsed_time(end) / 10
+    require(timed.return_status == 9, f"timed oz run {timed.return_status}")
+    by_path["phase 21 (c) golden z Solver pairs"] = main_launches = launches
+    print(f"phase 21 (c) golden-class 'z' Solver(engine='pairs') under "
+          f"TFQ_PAIRS_Z_OZ=1 ({mult.body}, G "
+          f"{s._gp.group_size if s._gp else 1}, {s._pp_plan.ntiles} tiles): "
+          f"{info.iterations_needed} iterations (phase 4: {its4}), "
+          f"{info.n_probes} probes, {launches} oz launches, X {xdev:.3e} "
+          f"from phase 4's, |AX-B|/|B| {res:.3e}, wall {wall_ms:.1f} ms; "
+          f"{per_it:.3f} ms per iteration over 10 (CUDA events)", flush=True)
+    del s, mult
+
+    # (d) FD rtb=12.75 'z' under TFQ_PAIRS_Z_OZ=1: 'auto', f 2 and f 4.  The
+    # JAX package's route stagnates on FD above 1e-9 (its multiply is the
+    # port's to the bit, tests/test_torch_oz_pairs.py): a solve that stops
+    # at the cap must sit within OZ_FD_FLOOR, its X as close to phase 3's
+    fd_its, fd_x = fd_ref
+    fa, fb = fd.a_with_data(), fd.b_with_data()
+    for sup in ("auto", "2", "4"):
+        OzPairPanelMultiply.launches = 0
+        with environment({**off, "TFQ_PAIRS_Z_OZ": "1",
+                          "TFQ_SOLVER_SUPER": sup}):
+            t0 = time.perf_counter()
+            s = tt.Solver(fa, fd.x, fb, precision="z", device=dev,
+                          engine="auto" if sup == "auto" else "pairs")
+            info = s.solve(tolerance=1e-9, max_iterations=OZ_FD_CAP)
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        launches = OzPairPanelMultiply.launches
+        xz = s.get_matrix("X")
+        xdev = float(np.max(np.abs(xz - fd_x)) / np.max(np.abs(fd_x)))
+        pack = (f" (f {s._sup.f_row}, LM' {s._pp_plan.lm}, "
+                f"{s._multiply.body})" if s._sup is not None else "")
+        if info.return_status == 0:
+            require(info.residuum_reached <= 1e-9 and xdev <= 1e-9
+                    and abs(info.iterations_needed - fd_its) <= 2,
+                    f"FD oz TFQ_SOLVER_SUPER={sup}: "
+                    f"{info.iterations_needed} iterations (phase 3: "
+                    f"{fd_its}), X {xdev:.3e} from phase 3's")
+        else:
+            require(info.return_status == 9
+                    and info.residuum_reached <= OZ_FD_FLOOR
+                    and xdev <= OZ_FD_FLOOR,
+                    f"FD oz TFQ_SOLVER_SUPER={sup}: status "
+                    f"{info.return_status}, residuum "
+                    f"{info.residuum_reached:.3e}, X {xdev:.3e} from "
+                    f"phase 3's")
+        if sup != "auto" or info.engine == "pairs":
+            require(info.engine == "pairs" and launches ==
+                    2 * info.iterations_needed + info.n_probes,
+                    f"FD oz TFQ_SOLVER_SUPER={sup}: engine {info.engine}, "
+                    f"{launches} oz launches")
+        by_path[f"phase 21 (d) FD z TFQ_SOLVER_SUPER={sup}"] = launches
+        print(f"phase 21 (d) FD rtb=12.75 'z' Solver under TFQ_PAIRS_Z_OZ=1, "
+              f"TFQ_SOLVER_SUPER={sup}: engine {info.engine}{pack}, "
+              f"status {info.return_status}, "
+              f"{info.iterations_needed} iterations (phase 3: {fd_its}), "
+              f"residuum {info.residuum_reached:.3e}, X {xdev:.3e} from "
+              f"phase 3's, {launches} oz launches, wall {wall_ms:.1f} ms "
+              f"(set-up included)", flush=True)
+        del s
+
+    # (e) the sweep's 'z' rows, as ops/rates.py holds them
+    engine, base = blocksize_sweep.rates_from(sweep_rows)
+    oz_rows = [r for r in sweep_rows if r["kernel"] == "OZ"]
+    require(len(oz_rows) == len(blocksize_sweep.OZ_SIZES)
+            and all(r["gate_pass"] for r in oz_rows),
+            f"sweep oz rows: {[(r['lm'], r['ln'], r['gate_pass']) for r in oz_rows]}")
+    print(f"phase 21 (e) the sweep's 'z' rows (TFlop/s): ENGINE_TFLOPS 'z' "
+          f"{engine['z']}, BASE_TFLOPS 'z' {base['z']}; ops/rates.py: "
+          f"{rates.ENGINE_TFLOPS.get('z')}, {rates.BASE_TFLOPS.get('z')}; "
+          f"phase 21 took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    head = modes["xi8"]
+    return {"name": "pairpanel_oz", "route": "cuda",
+            "source": "tfqmrgpu_tpu_torch/csrc/pairpanel_oz.cu",
+            "replaces": "tfqmrgpu_tpu/ops/pairpanel.py:1770",
+            "launches": main_launches,
+            "max_abs_err": head["max_abs_err"], "ms": head["ms"],
+            "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
+            "bound_by": head["bound_by"], "library_ms": k1["library_ms"],
+            "kernel_ms": head["kernel_ms"], "burst_ms": head["burst_ms"],
+            "modes": modes, "launches_by_path": by_path}
+
+
+def pp_unpermute(pplan, gp, y: torch.Tensor) -> tuple:
+    """A fused product on a packed plan -> (re, im) CPU tensors of the
+    fine blocks."""
+    from tfqmrgpu_tpu_torch.ops import pairpanel as pp
+
+    re, im = pp.unpermute_y(pplan, y.cpu().numpy())
+    if gp is not None:
+        re, im = pp.ungroup_blocks(gp, re), pp.ungroup_blocks(gp, im)
+    return torch.from_numpy(re), torch.from_numpy(im)
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device; none is available")
@@ -2974,7 +3406,7 @@ def main():
     fd = generate_fd_problem(rtb=12.75, reference=True)
     timing = phase_kernel(dev, fd)
     launches, fd_iterations, fd_x = phase_fd(dev, fd)
-    golden_z_iterations = phase_golden(dev)
+    golden_z_iterations, golden_z_x = phase_golden(dev)
     k3 = phase_rowtile(dev)
     k3_launches, golden_c_iterations, golden_c_per_it = phase_golden_c(dev)
     dense_iterations = phase_dense(dev)
@@ -3004,7 +3436,11 @@ def main():
         3: fd_iterations, 4: golden_z_iterations, 6: golden_c_iterations,
         10: golden_pairs[2]})
     split_kernels[0]["launches_by_path"].update(tuning.pop("k3s"))
-    small, merged_ms = phase_small_block(dev, fd, fd_m)
+    small, merged_ms, sweep_rows = phase_small_block(dev, fd, fd_m)
+    oz = phase_oz(dev, timing, (golden_z_iterations, golden_z_x), fd,
+                  (fd_iterations, fd_x), sweep_rows)
+    oz["card"] = card
+    oz["launches_by_path"].update(tuning.pop("oz"))
     print(json.dumps({"kernels": [
         {"name": "pairpanel_spmm", "route": "cuda",
          "source": "tfqmrgpu_tpu_torch/csrc/pairpanel_spmm.cu",
@@ -3041,6 +3477,7 @@ def main():
          "source": "tfqmrgpu_tpu_torch/csrc/dma_probe.cu",
          "replaces": "tools/dma_probe.py:39", **k4, "card": card},
         *split_kernels,
+        oz,
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,11 +4,14 @@ knobs it races, against the JAX package's on the CPU.
 * ``_pattern_key`` hashes the JAX package's bytes: equal to its key for
   the same pattern on the CPU, different for another pattern or card.
 * ``default_candidates`` is the JAX list less the knobs the card's engines
-  do not have (Ozaki layouts, VMEM and scalar-core knobs, and in 'z' the
-  TFQ_SOLVER_SUPER variants: the port's 'z' never merges); in 'c' at
-  LM <= 8 its TFQ_SOLVER_SUPER entries are the JAX list's, and the race
-  has rows for them.
-* ``ops/rates.py`` holds no 'z' rows and no data-sheet peak.
+  do not have (VMEM and scalar-core knobs); in 'z' the JAX list's 'pairs'
+  rows run its packed route on the oz kernel (TFQ_PAIRS_Z_OZ=1, with the
+  TFQ_OZC_INT8 layouts) and K1 joins them; at LM <= 8 its
+  TFQ_SOLVER_SUPER entries are the JAX list's ('z': with the knob), and
+  the race has rows for them ('z': refused where the oz kernel's LM stays
+  below 16).
+* ``ops/rates.py`` holds the card's 'c' and 'z' rows and no data-sheet
+  peak.
 * TFQ_PALLAS_RTILE, TFQ_PAIRS_COLGROUP and TFQ_PAIRS_RTILE give the JAX
   Solver's packs (JAX packs on the host; its resident plan, no superblock);
   unset, the packs are the ones the engines built before the knobs.
@@ -43,8 +46,9 @@ torch.set_num_threads(2)
 KNOBS = ("TFQ_PALLAS_RTILE", "TFQ_PAIRS_COLGROUP", "TFQ_PAIRS_RTILE",
          "TFQ_AUTOTUNE_SEARCH", "TFQ_AUTOTUNE_CACHE")
 # the JAX candidates' knobs that the card's engines do not have
-DROPPED = {"TFQ_OZC_INT8", "TFQ_PAIRS_TSTEP", "TFQ_PAIRS_COPYG",
+DROPPED = {"TFQ_PAIRS_TSTEP", "TFQ_PAIRS_COPYG",
            "TFQ_PAIRS_RESIDENT", "TFQ_PAIRS_VMEM_CAP", "TFQ_PAIRS_VMEM"}
+Z_OZ = {"TFQ_PAIRS_Z_OZ": "1"}
 CDTYPE = {"z": np.complex128, "c": np.complex64}
 
 
@@ -86,9 +90,14 @@ def test_pattern_key_is_the_jax_key_on_the_cpu(monkeypatch):
 @pytest.mark.parametrize("lm", [4, 8, 32])
 @pytest.mark.parametrize("precision", ["z", "c"])
 def test_default_candidates_are_the_jax_list_filtered(precision, lm):
-    dropped = DROPPED | ({"TFQ_SOLVER_SUPER"} if precision == "z" else set())
     want = [(e, env) for e, env in jautotune.default_candidates(precision, lm)
-            if not dropped & set(env)]
+            if not DROPPED & set(env)]
+    if precision == "z":
+        # the JAX 'pairs' rows are its packed Ozaki route, the port's
+        # opt-in; K1, the port's native 'z', joins after 'dense'
+        want = [(e, {**env, **Z_OZ} if e == "pairs" else env)
+                for e, env in want]
+        want.insert(1, ("pairs", {}))
     assert tautotune.default_candidates(precision, lm) == want
 
 
@@ -102,26 +111,33 @@ def test_superblock_candidates_are_the_jax_lists(lm):
     assert want and sup(got) == want == got[:len(want)]
     assert [env["TFQ_SOLVER_SUPER"] for _, env in want] == (
         ["0"] + [str(f) for f in sorted({16 // lm, 32 // lm})])
-    assert not sup(tautotune.default_candidates("z", lm))
+    want_z = [(e, {**env, **Z_OZ})
+              for e, env in sup(jautotune.default_candidates("z", lm))]
+    assert want_z and sup(tautotune.default_candidates("z", lm)) == want_z
     assert not sup(tautotune.default_candidates("c", 16))
+    assert not sup(tautotune.default_candidates("z", 16))
 
 
 def test_rates_hold_no_z_rows_and_no_peaks():
     from tfqmrgpu_tpu_torch import profiling
     from tfqmrgpu_tpu_torch.ops import rates
 
-    assert set(rates.ENGINE_TFLOPS) == set(rates.BASE_TFLOPS) == {"c"}
-    assert rates.engine_rate("z", 16) == rates.engine_rate("z", 32) == 0.0
+    # the 'z' rows are the oz kernel's, read only under TFQ_PAIRS_Z_OZ
+    assert set(rates.ENGINE_TFLOPS) == set(rates.BASE_TFLOPS) == {"c", "z"}
+    assert sorted(rates.ENGINE_TFLOPS["z"]) == [16, 32]
+    assert sorted(rates.BASE_TFLOPS["z"]) == [4, 8]
+    assert rates.engine_rate("z", 16) > 0 and rates.engine_rate("z", 64) == 0
     assert rates.engine_rate("c", 64) == 0.0          # never measured
     assert rates.base_rate("c", 2) == min(rates.BASE_TFLOPS["c"].values())
     peaks = {v for row in profiling.DEVICE_PEAKS.values()
              for v in row.values()}
-    for table in (rates.ENGINE_TFLOPS["c"], rates.BASE_TFLOPS["c"]):
-        assert table and all(0 < v for v in table.values())
-        assert not peaks & set(table.values())
-    # a merged size's rate is above the unmerged baseline it must beat
-    assert min(rates.ENGINE_TFLOPS["c"].values()) > max(
-        rates.BASE_TFLOPS["c"].values())
+    for prec in ("c", "z"):
+        for table in (rates.ENGINE_TFLOPS[prec], rates.BASE_TFLOPS[prec]):
+            assert table and all(0 < v for v in table.values())
+            assert not peaks & set(table.values())
+        # a merged size's rate is above the unmerged baseline it must beat
+        assert min(rates.ENGINE_TFLOPS[prec].values()) > max(
+            rates.BASE_TFLOPS[prec].values())
 
 
 # ------------------------------------------------------------- the knobs
@@ -243,12 +259,18 @@ def test_autotune_races_caches_and_hits(monkeypatch, tmp_path, precision,
     cands = tautotune.default_candidates(precision, 4)
     race = [r for r in table if not r.get("search")]
     assert [(r["engine"], r["env"]) for r in race] == cands
-    # at LM 4 in 'c' the superblock candidates race too
+    # at LM 4 the superblock candidates race too
     assert [r["env"].get("TFQ_SOLVER_SUPER") for r in race
-            if "TFQ_SOLVER_SUPER" in r["env"]] == (
-                ["0", "4", "8"] if precision == "c" else [])
-    assert all("error" not in r and r["ms_per_multiply"] >= 0 for r in table)
-    assert len(calls) == len(table)
+            if "TFQ_SOLVER_SUPER" in r["env"]] == ["0", "4", "8"]
+    # 'z': the oz kernel needs LM >= 16, so the packed candidates are
+    # refused but where a merge lifts LM to 16 or 32
+    refused = [r for r in race if "error" in r]
+    assert [r["env"] for r in refused] == (
+        [] if precision == "c" else
+        [e for en, e in cands if "TFQ_PAIRS_Z_OZ" in e
+         and e.get("TFQ_SOLVER_SUPER") in (None, "0")])
+    assert all(r["ms_per_multiply"] >= 0 for r in table if "error" not in r)
+    assert len(calls) == len(table) - len(refused)
     # the winner: the cache's one entry, which solves to the dense
     # reference and equals a Solver built directly under its environment
     (entry,) = _cache(tmp_path).values()

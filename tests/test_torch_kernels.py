@@ -1,5 +1,6 @@
 """The hand-written kernels (pair-plan K1, packed pair-plan K2, row-tile
-K3, stream probe K4) and their build, K1 driven from C through the port's
+K3, stream probe K4, the oz kernel of K1's Ozaki modes) and their build,
+K1 driven from C through the port's
 C library, K1, K2 and K3 under the sharded engines at one rank, and under
 the autotuner's timing and the roofline at the golden class.
 
@@ -15,11 +16,13 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (SPLIT_GATE, STAGED_SHAPES, _as_tuple,
-                        _rowtile_multiply, c_onecall, check_staged, cos_sin,
-                        dominant_fill, f64_product, golden_c_problem,
-                        golden_class_patterns, golden_z_problem,
-                        packed_multiply, planes, random_problem)
+from chip_smoke import (OZ_BOUND, OZ_CASES, SPLIT_GATE, STAGED_SHAPES,
+                        _as_tuple, _rowtile_multiply, c_onecall, check_oz,
+                        check_staged, cos_sin, dominant_fill, f64_product,
+                        fused_x, golden_c_problem, golden_class_patterns,
+                        golden_z_problem, oz_bound_case, oz_multiply,
+                        oz_sizes, pack_plan, packed_multiply, planes,
+                        random_problem, wide_blocks)
 from tfqmrgpu_tpu_torch import (ALLOWED_BLOCK_SIZES, Solver, _build,
                                 autotune, create_plan, dma_probe, native,
                                 profiling)
@@ -721,3 +724,82 @@ def test_split_solve_launches_the_split_kernel_on_card(engine, knob):
     assert info.return_status == 0
     assert cls.launches == 0
     assert cls.split_launches == 2 * info.iterations_needed + info.n_probes
+
+
+# ------------------------------------------------- K1's Ozaki modes (oz)
+
+def _oz(rng, case, lm, ln, group, r_tile, device):
+    """The oz kernel's multiply in the body ``case`` on a random packed
+    plan, and a fused float64 X with wide exponents and float64 lanes."""
+    plan = create_plan(*random_problem(rng, mb=12, lm=lm, ln=ln, ncols=4),
+                       device=device)
+    gp, pplan = pack_plan(plan, lm, ln, group, r_tile)
+    mult = oz_multiply(pplan, wide_blocks(rng, plan.nnzb_a, lm, lm), device,
+                       case)
+    x = fused_x(pplan, gp, wide_blocks(rng, plan.nnzb_x, lm, ln, lanes=True),
+                torch.float64, device)
+    return mult, x
+
+
+def test_cpu_oz_multiply_never_builds(monkeypatch):
+    def refuse():
+        raise AssertionError("a CPU tensor must not reach the kernel")
+
+    monkeypatch.setattr(_build, "load_kernels", refuse)
+    before = pp.OzPairPanelMultiply.launches
+    for case in OZ_CASES:
+        lm, ln = oz_sizes(case)[0]
+        mult, x = _oz(np.random.default_rng(30), case, lm, ln, 2, 1, "cpu")
+        assert torch.equal(mult(x), mult.plain(x))
+    assert pp.OzPairPanelMultiply.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(OZ_CASES))
+def test_oz_kernel_matches_plain_on_card(case):
+    """The oz kernel's output equals its plain version's to the bit (the
+    slice products are exact, so any order of their sums gives the same
+    bits), and again on a repeat: at the kernel block sizes with LM >= 16
+    x G (1, 2) x r_tile (1, 2)."""
+    _needs_card()
+    rng = np.random.default_rng(31)
+    for lm, ln in oz_sizes(case):
+        for group in (1, 2):
+            for r_tile in (1, 2):
+                mult, x = _oz(rng, case, lm, ln, group, r_tile, "cuda")
+                check_oz(mult, x, f"{case} ({lm}, {ln}) G {group} r_tile "
+                         f"{r_tile}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(OZ_BOUND))
+def test_oz_kernel_exact_at_its_depth_bound_on_card(case):
+    """Every slice at full scale and of one sign, at the deepest
+    contraction the body admits: the tensor cores' float32 (or int32) sums
+    lose no bit."""
+    _needs_card()
+    mult, xw = oz_bound_case(case, "cuda")
+    got, want = mult.body_out(xw), mult.body_plain(xw)
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_oz_solve_launches_the_oz_kernel_on_card():
+    """A 'z' 'pairs' solve under TFQ_PAIRS_Z_OZ=1 sends every multiply
+    through the oz kernel ('xi8' at LM 32) and none through K1, and gives
+    K1's solution to 1e-10."""
+    _needs_card()
+    a, x, b = golden_z_problem(mb=24, ncols=4)
+    with autotune.environment({"TFQ_PAIRS_Z_OZ": "1"}):
+        s = Solver(a, x, b, precision="z", engine="pairs", device="cuda")
+    assert s._multiply.body == "xi8"
+    k1 = Solver(a, x, b, precision="z", engine="pairs", device="cuda")
+    pp.OzPairPanelMultiply.launches = PairPlanMultiply.launches = 0
+    info = s.solve(tolerance=1e-10, max_iterations=300)
+    assert info.return_status == 0 and PairPlanMultiply.launches == 0
+    assert pp.OzPairPanelMultiply.launches == (2 * info.iterations_needed
+                                               + info.n_probes)
+    k1.solve(tolerance=1e-10, max_iterations=300)
+    got, want = s.get_matrix("X"), k1.get_matrix("X")
+    assert np.max(np.abs(got - want)) <= 1e-10 * np.max(np.abs(want))

@@ -221,7 +221,7 @@ def test_device_peaks_raise_for_an_unknown_card():
 def test_h100_row_is_the_one_source_of_the_sheet_rates():
     row = tprof.DEVICE_PEAKS[tprof.H100]
     assert row == dict(fp64_tflops=67.0, fp32_tflops=67.0, bf16_tflops=989.0,
-                       hbm_gbps=3350.0, l2_mb=50)
+                       int8_tops=1979.0, hbm_gbps=3350.0, l2_mb=50)
     assert comm_model.HBM_BYTES_PER_S == dma_probe.HBM_BYTES_PER_S == 3.35e12
     assert comm_model.FP32_FLOPS_PER_S == 67e12
     assert tprof.DEVICE_PEAKS["cpu"]["fp64_tflops"] == (

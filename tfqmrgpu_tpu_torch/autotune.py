@@ -118,7 +118,8 @@ def multiply_chain(solver: Solver, nrep: int):
 
 def time_multiply(solver: Solver, nrep: int = 16, repeats: int = 2) -> float:
     """Best-of-``repeats`` time (s) of one multiply on the solver's engine:
-    K1 ('pairs' 'z'), K2 ('pairs' 'c'), K3 ('pallas'), four
+    K1 ('pairs' 'z'), the oz kernel ('pairs' 'z' under TFQ_PAIRS_Z_OZ),
+    K2 ('pairs' 'c'), K3 ('pallas'), four
     ``torch.matmul`` ('dense') or the plain block list ('xla').
 
     A chain of ``nrep`` multiplies (``multiply_chain``) runs on varied
@@ -154,12 +155,24 @@ def default_candidates(precision: str, lm: int = 0) -> list:
       at TFQ_PAIRS_RTILE=2; 'xla'.  The JAX list's TFQ_PAIRS_TSTEP, _COPYG,
       _RESIDENT and _VMEM_CAP variants are the TPU's VMEM and scalar-core
       knobs, which the card does not have.
-    * 'z': 'dense' (FP64 ``torch.matmul``), 'pairs' (K1) and 'xla'.  The
-      JAX list's TFQ_OZC_INT8 variants race its Ozaki slice layouts, and its
-      TFQ_SOLVER_SUPER variants its merge to the Ozaki kernel's LM >= 16;
-      K1 runs native FP64 at every LM, and the port's 'z' never merges."""
+    * 'z': 'dense' (FP64 ``torch.matmul``), 'pairs' (K1, native FP64),
+      then the JAX list's 'pairs' candidates, which run its packed route on
+      the oz kernel, with TFQ_PAIRS_Z_OZ=1: the default ('xi8', or its
+      fallback), TFQ_OZC_INT8=0 (bf16 X slices) and =1 (int8 A, bf16 X);
+      'xla'; and at 0 < LM <= 8 the JAX list's TFQ_SOLVER_SUPER rows, with
+      TFQ_PAIRS_Z_OZ=1 (the merge that lifts the oz kernel's LM to 16 or
+      32; a candidate whose kernel LM stays below 16 is refused)."""
     if precision == "z":
-        return [("dense", {}), ("pairs", {}), ("xla", {})]
+        oz = {"TFQ_PAIRS_Z_OZ": "1"}
+        sup = []
+        if 0 < lm <= 8:
+            sup = [("pairs", {**oz, "TFQ_SOLVER_SUPER": "0"})] + [
+                ("pairs", {**oz, "TFQ_SOLVER_SUPER": str(f)})
+                for f in sorted({16 // lm, 32 // lm}) if f >= 2]
+        return [("dense", {}), ("pairs", {}), ("pairs", oz),
+                ("pairs", {**oz, "TFQ_OZC_INT8": "0"}),
+                ("pairs", {**oz, "TFQ_OZC_INT8": "1"}),
+                ("xla", {})] + sup
     sup: list = []
     if 0 < lm <= 8:
         sup = [("pairs", {"TFQ_SOLVER_SUPER": "0"})] + [

@@ -40,6 +40,13 @@ At LM <= 8 the solver may merge block rows into superblocks before
 packing (``ops/superblock.py``, ``solver.pack_superblock``): the packed
 plan is then the merged one, at LM' = f*LM, and ``fused_primitives``
 masks every product to its live slots (``sup_mask``).
+
+**'z' on the packed plan (the oz kernel).**  Under TFQ_PAIRS_Z_OZ=1 the
+solver runs 'z' as the JAX package does, on the packed plan with float64
+fused panels: ``make_pairpanel_multiply_oz`` cuts A and X into Ozaki slices
+and ``OzPairPanelMultiply`` runs ``csrc/pairpanel_oz.cu``, the counterpart
+of the Ozaki branches of ``_make_call.kernel``, on the INT8 and BF16
+tensor cores (see the section "K1's Ozaki modes").
 """
 
 from __future__ import annotations
@@ -47,6 +54,8 @@ from __future__ import annotations
 import dataclasses
 import functools
 import itertools
+import math
+import os
 from collections import deque
 from math import comb
 from typing import Optional
@@ -55,7 +64,7 @@ import numpy as np
 import torch
 
 from ..errors import Status, TfqmrgpuError, encode_status
-from . import paneltiles
+from . import ozaki, paneltiles
 from .blocksparse import spmm_pairs
 
 Pair = tuple
@@ -118,8 +127,20 @@ def precision_props(precision: str) -> dict:
     (its pairpanel.py:531-579): ``xsplit`` bf16 planes of X (1: raw
     float32), ``a_presplit`` bf16 planes A ships as (0: raw float32),
     ``passes`` the TPU's MXU pass-equivalents a product.  The Ozaki modes
-    'ozN' / 'ozcN' of K1 are not ported (ROADMAP item 17b); they and any
-    other string raise KeyError, as an unknown one does there."""
+    'ozcN' and 'ozN' (N slices) add ``a_bytes``, the bytes of one A slice
+    entry (1 for int8 planes under TFQ_OZC_INT8 / TFQ_OZ_INT8, else 2),
+    and 'ozcN' ``comp``.  Any other string raises KeyError, as an unknown
+    one does there."""
+    if precision.startswith("ozc"):
+        p = int(precision[3:])
+        a_b = 1 if os.environ.get("TFQ_OZC_INT8", "0") != "0" else 2
+        return dict(xsplit=p, a_presplit=p, passes=p * (p + 1) / 4.0,
+                    a_bytes=a_b, comp=True)
+    if precision.startswith("oz"):
+        p = int(precision[2:])
+        a_b = 1 if os.environ.get("TFQ_OZ_INT8", "1") != "0" else 2
+        return dict(xsplit=p, a_presplit=p, passes=p * (p + 1) / 4.0,
+                    a_bytes=a_b)
     return {
         "highest": dict(xsplit=1, a_presplit=0, passes=6.0),
         "bf16":    dict(xsplit=2, a_presplit=2, passes=1.0),
@@ -1380,6 +1401,467 @@ class PairPanelMultiply:
         return y
 
 
+# ========================================================== K1's Ozaki modes
+#
+# The JAX package runs every 'z' solve of its 'pairs' engine through the
+# Ozaki branches of K1's TPU body (its pairpanel.py:1527-1647): A and X are
+# cut into p exponent-blocked slices (int8 or bf16), the kernel takes the
+# slice products s + t <= p - 1 on the matrix unit, each exact, reduces
+# them in a fixed order, and a float64 combine outside restores the
+# product.  The port runs 'z' natively on K1's FP64 tensor cores; this
+# route is the opt-in TFQ_PAIRS_Z_OZ=1 (solver.py), on the hand-written
+# kernel ``csrc/pairpanel_oz.cu``, in the JAX package's three bodies:
+#
+#   'ozc'  A bf16 (q 8) or int8 raw ints (TFQ_OZC_INT8=1, q 7) re-scaled to
+#          bf16, X bf16: every product exact in float32, folded in diagonal
+#          order (TwoSum up to diagonal 4, a plain tail beyond), then the
+#          complex assembly as two more TwoSum steps: [M, 4LN] of
+#          (re_acc | im_acc | re_err | im_err);
+#   'xi8'  A and X int8 raw ints (TFQ_OZC_INT8=2/3 at LM % 32 == 0), int32
+#          diagonal sums, each split into a multiple of 2^12 and a
+#          remainder and TwoSum-folded, then the same assembly;
+#   'oz'   (TFQ_OZ_COMP=0) A int8 (TFQ_OZ_INT8=1) or bf16, X bf16: the raw
+#          per-diagonal float32 sums [2M, p*2LN], exact by slice_params'
+#          diag_sum bound, summed in float64 outside.
+
+OZ_BODIES = ("oz", "ozc", "xi8")
+
+
+def z_oz_enabled() -> bool:
+    """Whether TFQ_PAIRS_Z_OZ (default '0') sends 'z' on the 'pairs' engine
+    to the JAX package's packed route on the oz kernel."""
+    return os.environ.get("TFQ_PAIRS_Z_OZ", "0") != "0"
+
+# the slice counts the card's kernel is built for, by body
+OZ_KERNEL_P = {"oz": (7, 8, 9, 11, 14), "ozc": (7, 8, 9), "xi8": (8, 9)}
+# 'ozc' TwoSum-folds the products of diagonals d <= this; deeper ones
+# accumulate plainly into a tail (the JAX body's hybrid fold)
+OZ_TWOSUM_DIAGONALS = 4
+
+
+def oz_mode_params(k: int, bits: int = 53,
+                   int8: str = None) -> tuple[str, int, int]:
+    """(precision tag, p, q) of the multiply ``make_pairpanel_multiply_oz``
+    builds for contraction depth ``k`` under TFQ_OZ_COMP, TFQ_OZC_INT8
+    (or ``int8``) and TFQ_OZ_INT8, the JAX package's function and errors:
+    'ozc' (the default) with bf16 A at q 8 / p 7, int8 raw-int A at q 7 /
+    p 8 for a TFQ_OZC_INT8 other than '0', and at '2' / '3' the 'xi8'
+    depth bound p*k*66^2 <= 2^31; TFQ_OZ_COMP=0 the legacy 'oz' at
+    ``slice_params(diag_sum=True)``, re-sliced at q 7 for int8 A."""
+    if os.environ.get("TFQ_OZC_INT8") is not None and int8 is None:
+        int8 = os.environ.get("TFQ_OZC_INT8")
+    if os.environ.get("TFQ_OZ_COMP", "1") != "0":
+        p, q = ozaki.slice_params_comp(k, bits)
+        i8 = int8 if int8 is not None else "0"
+        if i8 != "0" and q > 7:
+            # int8 ints <= 2^{q-1} + 2 <= 66 at q 7
+            q = 7
+            p = math.ceil(bits / q) + (1 if bits % q == 0 else 0)
+        if i8 in ("2", "3"):
+            if p * k * (2 ** (q - 1) + 2) ** 2 > 2 ** 31:
+                raise ValueError(f"contraction depth {k} too deep for "
+                                 f"int32 slice accumulation at q={q}")
+        elif k * (2 ** (q - 1) + 2) ** 2 > 2 ** 24:
+            raise ValueError(f"contraction depth {k} too deep for exact "
+                             f"f32 slice products at q={q}")
+        return f"ozc{p}", p, q
+    p, q = ozaki.slice_params(k, bits, diag_sum=True)
+    if os.environ.get("TFQ_OZ_INT8", "1") != "0" and q > 7:
+        q = 7
+        p = max(p, -(-54 // 7))
+    return f"oz{p}", p, q
+
+
+def _oz_slices(pure: torch.Tensor, p: int, q: int) -> list:
+    """p bf16 slices of a float64 tensor descaled to |.| <= 1: pure ==
+    sum_s slices[s] + O(2^{-pq}); slice s is an integer times 2^{-(s+1)q},
+    and the residual subtracts the stored slice (JAX: ``_oz_slices``)."""
+    r = pure
+    out = []
+    for s in range(p):
+        step = 2.0 ** ((s + 1) * q)
+        sl = (torch.round(r * step) / step).to(torch.bfloat16)
+        r = r - sl.to(torch.float64)
+        out.append(sl)
+    return out
+
+
+def _oz_slices_f32pair(hi: torch.Tensor, lo: torch.Tensor, p: int, q: int,
+                       out_int8: bool = False) -> list:
+    """p slices of the exact float32 pair (hi, lo), |hi + lo| <= 0.5, in
+    float32 arithmetic only (JAX: ``_oz_slices_f32pair``): each stream is
+    sliced on the shared grid, the two merged, and a downward carry sweep
+    keeps every slice int within 2^{q-1} + 2.  bf16 slice values, or with
+    ``out_int8`` the raw slice integers as int8 (the 'xi8' X side)."""
+    rh, rl = hi, lo
+    ms = []
+    for s in range(p):
+        step = 2.0 ** ((s + 1) * q)
+        istep = 2.0 ** (-(s + 1) * q)
+        sh = torch.round(rh * step) * istep
+        rh = rh - sh
+        if (s + 1) * q <= 24:
+            # |lo| <= 2^-25: its rounds at these grids are exactly zero
+            ms.append(sh)
+            continue
+        sl = torch.round(rl * step) * istep
+        rl = rl - sl
+        ms.append(sh + sl)
+    for s in range(p - 1, 0, -1):
+        c = torch.round(ms[s] * 2.0 ** (s * q)) * 2.0 ** (-s * q)
+        ms[s - 1] = ms[s - 1] + c
+        ms[s] = ms[s] - c
+    if out_int8:
+        return [(m * 2.0 ** ((s + 1) * q)).to(torch.int8)
+                for s, m in enumerate(ms)]
+    return [m.to(torch.bfloat16) for m in ms]
+
+
+def _oz_slices_int8(pure: torch.Tensor, p: int, q: int,
+                    r_cap_log2: int = 0) -> list:
+    """p raw-integer int8 slices of a float64 tensor descaled to
+    |.| <= 2^{r_cap_log2}: pure == sum_s slices[s] * 2^{-(s+1)q} +
+    O(2^{-pq}), with the carry sweep that keeps every int within
+    2^{q-1} + 2 (JAX: ``_oz_slices_int8``, the same ValueError where an
+    int could overflow int8)."""
+    if q - 1 > 7 or q + r_cap_log2 > 7:
+        raise ValueError(f"q={q} (first-slice cap 2^{q + r_cap_log2}, "
+                         f"residual cap 2^{q - 1}) overflows int8")
+    r = pure
+    ints = []
+    for s in range(p):
+        step = 2.0 ** ((s + 1) * q)
+        sl = torch.round(r * step).to(torch.float32)
+        r = r - sl.to(torch.float64) / step
+        ints.append(sl)
+    for s in range(p - 1, 0, -1):
+        c = torch.round(ints[s] * 2.0 ** -q)
+        ints[s - 1] = ints[s - 1] + c
+        ints[s] = ints[s] - c * 2.0 ** q
+    return [i.to(torch.int8) for i in ints]
+
+
+def _two_sum(acc: torch.Tensor, err: torch.Tensor, b: torch.Tensor):
+    """One step of the Knuth TwoSum chain in float32: (acc + b rounded,
+    err plus the exact rounding error), in the JAX body's order."""
+    tot = acc + b
+    a_v = tot - b
+    b_v = tot - a_v
+    return tot, err + ((acc - a_v) + (b - b_v))
+
+
+def oz_finish(acc: torch.Tensor, err: torch.Tensor, m: int,
+              c: int) -> torch.Tensor:
+    """The in-kernel complex assembly of 'ozc' / 'xi8' (JAX: ``finish``):
+    acc, err [nt, 2m, 2c] float32 (P rows over Q rows, re lanes then im
+    lanes) -> [nt, m, 4c] = (re_acc | im_acc | re_err | im_err), re = P1 -
+    Q2 and im = P2 + Q1 each as one TwoSum step."""
+    pa, qa = acc[:, :m], acc[:, m:]
+    pe, qe = err[:, :m], err[:, m:]
+    a1, b1 = pa[..., :c], -qa[..., c:]
+    t1 = a1 + b1
+    av = t1 - b1
+    bv = t1 - av
+    e1 = ((a1 - av) + (b1 - bv)) + (pe[..., :c] - qe[..., c:])
+    a2, b2 = pa[..., c:], qa[..., :c]
+    t2 = a2 + b2
+    av2 = t2 - b2
+    bv2 = t2 - av2
+    e2 = ((a2 - av2) + (b2 - bv2)) + (pe[..., c:] + qe[..., :c])
+    return torch.cat([t1, t2, e1, e2], dim=2)
+
+
+def oz_body_plain(a_cat: torch.Tensor, xw: torch.Tensor, xloc: torch.Tensor,
+                  m: int, lm: int, c: int, p: int, q: int, body: str,
+                  a_int8: bool) -> torch.Tensor:
+    """The plain version of the oz kernel, on any device: tile t's A slices
+    a_cat[t] [p*2m, K] (int8 or bf16) times the X slice rows of its union
+    (``xloc``; xw [rows, p*2c], bf16 or int8), reduced as ``body`` does.
+
+    Every slice product is taken in float64 with ``torch.matmul``, where it
+    is exact, and cast to float32 (exact: the slice bounds keep each
+    product within 2^24 of its grid), or for 'xi8' to int64.  int8 A of
+    the bf16 bodies is re-scaled by 2^{-(s+1)q}, as the kernel does.  The
+    reductions then run in the JAX body's order: 'oz' the float32 diagonal
+    sums [nt, 2m, p*2c]; 'ozc' the hybrid TwoSum fold; 'xi8' the int64
+    diagonal sums split at 2^12 and folded; both through ``oz_finish``
+    into [nt, m, 4c]."""
+    f32, f64 = torch.float32, torch.float64
+    nt, rows_a, k = a_cat.shape
+    m2, two = 2 * m, 2 * c
+    if rows_a != p * m2:
+        raise ValueError(f"A slices of {rows_a} rows for p={p}, 2M={m2}")
+    xs = xw.reshape(-1, lm, p * two)[xloc.to(torch.int64)]
+    xs = xs.reshape(nt, k, p * two).to(f64)
+    a = a_cat.to(f64)
+    if a_int8 and body != "xi8":
+        scale = torch.tensor([2.0 ** (-(s + 1) * q) for s in range(p)],
+                             dtype=f64, device=a.device)
+        a = (a.view(nt, p, m2, k) * scale[None, :, None, None]).view(
+            nt, p * m2, k)
+    # dot s: A slice s times the X slices t <= p-1-s, side by side
+    dots = [torch.matmul(a[:, s * m2:(s + 1) * m2],
+                         xs[..., :(p - s) * two]) for s in range(p)]
+
+    def prod(s, t):
+        return dots[s][..., t * two:(t + 1) * two]
+
+    if body == "xi8":
+        acc = err = None
+        for d in range(p):
+            tot = sum(prod(s, d - s).to(torch.int64) for s in range(d + 1))
+            sc = 2.0 ** (-(d + 2) * q)
+            lo_i = torch.fmod(tot, 4096)
+            hi_i = tot - lo_i
+            for v in (hi_i.to(f32) * sc, lo_i.to(f32) * sc):
+                if acc is None:
+                    acc, err = v, torch.zeros_like(v)
+                else:
+                    acc, err = _two_sum(acc, err, v)
+        return oz_finish(acc, err, m, c)
+    if body == "ozc":
+        acc = prod(0, 0).to(f32)
+        err = torch.zeros_like(acc)
+        tail = torch.zeros_like(acc)
+        for d in range(1, p):
+            for s in range(d + 1):
+                b = prod(s, d - s).to(f32)
+                if d <= OZ_TWOSUM_DIAGONALS:
+                    acc, err = _two_sum(acc, err, b)
+                else:
+                    tail = tail + b
+        return oz_finish(acc, err + tail, m, c)
+    cols = []
+    for d in range(p):
+        acc = prod(0, d).to(f32)
+        for s in range(1, d + 1):
+            acc = acc + prod(s, d - s).to(f32)
+        cols.append(acc)
+    return torch.cat(cols, dim=2)
+
+
+class OzPairPanelMultiply:
+    """float64-quality ``y = A @ x`` on fused permuted panels from exact
+    slice products: the JAX package's 'z' multiply of its 'pairs' engine
+    (``OzPairPanelMultiply``), on the oz kernel ``csrc/pairpanel_oz.cu``.
+
+    ``x`` is a float64 fused panel [n_slots*LM, 2*LN'] (re lanes, then im
+    lanes); the result has the same shape.  ``slice_x`` takes X's
+    power-of-two lane scale tau (shared across the re/im lanes in 'ozc' and
+    'xi8', doubled for the spare binade) and its p slice planes [rows,
+    p*2LN'] (bf16, or int8 for 'xi8'); ``body`` runs the kernel on them
+    (on a CUDA tensor the kernel or a raise; on a CPU tensor
+    ``body_plain``), and ``combine`` descales in float64: f64(acc) +
+    f64(err) times sigma*tau in 'ozc' / 'xi8', the diagonal sums then the
+    complex assembly in 'oz'.  The JAX package takes float32 fast paths of
+    the prologue and the combine under ``lax.cond`` where they are exact;
+    the card has float64, so the port always takes the float64 branch,
+    which gives the same bits wherever the fast branch is valid.
+
+    ``launches`` counts the kernel's launches by every instance in this
+    process; the plain version never adds to it.  ``mode`` is the
+    precision tag ('ozcN' or 'ozN'), ``body`` one of ``OZ_BODIES``."""
+
+    launches: int = 0
+
+    def __init__(self, plan: PairPanelPlan, planes: torch.Tensor,
+                 sigma: torch.Tensor, p: int, q: int, comp: bool,
+                 xi8: bool, a_int8: bool):
+        self.p, self.q = int(p), int(q)
+        self.comp, self.xi8, self.a_int8 = bool(comp), bool(xi8), bool(a_int8)
+        self.body = "xi8" if xi8 else "ozc" if comp else "oz"
+        self.mode = f"ozc{p}" if comp else f"oz{p}"
+        self.lm, self.ln, self.ku = plan.lm, plan.ln, plan.ku
+        self.m = plan.r_tile * plan.lm
+        self.ntiles = plan.ntiles
+        self.n_rows = plan.n_slots * plan.lm
+        shape = (self.ntiles, self.p * 2 * self.m, self.ku * self.lm)
+        if tuple(planes.shape) != shape or not planes.is_contiguous():
+            raise ValueError(f"A slices must be a contiguous {shape} tensor, "
+                             f"got {tuple(planes.shape)}")
+        want = torch.int8 if self.a_int8 else torch.bfloat16
+        if planes.dtype != want:
+            raise ValueError(f"A slices of {planes.dtype}, expected {want}")
+        dev = planes.device
+        if dev.type == "cuda":
+            if self.p not in OZ_KERNEL_P[self.body]:
+                raise ValueError(f"the oz kernel's '{self.body}' body is built "
+                                 f"for p in {OZ_KERNEL_P[self.body]}, not "
+                                 f"{self.p}")
+            if self.lm % 4:
+                raise TfqmrgpuError(encode_status(Status.BLOCKSIZE_MISSING),
+                                    "the oz kernel takes LM in multiples of "
+                                    f"4, got {self.lm}")
+        self.planes, self.sigma = planes, sigma
+        self.xloc = torch.from_numpy(
+            np.ascontiguousarray(plan.xloc, dtype=np.int32)).to(dev)
+        self.kcount = torch.from_numpy(
+            np.ascontiguousarray(plan.kcount, dtype=np.int32)).to(dev)
+
+    @property
+    def device(self) -> torch.device:
+        return self.planes.device
+
+    @property
+    def raw_shape(self) -> tuple:
+        """The kernel's output: [ntiles, M, 4LN'] or, in 'oz', [ntiles, 2M,
+        p*2LN']."""
+        if self.body == "oz":
+            return (self.ntiles, 2 * self.m, self.p * 2 * self.ln)
+        return (self.ntiles, self.m, 4 * self.ln)
+
+    def slice_x(self, x: torch.Tensor) -> tuple:
+        """(X slice planes [rows, p*2LN'], tau [1, 2LN'] float64)."""
+        c, p, q = self.ln, self.p, self.q
+        amax = x.abs().amax(dim=0, keepdim=True)
+        if self.comp:
+            half = torch.maximum(amax[:, :c], amax[:, c:])
+            tau = ozaki.pow2_scale(torch.cat([half, half], dim=1)) * 2.0
+            r = x / tau                                 # exact: powers of two
+            hi = r.to(torch.float32)
+            lo = (r - hi.to(torch.float64)).to(torch.float32)
+            xs = _oz_slices_f32pair(hi, lo, p, q, out_int8=self.xi8)
+        else:
+            tau = ozaki.pow2_scale(amax)
+            xs = _oz_slices(x / tau, p, q)
+        return torch.cat(xs, dim=1).contiguous(), tau
+
+    def body_plain(self, xw: torch.Tensor) -> torch.Tensor:
+        """The kernel's output by the plain version, on any device."""
+        return oz_body_plain(self.planes, xw, self.xloc, self.m, self.lm,
+                             self.ln, self.p, self.q, self.body, self.a_int8)
+
+    def body_out(self, xw: torch.Tensor) -> torch.Tensor:
+        """The kernel's output: the kernel on a CUDA tensor, the plain
+        version on a CPU one."""
+        want = torch.int8 if self.xi8 else torch.bfloat16
+        shape = (self.n_rows, self.p * 2 * self.ln)
+        if (xw.device != self.device or xw.dtype != want
+                or tuple(xw.shape) != shape or not xw.is_contiguous()):
+            raise ValueError(f"X slices must be a contiguous {shape} {want} "
+                             f"tensor on {self.device}; got "
+                             f"{tuple(xw.shape)} {xw.dtype} on {xw.device}")
+        if self.device.type == "cpu":
+            return self.body_plain(xw)
+        if self.device.type != "cuda":
+            raise TfqmrgpuError(encode_status(Status.NO_IMPLEMENTATION),
+                                f"no oz kernel for {self.device}")
+        return self._launch(xw)
+
+    def _launch(self, xw: torch.Tensor) -> torch.Tensor:
+        from .._build import load_kernels
+
+        lib = load_kernels()
+        y = torch.empty(self.raw_shape, dtype=torch.float32,
+                        device=self.device)
+        # the kernel stages X from its lane-major copy [p*2LN', rows], whose
+        # 32-bit words hold consecutive rows of one lane
+        xt = xw.t().contiguous()
+        with torch.cuda.device(self.device):
+            stream = torch.cuda.current_stream(self.device).cuda_stream
+            rc = lib.tfq_pairpanel_oz(
+                self.planes.data_ptr(), xt.data_ptr(), y.data_ptr(),
+                self.xloc.data_ptr(), self.kcount.data_ptr(), self.ntiles,
+                self.m, self.ku, self.lm, self.ln, self.n_rows, self.p,
+                self.q, OZ_BODIES.index(self.body), int(self.a_int8), stream)
+        if rc != 0:
+            raise TfqmrgpuError(encode_status(Status.LAUNCH_FAILED),
+                                f"oz kernel ({self.body}) returned {rc}")
+        OzPairPanelMultiply.launches += 1
+        return y
+
+    def combine(self, raw: torch.Tensor, tau: torch.Tensor) -> torch.Tensor:
+        """The float64 combine of the kernel's output: the fused product
+        [n_slots*LM, 2LN']."""
+        c, m = self.ln, self.m
+        f64 = torch.float64
+        if self.body != "oz":
+            fused = ((raw[..., :2 * c].to(f64) + raw[..., 2 * c:].to(f64))
+                     * self.sigma * tau[None])
+        else:
+            y = sum(raw[..., 2 * c * d:2 * c * (d + 1)].to(f64)
+                    for d in range(self.p))
+            y = y * self.sigma * tau[None]
+            pt, qt = y[:, :m], y[:, m:]
+            fused = torch.cat([pt[..., :c] - qt[..., c:],
+                               pt[..., c:] + qt[..., :c]], dim=2)
+        return fused.reshape(-1, 2 * c)[:self.n_rows].contiguous()
+
+    def _check(self, x: torch.Tensor):
+        shape = (self.n_rows, 2 * self.ln)
+        if (x.device != self.device or x.dtype != torch.float64
+                or tuple(x.shape) != shape):
+            raise ValueError(f"x must be a {shape} float64 tensor on "
+                             f"{self.device}; got {tuple(x.shape)} {x.dtype} "
+                             f"on {x.device}")
+
+    def plain(self, x: torch.Tensor) -> torch.Tensor:
+        """The whole multiply with the plain kernel body, on any device."""
+        self._check(x)
+        xw, tau = self.slice_x(x)
+        return self.combine(self.body_plain(xw), tau)
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        self._check(x)
+        xw, tau = self.slice_x(x)
+        return self.combine(self.body_out(xw), tau)
+
+
+def make_pairpanel_multiply_oz(plan: PairPanelPlan, a_re: torch.Tensor,
+                               a_im: torch.Tensor, t_step: int = 1,
+                               bits: int = 53,
+                               int8: str = None) -> OzPairPanelMultiply:
+    """Build the float64-quality ('z') multiply of the packed plan from
+    float64 A blocks [nnzb, LM, LM] on their device (JAX:
+    ``make_pairpanel_multiply_oz``): the fused panels in float64, their
+    per-row power-of-two scale sigma (in 'ozc' shared across the re/im
+    halves and doubled, the dual spare binade), p slice planes (int8 raw
+    ints or bf16 values) concatenated as [ntiles, p*2M, K].  The mode is
+    ``oz_mode_params(ku*LM, bits, int8)``'s; a 'xi8' request falls back to
+    the mixed int8-A / bf16-X body where LM % 32 != 0, and raises
+    ValueError where that body's float32 bound fails, as JAX does.
+
+    Only the resident layout exists here, so the JAX refusal of resident
+    plans outside 'xi8' (a VMEM limit) does not apply; ``t_step`` changes
+    nothing that is computed and is accepted and ignored, as K2 does."""
+    del t_step
+    r, lm = plan.r_tile, plan.lm
+    k = plan.ku * lm
+    tag, p, q = oz_mode_params(k, bits, int8=int8)
+    comp = tag.startswith("ozc")
+    if comp:
+        i8_env = (int8 if int8 is not None else
+                  os.environ.get("TFQ_OZC_INT8", "0"))
+    else:
+        i8_env = os.environ.get("TFQ_OZ_INT8", "1")
+    use_int8 = i8_env != "0"
+    xi8 = comp and i8_env in ("2", "3") and q <= 7 and lm % 32 == 0
+    if comp and use_int8 and not xi8 \
+            and k * (2 ** (q - 1) + 2) ** 2 > 2 ** 24:
+        raise ValueError(f"contraction depth {k} too deep for exact f32 "
+                         f"slice products at q={q} (xi8 unavailable at "
+                         f"lm={lm})")
+    f64 = torch.float64
+    panels = build_a_panels_device(plan, a_re.to(f64), a_im.to(f64))
+    sigma = ozaki.pow2_scale(panels.abs().amax(dim=2, keepdim=True))
+    a_int8 = use_int8 and q <= 7        # (always q <= 7 in legacy 'oz')
+    if comp:
+        mr = r * lm
+        sig_sh = torch.maximum(sigma[:, :mr], sigma[:, mr:])
+        sigma = torch.cat([sig_sh, sig_sh], dim=1) * 2.0
+        planes = (_oz_slices_int8(panels / sigma, p, q, r_cap_log2=-1)
+                  if a_int8 else _oz_slices(panels / sigma, p, q))
+        sigma = sigma[:, :mr].contiguous()
+    elif a_int8:
+        if 2 ** q > 64:
+            sigma = sigma * 2.0
+        planes = _oz_slices_int8(panels / sigma, p, q)
+    else:
+        planes = _oz_slices(panels / sigma, p, q)
+    return OzPairPanelMultiply(plan, torch.cat(planes, dim=1).contiguous(),
+                               sigma, p, q, comp, xi8, a_int8)
+
+
 # ====================================================== fused primitives
 
 def fused_primitives(mult, plan: PairPanelPlan, ncc: int,
@@ -1391,13 +1873,15 @@ def fused_primitives(mult, plan: PairPanelPlan, ncc: int,
     [n_slots*LM, 2*LN'] (JAX: ``fused_primitives`` in 'c' without col_pad,
     and ``_fused_primitives_grouped``).
 
-    ``multiply`` is ``mult`` (K2) followed, with column groups, by the
-    grouped lane mask.  ``dotp`` and ``nrm2`` sum over each slot's rows and
-    then over the slots of each group (or column) in float32, through a
-    padded slot table (no atomics: the order is fixed), and cast the
-    per-column results to float64, the JAX package's order of types.
-    ``axpy``/``xpay`` expand the per-column scalars to slots by a gather, in
-    float32.  ``add_rhs`` is ``v + s * b_fused``.
+    ``multiply`` is ``mult`` (K2, or in 'z' the oz kernel's
+    ``OzPairPanelMultiply``) followed, with column groups, by the grouped
+    lane mask.  ``dotp`` and ``nrm2`` sum over each slot's rows and then
+    over the slots of each group (or column) in the vectors' type, float32
+    or float64 (``b_fused``'s), through a padded slot table (no atomics:
+    the order is fixed), and cast the per-column results to float64, the
+    JAX package's order of types.  ``axpy``/``xpay`` expand the per-column
+    scalars to slots by a gather, in the vectors' type (JAX: its
+    ``vdt == float64`` branch for 'z').  ``add_rhs`` is ``v + s * b_fused``.
 
     A shard of a sharded solve holds some of the slots (``b_fused`` has its
     rows): ``slot_group`` gives the group of each (-1 for a pad slot),
@@ -1421,7 +1905,7 @@ def fused_primitives(mult, plan: PairPanelPlan, ncc: int,
     ln0 = ln2 // gsz
     ngroups = gp.ngroups if gp is not None else ncc
     nslots, dev = b_fused.shape[0] // lm, b_fused.device
-    f32, f64 = torch.float32, torch.float64
+    vdt, f64 = b_fused.dtype, torch.float64
     if slot_group is None:
         slot_group = plan.col_of_new
     # pad slots gather from an extra group of zeros and sum into it
@@ -1453,7 +1937,7 @@ def fused_primitives(mult, plan: PairPanelPlan, ncc: int,
         return (y.view(nslots, lm, 2 * ln2) * mask).view(-1, 2 * ln2)
 
     def groupsum(p):
-        """[nslots, LM, LN'] float32 -> [ngroups, LN'] float32."""
+        """[nslots, LM, LN'] -> [ngroups, LN'], in the vectors' type."""
         return _segment_sum(p.sum(dim=1), table)[:ngroups]
 
     def to_columns(z):
@@ -1474,11 +1958,12 @@ def fused_primitives(mult, plan: PairPanelPlan, ncc: int,
         return to_columns(z if psum is None else psum(z))
 
     def scale(a):
-        """[ncc, LN] float64 scalars -> [nslots, 1, LN'] float32."""
+        """[ncc, LN] float64 scalars -> [nslots, 1, LN'] in the vectors'
+        type."""
         def expand(v):
-            flat = torch.zeros(((ngroups + pad) * gsz, ln0), dtype=f32,
+            flat = torch.zeros(((ngroups + pad) * gsz, ln0), dtype=vdt,
                                device=dev)
-            flat[gc] = v.to(f32)
+            flat[gc] = v.to(vdt)
             return flat.view(ngroups + pad, ln2)[slot_grp][:, None, :]
         return expand(a[0]), expand(a[1])
 

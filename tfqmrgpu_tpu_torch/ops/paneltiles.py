@@ -27,6 +27,15 @@ The bf16 split modes of both kernels run ``csrc/panel_mma.cuh`` over the
 same tables at their own CTA shapes (``mma_shape``; the union tables at
 every lane count), with A split once into bf16 planes (``bf16_planes``).
 
+The oz kernel of K1's Ozaki modes (``csrc/pairpanel_oz.cu``) uses none of
+these tables: a CTA owns 16 rows by 8 or 16 lanes of one tile and reads the
+tile's ``xloc`` and ``kcount`` itself, the CTAs of a tile adjacent in a
+one-dimensional grid.  A unit of several short tiles side by side would not
+fit it: the kernel keeps an accumulator set for each slice product (or
+diagonal) of its rows, up to 45 of them, so a unit's rows would multiply its
+registers, and it needs the pack's tiles, which the 'z' route makes 16 or
+32 rows tall anyway.
+
 Units stay whole: where equal units leave a last, partly filled round, a
 CTA alone on an SM runs at nearly the rate of two, so that round costs about
 half a unit's time, and a half unit cut along the lanes and run by half of a

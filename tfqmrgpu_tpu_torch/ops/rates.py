@@ -1,6 +1,6 @@
-"""Measured rates of the packed 'c' engine (K2) on the golden-class plan:
-the one source of the superblock routing cost model
-(``superblock.auto_f_row`` and the solver's superblock composition).
+"""Measured rates of the packed engine on the golden-class plan, K2 in 'c'
+and the oz kernel in 'z': the one source of the superblock routing cost
+model (``superblock.auto_f_row`` and the solver's superblock composition).
 
 Counterpart of ``tfqmrgpu_tpu/ops/rates.py``, with the same interface and
 the same defaults for sizes that were not measured; the values are the
@@ -20,10 +20,15 @@ table: ``chip_smoke.py`` phase 19 (a) on that card, K2's device times
 0.0114, 0.0337, 0.1213 and 0.3405 ms at (LM, LN) = (4, 4), (8, 8),
 (16, 32) and (32, 32).
 
-There are no 'z' rows: the port's 'z' 'pairs' engine runs K1 on the plan's
-pair table at every block size and never packs, so ``engine_rate('z', .)``
-is 0 and a 'z' problem never merges.  The card's peak rates are
-``profiling.DEVICE_PEAKS``'s, not restated here.
+The 'z' rows are the oz kernel's (K1's Ozaki modes, ``csrc/pairpanel_oz.cu``)
+whole 'z' multiply (X slicing, kernel, float64 combine) in the solver's
+default mode ('xi8' at LM' 32, the mixed int8-A / bf16-X body at 16 and
+below), at the column group size of the 'z' rule, from the same sweep's oz
+rows: ``chip_smoke.py`` phase 19 (a) on "NVIDIA H100 80GB HBM3, 700.00 W",
+1.5184, 1.9279, 3.2344 and 5.8142 ms at (4, 4), (8, 8), (16, 32) and
+(32, 32).  Only the opt-in TFQ_PAIRS_Z_OZ=1 packs 'z' and reads them: by
+default 'z' runs K1 on the plan's pair table and never merges.  The card's
+peak rates are ``profiling.DEVICE_PEAKS``'s, not restated here.
 """
 
 from __future__ import annotations
@@ -33,19 +38,21 @@ from __future__ import annotations
 # rate a merged problem at LM' = lm2 runs at
 ENGINE_TFLOPS = {
     "c": {16: 26.710, 32: 38.075},
+    "z": {16: 1.002, 32: 2.230},
 }
 
 # K2's rates of the small sizes WITHOUT merging, at the square block
 # (LM, LM): the do-nothing baseline the cost model must beat
 BASE_TFLOPS = {
     "c": {4: 2.220, 8: 6.006},
+    "z": {4: 0.017, 8: 0.105},
 }
 
 
 def engine_rate(precision: str, lm2: int) -> float:
-    """Measured K2 TFlop/s at merged block edge ``lm2`` (0.0 where the size
-    or the precision was never measured: callers treat that as
-    ineligible)."""
+    """Measured TFlop/s of the packed engine's kernel (K2 in 'c', the oz
+    kernel in 'z') at merged block edge ``lm2`` (0.0 where the size or the
+    precision was never measured: callers treat that as ineligible)."""
     return ENGINE_TFLOPS.get(precision, {}).get(lm2, 0.0)
 
 

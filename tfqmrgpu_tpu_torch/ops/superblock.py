@@ -351,13 +351,16 @@ def auto_f_row(pair_a, pair_x, pair_y, nnzb: int, lm: int, ln: int,
                speed_tf=None, window: int = 64, precision: str = "c"):
     """Pick f_row by a simple cost model: merged MACs / (the engine's rate
     at the merged LM).  ``speed_tf`` maps lm2 -> TFlop/s; by default the
-    card's measured rates (``ops/rates.py``), which have no 'z' rows, so a
-    'z' problem never merges.  Returns (f_row or 1, {f: RowMerge}); 1 means
-    merging does not pay."""
+    card's measured rates (``ops/rates.py``), whose 'z' rows (the oz
+    kernel's) are read only under TFQ_PAIRS_Z_OZ=1: otherwise a 'z'
+    problem never merges, since 'z' runs K1 on the pair table.  Returns
+    (f_row or 1, {f: RowMerge}); 1 means merging does not pay."""
     from . import rates
+    from .pairpanel import z_oz_enabled
 
     if speed_tf is None:
-        speed_tf = dict(rates.ENGINE_TFLOPS.get(precision, {}))
+        speed_tf = ({} if precision == "z" and not z_oz_enabled() else
+                    dict(rates.ENGINE_TFLOPS.get(precision, {})))
     packs = {}
     best_f, best_cost = 1, None
     base_cost = 1.0 / rates.base_rate(precision, lm)

@@ -34,15 +34,19 @@ from .errors import Status, TfqmrgpuError, encode_status
 # cores and 'c' in 'highest' runs K2 and K3 as exact FP32 FMAs (TF32 is
 # refused), so both peak at 67 TFlop/s; the bf16 split modes of 'c' run K2
 # and K3 on the BF16 tensor cores, 989 TFlop/s dense, over the mode's bf16
-# products (1, 3, 4 or 6 a float32 product); HBM3 3.35 TB/s; 50 MB of L2.
+# products (1, 3, 4 or 6 a float32 product); the oz kernel of 'z' under
+# TFQ_PAIRS_Z_OZ runs p(p+1)/2 slice products a float64 product on the
+# INT8 tensor cores, 1979 TOPS dense ('xi8'), or on the BF16 ones ('ozc',
+# 'oz'); HBM3 3.35 TB/s; 50 MB of L2.
 # The "cpu" row is the JAX package's CPU row as its solver_roofline reads
 # it (1 TFlop/s of bf16, over 40 for 'z' and over ``mm_passes``, 6 by
-# default, for 'c'; 50 GB/s) with its 72 MB residency budget.  A device
-# without a row has no ceiling here.
+# default, for 'c'; 50 GB/s) with its 72 MB residency budget; it has no
+# INT8 rate, and prices 'xi8' at its bf16 rate.  A device without a row
+# has no ceiling here.
 DEVICE_PEAKS = {
     "NVIDIA H100 80GB HBM3": dict(fp64_tflops=67.0, fp32_tflops=67.0,
-                                  bf16_tflops=989.0, hbm_gbps=3350.0,
-                                  l2_mb=50),
+                                  bf16_tflops=989.0, int8_tops=1979.0,
+                                  hbm_gbps=3350.0, l2_mb=50),
     "cpu": dict(fp64_tflops=1.0 / 40, fp32_tflops=1.0 / 6, bf16_tflops=1.0,
                 hbm_gbps=50.0, l2_mb=72),
 }
@@ -228,11 +232,15 @@ def _vector_bytes(solver, rsize: int) -> int:
 
 def _a_bytes(solver, rsize: int) -> int:
     """Bytes of A that one multiply reads: in a split mode K2 and K3 read
-    the A panels as 1, 2 or 3 bf16 planes."""
+    the A panels as 1, 2 or 3 bf16 planes, the oz kernel its p slice
+    planes (int8 or bf16)."""
     plan, lm = solver.plan, solver.lm
     if solver.engine == "dense":
         nr = plan.nrows * lm
         return 2 * nr * nr * rsize
+    oz = _oz_multiply(solver)
+    if oz is not None:
+        return oz.planes.numel() * oz.planes.element_size()
     products = _split_products(solver)
     esize = 4 if products is None else 2 * {1: 1, 3: 2, 4: 2, 6: 3}[products]
     if solver.engine == "pallas":              # K3's row-tile panels
@@ -242,6 +250,15 @@ def _a_bytes(solver, rsize: int) -> int:
         p = solver._pp_plan                    # (at LM' when merged)
         return 2 * p.ntiles * p.r_tile * p.lm * p.ku * p.lm * esize
     return plan.nnzb_a * 2 * lm * lm * rsize   # the block list
+
+
+def _oz_multiply(solver):
+    """The solver's ``OzPairPanelMultiply`` (packed 'z' under
+    TFQ_PAIRS_Z_OZ), or None."""
+    from .ops.pairpanel import OzPairPanelMultiply
+
+    mult = getattr(solver, "_multiply", None)
+    return mult if isinstance(mult, OzPairPanelMultiply) else None
 
 
 def _split_products(solver) -> Optional[int]:
@@ -260,11 +277,13 @@ def solver_roofline(solver, measured_iteration_s: Optional[float] = None,
     ``mm_passes`` is the number of bf16 products a float32 product of 'c'
     takes (1, 3, 4 or 6 for 'bf16', 'bf16x3', 'bf16x4', 'bf16x6'): the
     compute ceiling is then the device's bf16 peak over it (on the "cpu"
-    row the JAX package's value, 1 TFlop/s over ``mm_passes``).  It is
-    the mode the solver's kernel runs: left at None it is worked out from
-    that mode, and a value that contradicts it (any value where the kernel
-    runs exact FP32 or FP64) raises ValueError.  Exact FP32 takes the FP32
-    peak.  (The JAX package's ``mm_passes`` counts MXU passes, 6 for its
+    row the JAX package's value, 1 TFlop/s over ``mm_passes``).  The oz
+    kernel of 'z' (TFQ_PAIRS_Z_OZ) takes p(p+1)/2 slice products a float64
+    product, at the INT8 peak in 'xi8' and the BF16 peak in 'ozc' and 'oz'.
+    It is the mode the solver's kernel runs: left at None it is worked out
+    from that mode, and a value that contradicts it (any value where the
+    kernel runs exact FP32 or FP64) raises ValueError.  Exact FP32 takes
+    the FP32 peak.  (The JAX package's ``mm_passes`` counts MXU passes, 6 for its
     exact FP32, and prices any value it is given; on the H100 exact FP32
     is no bf16 product.)
 
@@ -289,14 +308,23 @@ def solver_roofline(solver, measured_iteration_s: Optional[float] = None,
     vec_passes = 0 if vectors_resident else VECTOR_PASSES
     bytes_ = 2 * _a_bytes(solver, rsize) + vec_passes * nvec
 
-    runs = None if solver.precision == "z" else _split_products(solver)
+    oz = _oz_multiply(solver)
+    if oz is not None:
+        runs = oz.p * (oz.p + 1) // 2
+    else:
+        runs = None if solver.precision == "z" else _split_products(solver)
     if mm_passes is not None and mm_passes != runs:
         raise ValueError(
             f"mm_passes={mm_passes}, but the solver's kernel runs "
-            + ("FP64" if solver.precision == "z" else "exact FP32"
+            + (f"{runs} slice products" if oz is not None
+               else "FP64" if solver.precision == "z" else "exact FP32"
                if runs is None else f"{runs} bf16 products"))
     mm_passes = runs
-    if solver.precision == "z":
+    if oz is not None:
+        rate = (peaks.get("int8_tops", peaks["bf16_tflops"]) if oz.xi8
+                else peaks["bf16_tflops"])
+        peak_tflops = rate / mm_passes
+    elif solver.precision == "z":
         peak_tflops = peaks["fp64_tflops"]
     elif mm_passes is None:
         peak_tflops = peaks["fp32_tflops"]

@@ -27,10 +27,9 @@ Engines (``ENGINES``), as in the JAX package:
   TFQ_SOLVER_SUPER picks it: 'auto' (the default) where the problem has
   at least TFQ_SUPER_MIN_MACS fine MACs (1e6) and the card's measured
   rates (``ops/rates.py``) say it pays, N forces the factor N, 0 turns it
-  off; a pattern it cannot pack falls back to the fine pack.  'z' never
-  merges (its 'pairs' runs K1 on the plan's pair table at every LM), so
-  TFQ_SOLVER_SUPER has no effect there.  On the CPU both run their plain
-  versions.
+  off; a pattern it cannot pack falls back to the fine pack.  'z' runs
+  K1 on the plan's pair table at every LM and never merges, unless
+  TFQ_PAIRS_Z_OZ=1 (below).  On the CPU both run their plain versions.
 * ``'xla'``    -- the block-list engine: the plain ``spmm_pairs``.
 * ``'auto'``   -- the JAX package's rules (its solver.py:113-184): 'dense'
   while the dense planes fit ``DENSE_A_BYTE_LIMIT``, or A is at least 25%
@@ -54,7 +53,17 @@ packed engine runs 'highest' at a kernel LM below 16, and K3 runs 'highest'
 for 'bf16'; an unknown string raises ValueError.  The float64 engines take
 the JAX package's Ozaki opt-ins: TFQ_XLA_OZ=1 for 'xla' and TFQ_Z_OZAKI=1
 for 'dense' (both '0' by default here, '1' in the JAX package, whose TPU
-has no float64 unit).
+has no float64 unit), and TFQ_PAIRS_Z_OZ=1 (default '0') for 'pairs': 'z'
+then takes the JAX package's packed route (its solver.py:134-262,
+609-645) on the oz kernel (``csrc/pairpanel_oz.cu``,
+``ops/pairpanel.OzPairPanelMultiply``): the superblock at LM <= 8 (under
+TFQ_SOLVER_SUPER, by the oz kernel's rates in ``ops/rates.py``), column
+groups of at most 256 lanes, the multiply built in 'xi8' (TFQ_OZC_INT8 "2")
+or, where its mixed fallback fails its depth bound, with bf16 X slices
+("0"), TFQ_OZC_INT8 pinning the mode and TFQ_OZ_COMP / TFQ_OZ_INT8 the
+legacy 'oz' mode, and float64 fused panels.  Where the kernel LM stays
+below 16 an explicit 'pairs' raises PRECISION_MISSMATCH and 'auto' takes
+'xla', as in the JAX package.
 
 Mixed precision 'm' is no ``Solver`` precision: ``solve(precision='m')``,
 ``solve_mixed`` and ``bsrsv_m`` run a 'c' solve, refine it against a
@@ -97,22 +106,25 @@ PANEL_ENGINES = ("dense", "pallas")
 DENSE_A_BYTE_LIMIT = int(64e6)
 PALLAS_X_BYTE_LIMIT = 90 << 20
 # the packed 'pairs' engine groups at most this many lanes (G*LN), as the
-# JAX package's 'c' solver does
+# JAX package's solver does: 512 in 'c', 256 in 'z' (its solver.py:350-356)
 GROUP_LANE_LIMIT = 512
+Z_GROUP_LANE_LIMIT = 256
 
 
 def choose_group_size(pairs: np.ndarray, pair_y: np.ndarray, nnzb_x: int,
                       lm: int, ln: int, row_of: np.ndarray,
-                      colindx: np.ndarray, ncols: int) -> int:
+                      colindx: np.ndarray, ncols: int,
+                      lane_limit: int = GROUP_LANE_LIMIT) -> int:
     """The column group size of the packed 'pairs' engine, and the only
     place it is chosen: ``auto_group_size``'s full-iteration model (2
     multiplies and 15 vector passes at the card's rates) over G in
-    (1, 2, 4, 8) with G*LN <= ``GROUP_LANE_LIMIT``; 1 for a single column,
-    and 1 where the model raises ``ValueError`` (the JAX solver's "do not
-    group", its solver.py:357-374)."""
+    (1, 2, 4, 8) with G*LN <= ``lane_limit`` (``GROUP_LANE_LIMIT``, or
+    ``Z_GROUP_LANE_LIMIT`` in 'z'); 1 for a single column, and 1 where the
+    model raises ``ValueError`` (the JAX solver's "do not group", its
+    solver.py:357-374).  The model prices FP32 K2 in 'z' too."""
     if ncols < 2:
         return 1
-    cands = tuple(g for g in (1, 2, 4, 8) if g * ln <= GROUP_LANE_LIMIT)
+    cands = tuple(g for g in (1, 2, 4, 8) if g * ln <= lane_limit)
     try:
         g, _ = pp_ops.auto_group_size(pairs[:, 0], pairs[:, 1], pair_y,
                                       nnzb_x, lm, ln, row_of=row_of,
@@ -120,6 +132,22 @@ def choose_group_size(pairs: np.ndarray, pair_y: np.ndarray, nnzb_x: int,
     except ValueError:
         return 1
     return g
+
+
+def oz_multiply(pp_plan, a_re: torch.Tensor, a_im: torch.Tensor):
+    """The packed 'z' multiply on the oz kernel over float64 A blocks (the
+    JAX solver's set_matrix, its solver.py:609-645): TFQ_OZC_INT8 pins the
+    mode; unset, 'xi8' ("2") is tried first and the bf16 X slices ("0")
+    where its mixed fallback fails the float32 depth bound."""
+    oz_i8 = os.environ.get("TFQ_OZC_INT8", "2")
+    tries = [oz_i8] if "TFQ_OZC_INT8" in os.environ else [oz_i8, "0"]
+    for n_try, i8_try in enumerate(tries):
+        try:
+            return pp_ops.make_pairpanel_multiply_oz(pp_plan, a_re, a_im,
+                                                     int8=i8_try)
+        except ValueError:
+            if n_try == len(tries) - 1:
+                raise
 
 
 def _pair_lists(plan) -> tuple:
@@ -135,7 +163,8 @@ def _pair_lists(plan) -> tuple:
 
 
 def pack_pairs(plan, lm: int, ln: int, group_size: Optional[int] = None,
-               r_tile: Optional[int] = None) -> tuple:
+               r_tile: Optional[int] = None,
+               lane_limit: int = GROUP_LANE_LIMIT) -> tuple:
     """The packed plan of the 'c' 'pairs' engine, from the plan's pair list
     (JAX: the fine branch of its solver's ``_build_fine_pairs``): the group
     size (``choose_group_size`` for 0, none for 1, else ``group_size``),
@@ -151,7 +180,8 @@ def pack_pairs(plan, lm: int, ln: int, group_size: Optional[int] = None,
         r_tile = int(os.environ.get("TFQ_PAIRS_RTILE", "1"))
     pairs, pair_y, row_of, colindx = _pair_lists(plan)
     g = int(group_size) or choose_group_size(
-        pairs, pair_y, plan.nnzb_x, lm, ln, row_of, colindx, plan.ncols)
+        pairs, pair_y, plan.nnzb_x, lm, ln, row_of, colindx, plan.ncols,
+        lane_limit)
     gp = None
     if g > 1:
         try:
@@ -317,8 +347,11 @@ class Solver:
         self.plan.precision = precision
         self._pack = None              # row-tile packing ('pallas')
         self.engine = self._choose_engine(engine, echo)
-        # the packed 'pairs' engine ('c'): its plan and column groups
-        self._packed = self.engine == "pairs" and precision == "c"
+        # the packed 'pairs' engine ('c', and 'z' under TFQ_PAIRS_Z_OZ): its
+        # plan and column groups
+        self._z_oz = precision == "z" and pp_ops.z_oz_enabled()
+        self._packed = self.engine == "pairs" and (precision == "c"
+                                                   or self._z_oz)
         self._pp_plan: Optional[pp_ops.PairPanelPlan] = None
         self._gp: Optional[pp_ops.GroupedPairs] = None
         # the superblock row merge and its fused live-slot mask (device)
@@ -330,18 +363,34 @@ class Solver:
             except ValueError as e:
                 # the JAX solver's fallback (its solver.py:229-239)
                 if engine != "auto":
+                    if self._z_oz and self.lm < 16:
+                        raise TfqmrgpuError(
+                            encode_status(Status.PRECISION_MISSMATCH),
+                            "the pairs engine's 'z' (Ozaki) kernel needs a "
+                            "kernel LM >= 16 and the superblock merge did "
+                            f"not pack ({e}); use engine='dense' or "
+                            "'xla'") from e
                     raise TfqmrgpuError(
                         encode_status(Status.UNDOCUMENTED_ERROR),
                         f"the packed 'pairs' engine cannot pack this "
                         f"pattern ({e}); use engine='xla'") from e
-                self.engine, self._packed = "xla", False
-                self._pp_plan = self._gp = self._sup = self._sup_mask = None
+                self._drop_pack()
+        if self._z_oz and self._packed and self._pp_plan.lm < 16:
+            # the JAX solver's rule for its Ozaki kernel (its
+            # solver.py:249-264): 'auto' goes to the block-list engine
+            if engine != "auto":
+                raise TfqmrgpuError(
+                    encode_status(Status.PRECISION_MISSMATCH),
+                    "the pairs engine's 'z' (Ozaki) kernel needs a kernel "
+                    f"LM >= 16, got {self._pp_plan.lm}; use engine='dense' "
+                    "or 'xla'")
+            self._drop_pack()
         # K2's matmul precision (the JAX solver's, its solver.py:241-248):
         # TFQ_PAIRS_MM_PREC, coerced to 'highest' at a kernel LM below 16,
         # where the JAX kernel's bf16 windows cannot tile (a superblock's
         # merged LM' of 16 or 32 lifts that)
         self.pairs_prec = "highest"
-        if self._packed:
+        if self._packed and precision == "c":
             prec = pp_ops.check_precision(
                 os.environ.get("TFQ_PAIRS_MM_PREC", "highest"))
             self.pairs_prec = prec if self._pp_plan.lm >= 16 else "highest"
@@ -367,6 +416,11 @@ class Solver:
             self.set_matrix("A", a.data)
         if b.data is not None:
             self.set_matrix("B", b.data)
+
+    def _drop_pack(self):
+        """Leave the packed engine for the block-list engine 'xla'."""
+        self.engine, self._packed = "xla", False
+        self._pp_plan = self._gp = self._sup = self._sup_mask = None
 
     def _choose_engine(self, engine: str, echo: int) -> str:
         """Resolve 'auto' by the JAX package's rules, and build the row-tile
@@ -403,10 +457,14 @@ class Solver:
         return engine
 
     def _pack_pairs(self, echo: int):
-        """The packed plan of the 'c' 'pairs' engine: at LM <= 8 the
-        superblock (``pack_superblock`` under TFQ_SOLVER_SUPER, unless it
-        is 0), where it packs, else ``pack_pairs`` under
-        TFQ_PAIRS_COLGROUP and TFQ_PAIRS_RTILE."""
+        """The packed plan of the 'pairs' engine ('c', or 'z' under
+        TFQ_PAIRS_Z_OZ): at LM <= 8 the superblock (``pack_superblock``
+        under TFQ_SOLVER_SUPER, unless it is 0), where it packs, else
+        ``pack_pairs`` under TFQ_PAIRS_COLGROUP and TFQ_PAIRS_RTILE, with
+        groups of at most ``Z_GROUP_LANE_LIMIT`` lanes in 'z'.  In 'z' a
+        superblock that does not pack raises its ValueError, as the JAX
+        solver does (the fine pack at LM <= 8 cannot run the Ozaki
+        kernel)."""
         sup_env = os.environ.get("TFQ_SOLVER_SUPER", "auto")
         if sup_env != "0" and self.lm <= 8:
             try:
@@ -416,11 +474,14 @@ class Solver:
                 if echo > 2:
                     print(f"# superblock unavailable ({e}); fine-grained "
                           "pairs")
+                if self._z_oz:
+                    raise
         if self._sup is not None:
             rm = self._sup
             mask = sb_ops.merged_mask_full(rm, self._gp)
             self._sup_mask = torch.from_numpy(
-                pp_ops.permute_x(self._pp_plan, mask, mask)).to(self.device)
+                pp_ops.permute_x(self._pp_plan, mask, mask)).to(
+                    self.device, self.dtype)
             if echo > 2:
                 pp = self._pp_plan
                 print(f"# superblock: f_row {rm.f_row}, LM' {rm.lm2}, lanes "
@@ -428,7 +489,9 @@ class Solver:
                       f"cells, MAC inflation {rm.mac_inflation:.2f}x; "
                       f"{pp.ntiles} tiles, ku {pp.ku}")
             return
-        self._gp, self._pp_plan = pack_pairs(self.plan, self.lm, self.ln)
+        self._gp, self._pp_plan = pack_pairs(
+            self.plan, self.lm, self.ln,
+            lane_limit=Z_GROUP_LANE_LIMIT if self._z_oz else GROUP_LANE_LIMIT)
         if echo > 2:
             pp, gp = self._pp_plan, self._gp
             print(f"# packed pairs: G={gp.group_size if gp else 1}, "
@@ -477,9 +540,12 @@ class Solver:
         if any(tuple(v.shape) != shape for v in (re, im)):
             raise ValueError(f"v3 must have shape {shape}")
         if self._panel or self._packed:
+            # float32 values; the packed 'z' engine holds them in float64
+            # (the JAX solver's astype)
+            npdt = np.float64 if self._packed and self._z_oz else np.float32
             self._v3 = self._upload_x(*(
                 np.asarray(v.cpu() if torch.is_tensor(v) else v,
-                           dtype=np.float32) for v in (re, im)))
+                           dtype=np.float32).astype(npdt) for v in (re, im)))
         else:
             self._v3 = tuple((v if torch.is_tensor(v) else torch.from_numpy(
                 np.array(v, dtype=np.float32))).to(self.device, torch.float32)
@@ -570,6 +636,8 @@ class Solver:
             if self._sup is not None:     # fine A blocks into merged cells
                 a_re = sb_ops.merge_a_blocks(self._sup, a_re)
                 a_im = sb_ops.merge_a_blocks(self._sup, a_im)
+            if self._z_oz:
+                return oz_multiply(self._pp_plan, a_re, a_im)
             return pp_ops.PairPanelMultiply(
                 self._pp_plan,
                 pp_ops.build_a_panels_device(self._pp_plan, a_re, a_im),
@@ -665,7 +733,7 @@ class Solver:
         """The packed 'pairs' engine, as the JAX package's _solve_pairs."""
         if rhs_trivial:
             unit = linalg.set_unit_blocks(self.plan.nnzb_b, self.lm, self.ln,
-                                          torch.float32)[0].numpy()
+                                          self.dtype)[0].numpy()
             b = self._pairs_b_panel(unit, np.zeros_like(unit))
         else:
             b = self._b

@@ -15,11 +15,24 @@ blocks a row, X full over 16 block columns; 49,456 pairs) with cos/sin data
 * K3 (the row tiles, ``RowTileMultiply``) in 'c' at the r_tile of
   ``pallas_spmm.choose_row_tile``;
 * K1 (the pair plan, ``PairPlanMultiply``) in 'z';
+* the oz kernel (``OzPairPanelMultiply``, the packed 'z' route of
+  TFQ_PAIRS_Z_OZ) in its solver's default mode ('xi8', or the mixed
+  int8-A / bf16-X body where LM % 32 != 0) over the packed plan at the
+  column group size of the 'z' rule (at most 256 lanes), r_tile 1, the
+  whole multiply (X slicing, kernel and float64 combine) timed, at the
+  sizes ``OZ_SIZES`` only: the merged LM' 16 and 32 at (LM', max(LM',
+  32)) and the unmerged baselines (4, 4) and (8, 8) that ``ops/rates.py``
+  reads;
 
 holds each, mapped back to the fine blocks, against the float64 pair
 product of the same data (the JAX bench's gate, its bench.py:1420-1445,
 after bench_tfqmrgpu.cu:414: maxdev relative to the largest entry
-<= 1e-4 in 'c' and <= 1e-12 in 'z'; the same bits on a repeated launch),
+<= 1e-4 in 'c' and <= 1e-12 in 'z'; the same bits on a repeated launch;
+the oz rows relative to the largest entry of |A|.|X|, the Ozaki scheme's
+error scale: its X slices carry 2^-49 of each entry, and at (16, 32) the
+cos/sin product cancels to 0.059 of terms up to 176, so a float64-quality
+product sits at 1.8e-12 of the largest entry there; an oz row also
+equals its plain version to the bit, the kernel being exact),
 prints its distance from its plain version beside it, times it with CUDA
 events around ``reps`` calls queued back to back behind a spin kernel
 (the kernel's device time, without host dispatch), and computes
@@ -29,7 +42,8 @@ TFlop/s by the reference's count, 8*LM*LM*LN a pair
 process; a shape that fails its check fails the sweep (after the table is
 printed), and a kernel that does not build or launch raises at once.
 
-``ops/rates.py`` takes K2's rates from this table (``rates_from``).
+``ops/rates.py`` takes K2's rates ('c') and the oz kernel's ('z') from
+this table (``rates_from``).
 """
 
 from __future__ import annotations
@@ -44,6 +58,8 @@ import torch
 
 GATES = {"c": 1e-4, "z": 1e-12}
 REPS = 20
+# the sizes of the oz kernel's rows: what ops/rates.py reads for 'z'
+OZ_SIZES = ((4, 4), (8, 8), (16, 32), (32, 32))
 
 
 def golden_class_patterns(mb: int = 281, deg: int = 11, ncols: int = 16):
@@ -175,7 +191,32 @@ def _k1(plan, lm, ln, av, xv, device):
         tile=f"{s.rows} x {s.cols}" if s is not None else None)
 
 
-KERNELS = (("K2", "c", _k2), ("K3", "c", _k3), ("K1", "z", _k1))
+def _oz(plan, lm, ln, av, xv, device):
+    """The oz kernel's whole 'z' multiply over the packed plan."""
+    from ..ops import pairpanel as pp
+    from ..solver import Z_GROUP_LANE_LIMIT, oz_multiply, pack_pairs
+
+    gp, pplan = pack_pairs(plan, lm, ln, group_size=0, r_tile=1,
+                           lane_limit=Z_GROUP_LANE_LIMIT)
+    xre, xim = np.ascontiguousarray(xv.real), np.ascontiguousarray(xv.imag)
+    if gp is not None:
+        xre, xim = pp.grouped_blocks(gp, xre), pp.grouped_blocks(gp, xim)
+    mult = oz_multiply(pplan, *_planes(av, torch.float64, device))
+    x = torch.from_numpy(pp.permute_x(pplan, xre, xim)).to(device)
+
+    def to_fine(y):
+        re, im = pp.unpermute_y(pplan, y[0].cpu().numpy())
+        if gp is not None:
+            re, im = pp.ungroup_blocks(gp, re), pp.ungroup_blocks(gp, im)
+        return re, im
+
+    return (lambda: (mult(x),)), (lambda: (mult.plain(x),)), to_fine, dict(
+        group=gp.group_size if gp is not None else 1, ntiles=pplan.ntiles,
+        ku=pplan.ku, body=mult.body, p=mult.p)
+
+
+KERNELS = (("K2", "c", _k2), ("K3", "c", _k3), ("K1", "z", _k1),
+           ("OZ", "z", _oz))
 
 
 def sweep(device, sizes=None, mb: int = 281, deg: int = 11, ncols: int = 16,
@@ -200,18 +241,37 @@ def sweep(device, sizes=None, mb: int = 281, deg: int = 11, ncols: int = 16,
             _planes(av, torch.float64, device),
             _planes(xv, torch.float64, device), plan.pairs[:, 0],
             plan.pairs[:, 1], plan.pair_y(), plan.nnzb_x))
+        terms = None                     # max of |A|.|X|, for the oz rows
         for name, prec, make in KERNELS:
+            if name == "OZ" and (lm, ln) not in OZ_SIZES:
+                continue
             call, plain, to_fine, info = make(plan, lm, ln, av, xv, device)
             got = call()
             again = call()
             maxdev = _maxdev(to_fine(got), ref)
             maxdev_plain = _maxdev(got, plain())
+            gated = maxdev
+            if name == "OZ":
+                if terms is None:
+                    zero = torch.zeros((plan.nnzb_a, lm, lm),
+                                       dtype=torch.float64, device=device)
+                    terms = float(spmm_pairs(
+                        (torch.from_numpy(np.abs(av)).to(device), zero),
+                        (torch.from_numpy(np.abs(xv)).to(device),
+                         torch.zeros((plan.nnzb_x, lm, ln),
+                                     dtype=torch.float64, device=device)),
+                        plan.pairs[:, 0], plan.pairs[:, 1], plan.pair_y(),
+                        plan.nnzb_x)[0].max())
+                scale = max(float(abs(w).max()) for w in ref)
+                gated = maxdev * scale / terms
+                info = dict(info, maxdev_terms=gated)
             ms = time_ms(call, device, reps)
             row = dict(kernel=name, precision=prec, lm=lm, ln=ln, **info,
                        n_pairs=plan.n_pairs, maxdev=maxdev,
                        maxdev_plain=maxdev_plain, gate=GATES[prec],
-                       gate_pass=bool(maxdev <= GATES[prec] and all(
-                           torch.equal(p, q) for p, q in zip(got, again))),
+                       gate_pass=bool(gated <= GATES[prec] and all(
+                           torch.equal(p, q) for p, q in zip(got, again))
+                           and (name != "OZ" or maxdev_plain == 0.0)),
                        ms=ms, tflops=flops / ms / 1e9)
             rows.append(row)
             if echo:
@@ -225,15 +285,19 @@ def sweep(device, sizes=None, mb: int = 281, deg: int = 11, ncols: int = 16,
 
 
 def rates_from(rows: list) -> tuple:
-    """K2's rates as ``ops/rates.py`` holds them: (ENGINE {16, 32}, BASE
-    {4, 8}) in TFlop/s.  A merged problem at LM' widens its lanes toward
-    max(LM', 32) (the solver's superblock), so ENGINE[LM'] is the rate at
-    (LM', max(LM', 32)); the unmerged baseline is the square block
+    """The rates as ``ops/rates.py`` holds them, in TFlop/s by precision:
+    (ENGINE {precision: {16, 32}}, BASE {precision: {4, 8}}), K2's for 'c'
+    and the oz kernel's for 'z'.  A merged problem at LM' widens its lanes
+    toward max(LM', 32) (the solver's superblock), so ENGINE[LM'] is the
+    rate at (LM', max(LM', 32)); the unmerged baseline is the square block
     (LM, LM)."""
-    k2 = {(r["lm"], r["ln"]): r["tflops"] for r in rows
-          if r["kernel"] == "K2" and r["gate_pass"]}
-    engine = {m: k2[(m, max(m, 32))] for m in (16, 32) if (m, max(m, 32)) in k2}
-    base = {m: k2[(m, m)] for m in (4, 8) if (m, m) in k2}
+    engine, base = {}, {}
+    for prec, name in (("c", "K2"), ("z", "OZ")):
+        k = {(r["lm"], r["ln"]): r["tflops"] for r in rows
+             if r["kernel"] == name and r["gate_pass"]}
+        engine[prec] = {m: k[(m, max(m, 32))] for m in (16, 32)
+                        if (m, max(m, 32)) in k}
+        base[prec] = {m: k[(m, m)] for m in (4, 8) if (m, m) in k}
     return engine, base
 
 
@@ -244,15 +308,20 @@ def markdown(rows: list, card: str = "") -> str:
     for r in rows:
         by.setdefault((r["lm"], r["ln"]), {})[r["kernel"]] = r
     head = ("| LM | LN | K2 'c' G | K2 TFlop/s | K2 maxdev | K3 'c' r_tile "
-            "| K3 TFlop/s | K3 maxdev | K1 'z' TFlop/s | K1 maxdev |")
+            "| K3 TFlop/s | K3 maxdev | K1 'z' TFlop/s | K1 maxdev "
+            "| oz 'z' | oz TFlop/s | oz maxdev |")
     lines = ([f"Golden-class plan, {card}" if card else "Golden-class plan",
-              "", head, "|" + "---|" * 10])
+              "", head, "|" + "---|" * 13])
     for (lm, ln), d in sorted(by.items()):
         k2, k3, k1 = d["K2"], d["K3"], d["K1"]
+        oz = d.get("OZ")
+        oz_cols = (f"{oz['body']} G {oz['group']} | {oz['tflops']:.3f} | "
+                   f"{oz['maxdev']:.1e}" if oz else "- | - | -")
         lines.append(
             f"| {lm} | {ln} | {k2['group']} | {k2['tflops']:.3f} | "
             f"{k2['maxdev']:.1e} | {k3['r_tile']} | {k3['tflops']:.3f} | "
-            f"{k3['maxdev']:.1e} | {k1['tflops']:.3f} | {k1['maxdev']:.1e} |")
+            f"{k3['maxdev']:.1e} | {k1['tflops']:.3f} | {k1['maxdev']:.1e} | "
+            f"{oz_cols} |")
     return "\n".join(lines)
 
 
@@ -284,7 +353,8 @@ def main(argv):
         json.dump(dict(card=card, reps=REPS, rows=rows,
                        rates=dict(engine=engine, base=base)), f, indent=1)
     print(markdown(rows, card))
-    print(f"K2 rates (TFlop/s): merged {engine}, unmerged {base}; {out}")
+    print(f"rates (TFlop/s, K2 'c', oz 'z'): merged {engine}, unmerged "
+          f"{base}; {out}")
     failed = [r for r in rows if not r["gate_pass"]]
     if failed:
         raise SystemExit(f"{len(failed)} shapes failed their check: "
