@@ -536,16 +536,20 @@ def _burst_ms(fn, reps: int = 20, warm: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
-def _kernel_ms(fn, kernel: str, reps: int = 50) -> float:
+def _kernel_ms(fn, kernel: str, reps: int = 50, required: bool = True):
     """Mean device duration (ms) of the kernels named ``kernel`` over
     ``reps`` calls, from ``torch.profiler``: the kernel's own time where the
     host dispatch of a call outlasts it.  The trace may lose a few of the
     events; the mean is over those it kept, at least half.  A trace that
-    kept fewer is taken once more (the profiler has returned a trace with
-    none of a kernel's events on an H100, once in some twenty runs)."""
+    kept fewer is taken again, a second later, up to four traces in all
+    (on an H100 the profiler has returned traces with a third of a
+    kernel's events, four times in a row late in a run); after that the
+    check fails, or where not ``required`` the time is None."""
     fn()
     torch.cuda.synchronize()
-    for _ in range(2):
+    for attempt in range(4):
+        if attempt:
+            time.sleep(1.0)
         with torch.profiler.profile(
                 activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
@@ -555,10 +559,10 @@ def _kernel_ms(fn, kernel: str, reps: int = 50) -> float:
               if e.device_type == torch.autograd.DeviceType.CUDA
               and kernel in e.name]
         if reps // 2 <= len(us) <= reps:
-            break
-    require(reps // 2 <= len(us) <= reps, f"the profiler saw {len(us)} "
-            f"{kernel} launches for {reps} calls")
-    return sum(us) / len(us) / 1e3
+            return sum(us) / len(us) / 1e3
+    require(not required, f"the profiler saw {len(us)} {kernel} launches "
+            f"for {reps} calls")
+    return None
 
 
 def phase_kernel(dev, fd):
@@ -3096,9 +3100,14 @@ def wide_blocks(rng, nnzb: int, d1: int, d2: int, lanes: bool = False):
 def check_oz(mult, x: torch.Tensor, what: str):
     """The oz kernel's output (``body_out`` on the X slices of ``x``) equal
     to its plain version's to the bit, and again on a repeated launch."""
+    check_oz_slices(mult, mult.slice_x(x)[0], what)
+
+
+def check_oz_slices(mult, xw: torch.Tensor, what: str):
+    """``check_oz`` on given X slices (lane-major, as ``slice_x`` stores
+    them)."""
     from tfqmrgpu_tpu_torch.ops.pairpanel import OzPairPanelMultiply
 
-    xw, _ = mult.slice_x(x)
     before = OzPairPanelMultiply.launches
     got = mult.body_out(xw)
     again = mult.body_out(xw)
@@ -3140,12 +3149,122 @@ def oz_bound_case(case: str, dev):
                 for s in range(p)]
 
     a = torch.cat(slices(a_int, (1, m2, k), a_int8), dim=1).contiguous()
-    xw = torch.cat(slices(x_int, (k, 2 * c), xi8), dim=1).contiguous()
+    # stored lane-major, as slice_x stores them
+    xw = torch.cat(slices(x_int, (2 * c, k), xi8), dim=0).t()
     sigma = torch.ones((1, lm if body != "oz" else m2, 1),
                        dtype=torch.float64, device=dev)
     mult = pp.OzPairPanelMultiply(plan, a, sigma, p, q, body != "oz", xi8,
                                   a_int8)
     return mult, xw
+
+
+# The oz kernel's shapes on random slices (``oz_random_case``): case ->
+# (body, A int8, q, p).  q keeps every slice int within 2^(q-1) + 2 and
+# every product, and 'oz''s diagonal sums, exact at the shapes below.
+OZ_RANDOM = {
+    "ozc": ("ozc", False, 8, 7),
+    "ozc-int8a": ("ozc", True, 7, 8),
+    "xi8": ("xi8", True, 7, 8),
+    "oz": ("oz", True, 7, 9),
+    "oz-bf16": ("oz", False, 7, 9),
+}
+# shape id -> (LM, r_tile, lanes, ku, union shorter than ku, largest p):
+# 2M of 32 and 128, lane counts whose last lane block reaches past LN (168
+# lanes: 11 blocks of 16 and 6 of 32; 42, not a multiple of 4 either),
+# unions of 0 to ku-1 slots, each body's largest p (OZ_KERNEL_P), and LM 4
+# and 8 (slots padded with zero rows to the kernel's 16: A by the wrapper,
+# X by slice_x).  LM below 32 becomes 32 for 'xi8', which runs at
+# multiples of 32 only.
+OZ_SHAPES = {
+    "lm4": (4, 2, 32, 5, False, False),
+    "lm8": (8, 1, 40, 4, True, False),
+    "2m32": (16, 1, 32, 4, False, False),
+    "2m128": (32, 2, 32, 3, False, False),
+    "lanes168": (16, 1, 168, 2, False, False),
+    "lanes42": (16, 1, 42, 2, False, False),
+    "short": (16, 1, 64, 6, True, False),
+    "pmax": (16, 1, 64, 3, False, True),
+}
+
+
+def oz_random_case(case: str, shape: str, dev, seed: int = 0):
+    """The oz kernel's multiply in body ``case`` (``OZ_RANDOM``) on random
+    slice ints at the shape ``shape`` (``OZ_SHAPES``), five tiles of a
+    union over twelve X slots, built directly (no plan): (the multiply, its
+    X slices stored lane-major).  A is zero past each tile's union, as the
+    packed panels are."""
+    import types
+
+    from tfqmrgpu_tpu_torch.ops import pairpanel as pp
+
+    body, a_int8, q, p = OZ_RANDOM[case]
+    lm, r_tile, c, ku, short, pmax = OZ_SHAPES[shape]
+    if body == "xi8":
+        lm = max(lm, 32)
+    if pmax:
+        p = max(pp.OZ_KERNEL_P[body])
+    rng = np.random.default_rng(seed)
+    ntiles, n_slots, m = 5, 12, r_tile * lm
+    k = ku * lm
+    kcount = (rng.integers(0, ku, ntiles) if short
+              else np.full(ntiles, ku)).astype(np.int32)
+    xloc = rng.integers(0, n_slots, (ntiles, ku)).astype(np.int32)
+    plan = types.SimpleNamespace(r_tile=r_tile, lm=lm, ln=c, ku=ku,
+                                 ntiles=ntiles, n_slots=n_slots, xloc=xloc,
+                                 kcount=kcount)
+    cap = 2 ** (q - 1) + 2
+
+    def slices(shape, as_int8, cap):
+        ints = torch.from_numpy(rng.integers(-cap, cap + 1, (p, *shape)))
+        if as_int8:
+            return ints.to(torch.int8)
+        scale = torch.tensor([2.0 ** (-(s + 1) * q) for s in range(p)])
+        return (ints * scale.view(p, *[1] * len(shape))).to(torch.bfloat16)
+
+    a = slices((ntiles, 2 * m, k), a_int8, min(cap, 64) if a_int8 else cap)
+    keep = torch.from_numpy(np.arange(k)[None] < (kcount * lm)[:, None])
+    a = torch.where(keep[None, :, None, :], a, torch.zeros((), dtype=a.dtype))
+    a = a.permute(1, 0, 2, 3).reshape(ntiles, p * 2 * m, k).contiguous()
+    xs = slices((2 * c, n_slots, lm), body == "xi8", cap).reshape(
+        p * 2 * c, n_slots, lm)
+    sigma = torch.ones((ntiles, 2 * m if body == "oz" else m, 1),
+                       dtype=torch.float64)
+    mult = pp.OzPairPanelMultiply(plan, a.to(dev), sigma.to(dev), p, q,
+                                  body != "oz", body == "xi8", a_int8)
+    # each slot padded with zero rows to the kernel's, as slice_x stores it
+    xw = torch.nn.functional.pad(xs, (0, mult.klm - lm)).reshape(p * 2 * c, -1)
+    return mult, xw.to(dev).t()
+
+
+def _device_ms(fn, reps: int = 20) -> tuple:
+    """(Device time of one call in ms, summed over the kernels and copies
+    the call puts on the card, and those events a call), from
+    ``torch.profiler``: the events of one call counted on a call alone,
+    their mean duration over ``reps`` calls.  The trace may lose events,
+    as ``_kernel_ms`` says; the mean is over those it kept, at least half,
+    and a trace that kept fewer is taken once more; after that the time is
+    None (not measured)."""
+    def trace(n):
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        return [e.time_range.elapsed_us() for e in prof.events()
+                if e.device_type == torch.autograd.DeviceType.CUDA]
+
+    fn()
+    torch.cuda.synchronize()
+    per_call = max(len(trace(1)) for _ in range(3))
+    for _ in range(2):
+        us = trace(reps)
+        if per_call and 2 * len(us) >= reps * per_call:
+            return sum(us) / len(us) * per_call / 1e3, per_call
+    return None, per_call
+
+
+def _ms_or_not(ms) -> str:
+    return "not measured" if ms is None else f"{ms:.4f}"
 
 
 def phase_oz(dev, k1: dict, golden: tuple, fd, fd_ref: tuple,
@@ -3240,23 +3359,47 @@ def phase_oz(dev, k1: dict, golden: tuple, fd, fd_ref: tuple,
         bound_ms, bound_by = bound(
             nbytes, flops * products,
             "int8_tops" if mult.xi8 else "bf16_tflops")
+        # the kernel's device time from the profiler, or where its traces
+        # lose the events, from CUDA events around calls back to back (a
+        # call's host dispatch is a small part of the kernel's time)
         kernel_ms = _kernel_ms(lambda: mult.body_out(xw),
-                               "pairpanel_oz_kernel", reps=20)
+                               "pairpanel_oz_kernel", reps=20, required=False)
+        timer = "torch.profiler"
+        if kernel_ms is None:
+            kernel_ms = _burst_ms(lambda: mult.body_out(xw), reps=50)
+            timer = ("CUDA events back to back: the profiler lost the "
+                     "kernel's events")
+        # the whole multiply's parts on the card: slice_x (its float64
+        # transpose of x, the one X copy left, also alone), the kernel and
+        # the float64 combine
+        raw = mult.body_out(xw)
+        _, tau = mult.slice_x(x)
+        # (profiler device ms, its events a call, CUDA-event ms of calls
+        # back to back)
+        parts = {name: (*_device_ms(fn), _burst_ms(fn)) for name, fn in (
+            ("slice_x", lambda: mult.slice_x(x)),
+            ("x_transpose", lambda: x.t().contiguous()),
+            ("kernel", lambda: mult.body_out(xw)),
+            ("combine", lambda: mult.combine(raw, tau)),
+            ("multiply", lambda: mult(x)))}
         modes[case] = dict(
             body=mult.body, p=mult.p, q=mult.q, a_int8=mult.a_int8,
             maxdev_f64=rel, max_abs_err=abs_err, maxdev_plain=0.0,
-            kernel_ms=kernel_ms,
+            kernel_ms=kernel_ms, kernel_timer=timer,
             burst_ms=_burst_ms(lambda: mult.body_out(xw)),
             ms=_time_ms(lambda: mult.body_out(xw)),
             multiply_ms=_time_ms(lambda: mult(x)),
             plain_ms=_time_ms(lambda: mult.body_plain(xw), reps=5, warm=1),
             bound_ms=bound_ms, bound_by=bound_by, products=products,
-            mbytes=nbytes / 1e6)
+            mbytes=nbytes / 1e6,
+            parts_ms={k: v[0] for k, v in parts.items()},
+            parts_events={k: v[1] for k, v in parts.items()},
+            parts_burst_ms={k: v[2] for k, v in parts.items()})
         r = modes[case]
         print(f"phase 21 (b) golden-class oz {case} ({mult.body}, p {mult.p} "
               f"q {mult.q}, G {gp.group_size if gp else 1}, {pplan.ntiles} "
               f"tiles, ku {pplan.ku}): {kernel_ms:.4f} ms of device time "
-              f"({100 * bound_ms / kernel_ms:.1f}% of the bound), "
+              f"({timer}; {100 * bound_ms / kernel_ms:.1f}% of the bound), "
               f"{r['burst_ms']:.4f} ms back to back, {r['ms']:.4f} ms single; "
               f"the whole multiply {r['multiply_ms']:.4f} ms; plain "
               f"{r['plain_ms']:.4f} ms; the raw output and the multiply "
@@ -3265,7 +3408,15 @@ def phase_oz(dev, k1: dict, golden: tuple, fd, fd_ref: tuple,
               f"bound {bound_ms:.4f} ms ({bound_by}, {products} products, "
               f"{nbytes / 1e6:.1f} MB); K1 {k1['ms']:.4f} ms, library "
               f"(complex128) {k1['library_ms']} ms (phase 2)", flush=True)
-        del mult, xw, y
+        share = 100 * parts["kernel"][2] / parts["multiply"][2]
+        print(f"phase 21 (b) golden-class oz {case}: the multiply's parts, "
+              f"ms a call (torch.profiler device time, its events a call; "
+              f"CUDA events around calls back to back): "
+              + ", ".join(f"{k} {_ms_or_not(v[0])} ({v[1]}), {v[2]:.4f}"
+                          for k, v in parts.items())
+              + f"; the kernel {share:.1f}% of the multiply (back to back)",
+              flush=True)
+        del mult, xw, y, raw
     by_path["phase 21 (b) golden class"] = OzPairPanelMultiply.launches - sum(
         by_path.values())
 

@@ -16,13 +16,15 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (OZ_BOUND, OZ_CASES, SPLIT_GATE, STAGED_SHAPES,
-                        _as_tuple, _rowtile_multiply, c_onecall, check_oz,
-                        check_staged, cos_sin, dominant_fill, f64_product,
-                        fused_x, golden_c_problem, golden_class_patterns,
+from chip_smoke import (OZ_BOUND, OZ_CASES, OZ_RANDOM, OZ_SHAPES,
+                        SPLIT_GATE, STAGED_SHAPES, _as_tuple,
+                        _rowtile_multiply, c_onecall, check_oz,
+                        check_oz_slices, check_staged, cos_sin,
+                        dominant_fill, f64_product, fused_x,
+                        golden_c_problem, golden_class_patterns,
                         golden_z_problem, oz_bound_case, oz_multiply,
-                        oz_sizes, pack_plan, packed_multiply, planes,
-                        random_problem, wide_blocks)
+                        oz_random_case, oz_sizes, pack_plan, packed_multiply,
+                        planes, random_problem, wide_blocks)
 from tfqmrgpu_tpu_torch import (ALLOWED_BLOCK_SIZES, Solver, _build,
                                 autotune, create_plan, dma_probe, native,
                                 profiling)
@@ -769,6 +771,69 @@ def test_oz_kernel_matches_plain_on_card(case):
                 mult, x = _oz(rng, case, lm, ln, group, r_tile, "cuda")
                 check_oz(mult, x, f"{case} ({lm}, {ln}) G {group} r_tile "
                          f"{r_tile}")
+
+
+@pytest.mark.parametrize("case", list(OZ_RANDOM))
+def test_cpu_oz_random_cases_take_the_plain_version(monkeypatch, case):
+    """The card tests' random oz shapes build on the CPU, where the wrapper
+    is the plain version and builds nothing; the kernel's A slices are the
+    plain version's, int8 ones re-scaled into bf16 exactly."""
+    def refuse():
+        raise AssertionError("a CPU tensor must not reach the kernel")
+
+    monkeypatch.setattr(_build, "load_kernels", refuse)
+    before = pp.OzPairPanelMultiply.launches
+    for shape in OZ_SHAPES:
+        mult, xw = oz_random_case(case, shape, "cpu")
+        assert xw.t().is_contiguous()
+        assert torch.equal(mult.body_out(xw), mult.body_plain(xw))
+        rescale = mult.a_int8 and not mult.xi8
+        want = mult.planes.double()
+        if rescale:
+            want = (want.view(mult.ntiles, mult.p, -1) * torch.tensor(
+                [2.0 ** (-(s + 1) * mult.q) for s in range(mult.p)],
+                dtype=torch.float64)[None, :, None]).view(want.shape)
+        esz = 1 if mult.xi8 else 2
+        for stage_bytes in (32, 64):
+            if (mult.lm * esz) % stage_bytes:
+                continue
+            staged = pp.oz_kernel_planes(mult.planes, mult.p, mult.q,
+                                         mult.m, rescale, stage_bytes)
+            assert torch.equal(
+                _unstage(staged, mult.m, stage_bytes).double(), want)
+    assert pp.OzPairPanelMultiply.launches == before
+
+
+def _unstage(staged: torch.Tensor, m: int, stage_bytes: int) -> torch.Tensor:
+    """The A slices [nt, p*2m, K] back from the oz kernel's staged layout
+    [nt, row blocks, stages, p, 2, 32 rows, chunks, 16 bytes] (the swizzle:
+    chunk c of row r stored at c ^ (r*stage_bytes/128 mod chunks)), by index
+    arithmetic of its own."""
+    nt, nrb, nst, p, _, hr, chunks, w = staged.shape
+    out = torch.empty((nt, p, 2, nrb * hr, nst, chunks, w),
+                      dtype=staged.dtype)
+    for r in range(hr):
+        x = (r * stage_bytes // 128) % chunks
+        for c in range(chunks):
+            for rb in range(nrb):
+                out[:, :, :, rb * hr + r, :, c] = staged[
+                    :, rb, :, :, :, r, c ^ x].permute(0, 2, 3, 1, 4)
+    return out[:, :, :, :m].reshape(nt, p * 2 * m, -1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", list(OZ_SHAPES))
+@pytest.mark.parametrize("case", list(OZ_RANDOM))
+def test_oz_kernel_shapes_on_card(case, shape):
+    """The oz kernel's edge shapes to the bit against its plain version, and
+    again on a repeated launch: 2M of 32 (rows past it zero in the wgmma
+    block) and of 128 (two row blocks), lane counts whose last lane block
+    reaches past LN, unions shorter than ku (kcount 0 to ku-1), each body's
+    largest p ('ozc' 9, 'xi8' 9, 'oz' 14, each A type), and LM 4 and 8
+    (slots padded with zero rows to 16)."""
+    _needs_card()
+    mult, xw = oz_random_case(case, shape, "cuda", seed=len(shape))
+    check_oz_slices(mult, xw, f"{case} {shape}")
 
 
 @pytest.mark.cuda

@@ -267,7 +267,8 @@ def _body_case(body: str, layout: str) -> dict:
                 call = m._call
                 m._call = lambda *args: raw.append(call(*args)) or raw[-1]
                 y = np.asarray(m(jnp.asarray(xf)))
-                out["jax"] = dict(m=m, raw=np.asarray(raw[0]), y=y)
+                out["jax"] = dict(m=m, raw=np.asarray(raw[0]), y=y,
+                                  plan=plan)
             else:
                 m = tpp.make_pairpanel_multiply_oz(
                     plan, torch.from_numpy(a.real), torch.from_numpy(a.imag))
@@ -308,6 +309,93 @@ def test_combined_product_is_jax_bits_and_float64(body, layout):
     want = case["want"]
     dev = np.max(np.abs(yre + 1j * yim - want)) / np.abs(want).max()
     assert dev < 1e-12, dev
+
+
+def _row_major_slices(m, x: torch.Tensor) -> tuple:
+    """The X prologue as the port first wrote it, on x as it lies: the
+    slice planes concatenated row-major [rows, p*2LN'] and tau [1, 2LN']."""
+    c, p, q = m.ln, m.p, m.q
+    amax = x.abs().amax(dim=0, keepdim=True)
+    if m.comp:
+        half = torch.maximum(amax[:, :c], amax[:, c:])
+        tau = tozaki.pow2_scale(torch.cat([half, half], dim=1)) * 2.0
+        r = x / tau
+        hi = r.to(torch.float32)
+        lo = (r - hi.to(torch.float64)).to(torch.float32)
+        xs = tpp._oz_slices_f32pair(hi, lo, p, q, out_int8=m.xi8)
+    else:
+        tau = tozaki.pow2_scale(amax)
+        xs = tpp._oz_slices(x / tau, p, q)
+    return torch.cat(xs, dim=1).contiguous(), tau
+
+
+@pytest.mark.parametrize("body", list(BODIES))
+def test_x_slices_lie_lane_major_with_the_row_major_values(body):
+    """``slice_x`` stores the X slice planes lane-major (their transpose
+    [p*2LN', rows] is contiguous, the layout the kernel reads, so no
+    multiply transposes them): the planes and tau hold the row-major
+    prologue's values to the bit, the plain body gives the same bits on
+    either, and ``plain()`` is the JAX package's multiply to the bit."""
+    case = _body_case(body, "g2")
+    m, plan = case["port"]["m"], case["port"]["plan"]
+    rng = np.random.default_rng(zlib.crc32(body.encode()))
+    x = torch.from_numpy(rng.standard_normal(
+        (plan.n_slots * plan.lm, 2 * plan.ln)) * 10.0 ** rng.uniform(
+            -6, 6, (1, 2 * plan.ln)))
+    xw, tau = m.slice_x(x)
+    assert xw.t().is_contiguous() and not xw.is_contiguous()
+    want, want_tau = _row_major_slices(m, x)
+    _same_bits(xw, want)
+    _same_bits(tau, want_tau)
+    _same_bits(m.body_plain(xw), m.body_plain(want))
+    xj = np.zeros((case["jax"]["plan"].x_rows_padded, x.shape[1]))
+    xj[:x.shape[0]] = x.numpy()
+    want_y = np.asarray(case["jax"]["m"](jnp.asarray(xj)))[:x.shape[0]]
+    _same_bits(m.plain(x), want_y)
+
+
+@pytest.mark.parametrize("lm", [4, 8])
+@pytest.mark.parametrize("body", ["ozc-mixed", "oz-int8a"])
+def test_short_slots_of_the_x_slices_take_zero_rows(body, lm):
+    """At LM 4 and 8 ``slice_x`` pads every slot of the X slice planes with
+    zero rows to 16 (``klm``, the kernel's slot) in the copy it makes: the
+    first LM rows of each slot hold the row-major prologue's values to the
+    bit and the others are zero, the plain body gives the same bits as on
+    the unpadded planes, and ``plain()`` is the JAX package's multiply to
+    the bit."""
+    env = BODIES[body][0]
+    rng = np.random.default_rng(zlib.crc32(f"{body}/{lm}".encode()))
+    pa, px, py, na, nx = _bsr_pair_plan(rng, mb=8, ncols=2, lm=lm, ln=lm)
+    a = (rng.standard_normal((na, lm, lm))
+         + 1j * rng.standard_normal((na, lm, lm))) * 10.0 ** rng.uniform(
+             -6, 6, (na, 1, 1))
+    x = (rng.standard_normal((nx, lm, lm))
+         + 1j * rng.standard_normal((nx, lm, lm))) * 10.0 ** rng.uniform(
+             -6, 6, (nx, 1, 1))
+    jplan = jpp.pack_pair_plan(pa, px, py, nx, nx, lm, lm, r_tile=1)
+    tplan = tpp.pack_pair_plan(pa, px, py, nx, nx, lm, lm, r_tile=1)
+    with environment({**env, "TFQ_OZ_HOST_SLICE": "0"}):
+        jm = jpp.make_pairpanel_multiply_oz(jplan, a.real, a.imag,
+                                            interpret=True)
+        tm = tpp.make_pairpanel_multiply_oz(tplan, torch.from_numpy(a.real),
+                                            torch.from_numpy(a.imag))
+    assert tm.body == BODIES[body][2] and tm.klm == 16
+    xt = torch.from_numpy(tpp.permute_x(tplan, x.real, x.imag))
+    xw, tau = tm.slice_x(xt)
+    assert xw.shape == (tplan.n_slots * 16, tm.p * 2 * tm.ln)
+    assert xw.t().is_contiguous()
+    want, want_tau = _row_major_slices(tm, xt)
+    slots = xw.reshape(tplan.n_slots, 16, -1)
+    _same_bits(slots[:, :lm], want.reshape(tplan.n_slots, lm, -1))
+    assert int((slots[:, lm:] != 0).sum()) == 0
+    _same_bits(tau, want_tau)
+    _same_bits(tm.body_plain(xw), tpp.oz_body_plain(
+        tm.planes, want, tm.xloc, tm.m, lm, tm.ln, tm.p, tm.q, tm.body,
+        tm.a_int8))
+    xj = np.zeros((jplan.x_rows_padded, xt.shape[1]))
+    xj[:xt.shape[0]] = xt.numpy()
+    want_y = np.asarray(jm(jnp.asarray(xj)))[:xt.shape[0]]
+    _same_bits(tm.plain(xt), want_y)
 
 
 def test_plain_multiply_is_the_wrapper_on_the_cpu():

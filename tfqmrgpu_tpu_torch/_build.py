@@ -48,9 +48,12 @@ SIGNATURES = {
     # planes, then the mode (1, 3, 4 or 6 bf16 products)
     "tfq_pairpanel_tiles_bf16": [_P] * 8 + [_I] * 12 + [_P],
     "tfq_rowtile_spmm_bf16": [_P] * 11 + [_I] * 13 + [_P],
-    # K1's Ozaki modes (pairpanel_oz.cu): a, x (lane-major), y, xloc,
-    # kcount, ntiles, m, ku, lm, c, rows, p, q, body, a_int8, stream
+    # K1's Ozaki modes (pairpanel_oz.cu): a (the staged A slices), x
+    # (lane-major), y, xloc, kcount, ntiles, m, ku, lm, c, rows, p, q, body,
+    # a_int8, stream
     "tfq_pairpanel_oz": [_P] * 5 + [_I] * 10 + [_P],
+    # body, p, lm -> the bytes of its stage's depth
+    "tfq_pairpanel_oz_stage_bytes": [_I] * 3,
     # bm, bn, lm, c -> CTAs the card holds at once (or -cudaError_t)
     "tfq_pairpanel_tiles_slots": [_I] * 4,
     "tfq_rowtile_spmm_slots": [_I] * 4,

@@ -132,20 +132,6 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// The INT8 tensor-core product of the oz kernel ('xi8', pairpanel_oz.cu):
-// D += A.B with A a 16 x 32 int8 fragment (row-major: registers 0 and 2
-// hold row g at depth 4tq.. and 4tq+16.., registers 1 and 3 row g+8), B a
-// 32 x 8 int8 fragment (depth 4tq.. and 4tq+16.. of column g) and exact
-// int32 sums (no saturation: callers bound the depth).
-__device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4],
-                                       uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 // The float32 bits of v rounded to a bf16 value by the mantissa mask
 // (ties away from zero; pairpanel.rn16_f32).
 __device__ __forceinline__ uint32_t rn16_bits(float v) {

@@ -1437,6 +1437,8 @@ OZ_KERNEL_P = {"oz": (7, 8, 9, 11, 14), "ozc": (7, 8, 9), "xi8": (8, 9)}
 # 'ozc' TwoSum-folds the products of diagonals d <= this; deeper ones
 # accumulate plainly into a tail (the JAX body's hybrid fold)
 OZ_TWOSUM_DIAGONALS = 4
+# the oz kernel's blocks of rows of P and of Q (csrc/pairpanel_oz.cu HROWS)
+OZ_HALF_ROWS = 32
 
 
 def oz_mode_params(k: int, bits: int = 53,
@@ -1541,6 +1543,40 @@ def _oz_slices_int8(pure: torch.Tensor, p: int, q: int,
     return [i.to(torch.int8) for i in ints]
 
 
+def oz_kernel_planes(planes: torch.Tensor, p: int, q: int, m: int,
+                     rescale: bool, stage_bytes: int) -> torch.Tensor:
+    """The oz kernel's A operand, built once a solve from the A slices
+    ``planes`` [nt, p*2m, K] (int8 or bf16): int8 slices re-scaled into
+    bf16 values where ``rescale`` (slice s times 2^-(s+1)q, exact: at most
+    7 significant bits), laid out as the kernel stages them,
+    [nt, row blocks, K/depth, p, P|Q, 32 rows, chunks, 16 bytes] (a stage
+    ``stage_bytes`` deep, 2 or 4 chunks of 16 bytes; rows past m zero),
+    with the swizzle of its shared memory applied: chunk c of row r lies
+    at c ^ (r * stage_bytes / 128 mod chunks)."""
+    nt, _, k = planes.shape
+    v = planes
+    if rescale:
+        scale = torch.tensor([2.0 ** (-(s + 1) * q) for s in range(p)],
+                             dtype=torch.float32, device=planes.device)
+        v = (planes.view(nt, p, -1).to(torch.float32)
+             * scale[None, :, None]).to(torch.bfloat16)
+    esz = v.element_size()
+    kc, chunks, hr = stage_bytes // esz, stage_bytes // 16, OZ_HALF_ROWS
+    nrb = -(-m // hr)
+    v = v.reshape(nt, p, 2, m, k)
+    if nrb * hr != m:
+        v = torch.cat([v, v.new_zeros((nt, p, 2, nrb * hr - m, k))], dim=3)
+    v = v.reshape(nt, p, 2, nrb, hr, k // kc, chunks, 16 // esz)
+    v = v.permute(0, 3, 5, 1, 2, 4, 6, 7)
+    rows = torch.arange(hr, device=v.device)
+    src = (torch.arange(chunks, device=v.device)[None, :]
+           ^ ((rows[:, None] * stage_bytes // 128) % chunks))
+    # the chunk stored at position c of row r is chunk c ^ x(r) of the data
+    v = torch.gather(v, 6, src[:, :, None].expand(hr, chunks, 16 // esz)
+                     .expand(*v.shape[:5], hr, chunks, 16 // esz))
+    return v.contiguous()
+
+
 def _two_sum(acc: torch.Tensor, err: torch.Tensor, b: torch.Tensor):
     """One step of the Knuth TwoSum chain in float32: (acc + b rounded,
     err plus the exact rounding error), in the JAX body's order."""
@@ -1573,10 +1609,12 @@ def oz_finish(acc: torch.Tensor, err: torch.Tensor, m: int,
 
 def oz_body_plain(a_cat: torch.Tensor, xw: torch.Tensor, xloc: torch.Tensor,
                   m: int, lm: int, c: int, p: int, q: int, body: str,
-                  a_int8: bool) -> torch.Tensor:
+                  a_int8: bool, slot_rows: int = 0) -> torch.Tensor:
     """The plain version of the oz kernel, on any device: tile t's A slices
     a_cat[t] [p*2m, K] (int8 or bf16) times the X slice rows of its union
-    (``xloc``; xw [rows, p*2c], bf16 or int8), reduced as ``body`` does.
+    (``xloc``; xw [slots*slot_rows, p*2c] in any layout, bf16 or int8, a
+    slot ``slot_rows`` rows, lm by default, of which the first lm hold the
+    slot's X), reduced as ``body`` does.
 
     Every slice product is taken in float64 with ``torch.matmul``, where it
     is exact, and cast to float32 (exact: the slice bounds keep each
@@ -1591,8 +1629,8 @@ def oz_body_plain(a_cat: torch.Tensor, xw: torch.Tensor, xloc: torch.Tensor,
     m2, two = 2 * m, 2 * c
     if rows_a != p * m2:
         raise ValueError(f"A slices of {rows_a} rows for p={p}, 2M={m2}")
-    xs = xw.reshape(-1, lm, p * two)[xloc.to(torch.int64)]
-    xs = xs.reshape(nt, k, p * two).to(f64)
+    xs = xw.reshape(-1, slot_rows or lm, p * two)[xloc.to(torch.int64)]
+    xs = xs[:, :, :lm].reshape(nt, k, p * two).to(f64)
     a = a_cat.to(f64)
     if a_int8 and body != "xi8":
         scale = torch.tensor([2.0 ** (-(s + 1) * q) for s in range(p)],
@@ -1648,9 +1686,11 @@ class OzPairPanelMultiply:
     ``x`` is a float64 fused panel [n_slots*LM, 2*LN'] (re lanes, then im
     lanes); the result has the same shape.  ``slice_x`` takes X's
     power-of-two lane scale tau (shared across the re/im lanes in 'ozc' and
-    'xi8', doubled for the spare binade) and its p slice planes [rows,
-    p*2LN'] (bf16, or int8 for 'xi8'); ``body`` runs the kernel on them
-    (on a CUDA tensor the kernel or a raise; on a CPU tensor
+    'xi8', doubled for the spare binade) and its p slice planes
+    [n_slots*klm, p*2LN'] (bf16, or int8 for 'xi8'), stored lane-major, as
+    the kernel reads them: a slot is ``klm`` rows, LM rounded up to 16 (the
+    kernel's stage depth), the rows past LM zero; ``body`` runs the kernel
+    on them (on a CUDA tensor the kernel or a raise; on a CPU tensor
     ``body_plain``), and ``combine`` descales in float64: f64(acc) +
     f64(err) times sigma*tau in 'ozc' / 'xi8', the diagonal sums then the
     complex assembly in 'oz'.  The JAX package takes float32 fast paths of
@@ -1660,7 +1700,11 @@ class OzPairPanelMultiply:
 
     ``launches`` counts the kernel's launches by every instance in this
     process; the plain version never adds to it.  ``mode`` is the
-    precision tag ('ozcN' or 'ozN'), ``body`` one of ``OZ_BODIES``."""
+    precision tag ('ozcN' or 'ozN'), ``body`` one of ``OZ_BODIES``.
+    ``planes`` are the JAX package's A slices, which the plain version
+    reads; the kernel reads ``kernel_planes``, the same slices staged once
+    by ``oz_kernel_planes`` (int8 ones of the bf16 bodies re-scaled into
+    the bf16 values they stand for), on the card."""
 
     launches: int = 0
 
@@ -1693,6 +1737,26 @@ class OzPairPanelMultiply:
                                     "the oz kernel takes LM in multiples of "
                                     f"4, got {self.lm}")
         self.planes, self.sigma = planes, sigma
+        # the kernel's slots: a stage (16 bf16 or 32 int8 entries of depth)
+        # lies in one, so slots of LM 4 and 8 take zero rows to 16, in the
+        # staged A once and in the X slice planes as slice_x makes them
+        # ('xi8' runs at LM multiples of 32 only)
+        self.klm = -(-self.lm // 16) * 16
+        self.x_rows = plan.n_slots * self.klm
+        self.kernel_planes = None
+        if dev.type == "cuda":
+            from .._build import load_kernels
+
+            kp = planes
+            if self.klm != self.lm:
+                kp = planes.new_zeros(shape[:2] + (self.ku, self.klm))
+                kp[..., :self.lm] = planes.view(shape[:2] + (self.ku,
+                                                             self.lm))
+                kp = kp.view(shape[:2] + (self.ku * self.klm,))
+            self.kernel_planes = oz_kernel_planes(
+                kp, self.p, self.q, self.m, self.a_int8 and not self.xi8,
+                load_kernels().tfq_pairpanel_oz_stage_bytes(
+                    OZ_BODIES.index(self.body), self.p, self.klm))
         self.xloc = torch.from_numpy(
             np.ascontiguousarray(plan.xloc, dtype=np.int32)).to(dev)
         self.kcount = torch.from_numpy(
@@ -1711,36 +1775,50 @@ class OzPairPanelMultiply:
         return (self.ntiles, self.m, 4 * self.ln)
 
     def slice_x(self, x: torch.Tensor) -> tuple:
-        """(X slice planes [rows, p*2LN'], tau [1, 2LN'] float64)."""
-        c, p, q = self.ln, self.p, self.q
-        amax = x.abs().amax(dim=0, keepdim=True)
+        """(X slice planes [n_slots*klm, p*2LN'], tau [1, 2LN'] float64).
+        The planes are stored lane-major (their transpose [p*2LN',
+        n_slots*klm] is contiguous, the layout the kernel's tensor map
+        reads), each slot padded with zero rows to klm: the slicer runs
+        elementwise on x transposed, and the copy that joins the slices
+        writes them into their padded slots, so no pass transposes or pads
+        them."""
+        c, p, q, lm = self.ln, self.p, self.q, self.lm
+        xt = x.t().contiguous()                         # [2LN', rows]
+        amax = xt.abs().amax(dim=1, keepdim=True)
         if self.comp:
-            half = torch.maximum(amax[:, :c], amax[:, c:])
-            tau = ozaki.pow2_scale(torch.cat([half, half], dim=1)) * 2.0
-            r = x / tau                                 # exact: powers of two
+            half = torch.maximum(amax[:c], amax[c:])
+            tau = ozaki.pow2_scale(torch.cat([half, half], dim=0)) * 2.0
+            r = xt / tau                                # exact: powers of two
             hi = r.to(torch.float32)
             lo = (r - hi.to(torch.float64)).to(torch.float32)
             xs = _oz_slices_f32pair(hi, lo, p, q, out_int8=self.xi8)
         else:
             tau = ozaki.pow2_scale(amax)
-            xs = _oz_slices(x / tau, p, q)
-        return torch.cat(xs, dim=1).contiguous(), tau
+            xs = _oz_slices(xt / tau, p, q)
+        if self.klm == lm:
+            return torch.cat(xs, dim=0).t(), tau.t()
+        out = xs[0].new_zeros((p, 2 * c, self.x_rows // self.klm, self.klm))
+        for s, v in enumerate(xs):
+            out[s, ..., :lm] = v.view(2 * c, -1, lm)
+        return out.view(p * 2 * c, self.x_rows).t(), tau.t()
 
     def body_plain(self, xw: torch.Tensor) -> torch.Tensor:
         """The kernel's output by the plain version, on any device."""
         return oz_body_plain(self.planes, xw, self.xloc, self.m, self.lm,
-                             self.ln, self.p, self.q, self.body, self.a_int8)
+                             self.ln, self.p, self.q, self.body, self.a_int8,
+                             self.klm)
 
     def body_out(self, xw: torch.Tensor) -> torch.Tensor:
         """The kernel's output: the kernel on a CUDA tensor, the plain
         version on a CPU one."""
         want = torch.int8 if self.xi8 else torch.bfloat16
-        shape = (self.n_rows, self.p * 2 * self.ln)
+        shape = (self.x_rows, self.p * 2 * self.ln)
         if (xw.device != self.device or xw.dtype != want
-                or tuple(xw.shape) != shape or not xw.is_contiguous()):
-            raise ValueError(f"X slices must be a contiguous {shape} {want} "
-                             f"tensor on {self.device}; got "
-                             f"{tuple(xw.shape)} {xw.dtype} on {xw.device}")
+                or tuple(xw.shape) != shape or not xw.t().is_contiguous()):
+            raise ValueError(f"X slices must be a {shape} {want} tensor "
+                             f"stored lane-major (as slice_x gives them) on "
+                             f"{self.device}; got {tuple(xw.shape)} "
+                             f"{xw.dtype} on {xw.device}")
         if self.device.type == "cpu":
             return self.body_plain(xw)
         if self.device.type != "cuda":
@@ -1754,16 +1832,15 @@ class OzPairPanelMultiply:
         lib = load_kernels()
         y = torch.empty(self.raw_shape, dtype=torch.float32,
                         device=self.device)
-        # the kernel stages X from its lane-major copy [p*2LN', rows], whose
-        # 32-bit words hold consecutive rows of one lane
-        xt = xw.t().contiguous()
+        xk = xw.t()                    # [p*2LN', n_slots*klm], contiguous
         with torch.cuda.device(self.device):
             stream = torch.cuda.current_stream(self.device).cuda_stream
             rc = lib.tfq_pairpanel_oz(
-                self.planes.data_ptr(), xt.data_ptr(), y.data_ptr(),
+                self.kernel_planes.data_ptr(), xk.data_ptr(), y.data_ptr(),
                 self.xloc.data_ptr(), self.kcount.data_ptr(), self.ntiles,
-                self.m, self.ku, self.lm, self.ln, self.n_rows, self.p,
-                self.q, OZ_BODIES.index(self.body), int(self.a_int8), stream)
+                self.m, self.ku, self.klm, self.ln, self.x_rows,
+                self.p, self.q, OZ_BODIES.index(self.body), int(self.a_int8),
+                stream)
         if rc != 0:
             raise TfqmrgpuError(encode_status(Status.LAUNCH_FAILED),
                                 f"oz kernel ({self.body}) returned {rc}")

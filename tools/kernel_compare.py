@@ -7,14 +7,25 @@ of any check.
     python3 tools/kernel_compare.py k3 build/other/rowtile_spmm.cu [NVCC FLAGS...]
 
 The kernel is ``k1`` (``pairpanel_spmm.cu``, 'z'), ``k2``
-(``pairpanel_tiles.cu``) or ``k3`` (``rowtile_spmm.cu``).  The other source
-is compiled alone (with ``csrc/`` on its include path and any further
+(``pairpanel_tiles.cu``), ``k3`` (``rowtile_spmm.cu``) or ``oz``
+(``pairpanel_oz.cu``, K1's Ozaki modes; its first design takes the
+header it includes from the source's own directory):
+
+    mkdir -p build/other
+    git show 8239f41:tfqmrgpu_tpu_torch/csrc/pairpanel_oz.cu > build/other/pairpanel_oz.cu
+    git show 8239f41:tfqmrgpu_tpu_torch/csrc/panel_mma.cuh > build/other/panel_mma.cuh
+    python3 tools/kernel_compare.py oz build/other/pairpanel_oz.cu
+
+The other source is compiled alone (with ``csrc/`` on its include path and any further
 flags given, e.g. ``-DTFQ_PANEL_STAGES=3`` for another ring depth of the
 current source) and must export one of these C entry points:
 
 - k1: the pair-table entry of K1's first design, ``tfq_pairpanel_spmm_f64(
   a_re, a_im, x_re, x_im, starts, pair_a, pair_x, y_re, y_im, nnzb_y, lm,
   ln, stream)``;
+- oz: the current entry point ``tfq_pairpanel_oz``, which the first
+  design shares (it reads int8 A slices of the bf16 bodies as they are,
+  where the current one takes them re-scaled into bf16 values);
 - k2, k3: either the current entry points (it then also exports
   ``tfq_*_slots``), or those of the first designs, ``tfq_pairpanel_tiles_f32(
   a_panels, xloc, x, y, ntiles, rlm, ku, lm, c, n_rows, stream)`` and
@@ -34,12 +45,19 @@ then the current version's device time under every warp grid its tile
 schedule allows, for k2 and k3 the current version over equal runs of units
 against its own work list, which is dealt by steps.  Both versions are checked against the plain version
 (1e-12 for k1, 1e-4 for k2 and k3), and k2 and k3 also bit for bit against
-each other.
+each other.  For oz: the golden class ('z' packing, G 8: 562 tiles, ku 12,
+256 lanes) in each of the five bodies of ``chip_smoke.py`` phase 21 (b),
+both versions to the bit against the plain version, then the current one's
+median single call (CUDA events), its launch's shape, and what the CUPTI
+range profiler (``torch.profiler``'s ``profiler_metrics``) reads of one
+call of it: the sectors the SMs read from L2 and the achieved occupancy
+(``COUNTERS``), or that it read nothing and why.
 """
 
 from __future__ import annotations
 
 import ctypes
+import json
 import os
 import re
 import subprocess
@@ -57,13 +75,18 @@ from chip_smoke import (_as_tuple, _burst_ms, _kernel_ms,  # noqa: E402
                         require)
 
 SOURCES = {"k1": "pairpanel_spmm.cu", "k2": "pairpanel_tiles.cu",
-           "k3": "rowtile_spmm.cu"}
+           "k3": "rowtile_spmm.cu", "oz": "pairpanel_oz.cu"}
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # the C entry points of the first designs of K1, K2 and K3
 FIRST_ABI = {"k1": ("tfq_pairpanel_spmm_f64", [_P] * 9 + [_I] * 3 + [_P]),
              "k2": ("tfq_pairpanel_tiles_f32", [_P] * 4 + [_I] * 6 + [_P]),
              "k3": ("tfq_rowtile_spmm_f32", [_P] * 7 + [_I] * 7 + [_P])}
 SLOTS = {"k2": "tfq_pairpanel_tiles_slots", "k3": "tfq_rowtile_spmm_slots"}
+# CUPTI metrics read of the oz kernel: the 32-byte sectors that L2 served
+# to the SMs (TMA's copies included), and the active warps against the
+# SM's 64
+COUNTERS = ("lts__t_sectors_srcunit_tex_op_read.sum",
+            "sm__warps_active.avg.pct_of_peak_sustained_active")
 KERNEL = {"k2": "pairpanel_tiles_kernel", "k3": "rowtile_spmm_kernel"}
 
 
@@ -79,6 +102,9 @@ def ptxas_report(nvcc: str, flags: tuple, src: str):
                           m.group(1))
             args = re.findall(r"L[ib](\d+)E", m.group(1))
             name = f"{k.group(1)}<{','.join(args)}>" if k else m.group(1)
+        elif "Performance Loss" in line:     # wgmma serialized by ptxas
+            print("ptxas: " + re.sub(r"_Z\S*?\d([a-z]+_[a-z_]*kernel)ILi(\d+)ELi(\d+)E\S*",
+                                     r"\1<\2,\3>", line), flush=True)
         elif "registers" in line or "spill" in line:
             info = re.sub(r"^\s*ptxas info\s*:\s*", "", line).strip()
             print(f"ptxas {name}: {info}", flush=True)
@@ -96,6 +122,12 @@ def other_library(which: str, path: str, nvcc: str, flags: tuple):
                          text=True)
     require(out.returncode == 0, f"nvcc: {out.stderr[-2000:]}")
     lib = ctypes.CDLL(lib_path)
+    if which == "oz":
+        lib.tfq_pairpanel_oz.argtypes = _build.SIGNATURES["tfq_pairpanel_oz"]
+        lib.tfq_pairpanel_oz.restype = ctypes.c_int
+        # the current design stages A itself (kernel_planes); the first
+        # reads the slices as they are
+        return lib, hasattr(lib, "tfq_pairpanel_oz_stage_bytes")
     current = which in SLOTS and hasattr(lib, SLOTS[which])
     names = ([FIRST_ABI[which][0], SLOTS[which]] if current
              else [FIRST_ABI[which][0]])
@@ -165,6 +197,86 @@ def compare_k1(other, dev):
                   f"{s.staged_bytes / 1e6:.1f} MB staged, "
                   f"{_kernel_ms(lambda: g(xp), 'pairpanel_spmm_mma_kernel'):.4f}"
                   f" ms of device time", flush=True)
+
+
+def compare_oz(lib, current: bool, dev):
+    """The oz kernel against another version of its source at the golden
+    class, per body (``current``: the other takes the staged A slices)."""
+    from chip_smoke import _time_ms, fused_x, oz_multiply
+    from tfqmrgpu_tpu_torch import create_plan
+    from tfqmrgpu_tpu_torch import solver as tsolver
+    from tfqmrgpu_tpu_torch.ops.pairpanel import OZ_BODIES
+
+    plan = create_plan(*golden_class_patterns(), device=dev)
+    av, xv = cos_sin(plan.nnzb_a, 32, 32), cos_sin(plan.nnzb_x, 32, 32)
+    gp, pplan = tsolver.pack_pairs(plan, 32, 32, group_size=0, r_tile=1,
+                                   lane_limit=tsolver.Z_GROUP_LANE_LIMIT)
+    x = fused_x(pplan, gp, xv, torch.float64, dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    for case in ("xi8", "ozc", "ozc-int8a", "oz", "oz-bf16"):
+        mult = oz_multiply(pplan, av, dev, case)
+        xw, _ = mult.slice_x(x)
+        y = torch.empty(mult.raw_shape, dtype=torch.float32, device=dev)
+
+        def run_other():
+            a = mult.kernel_planes if current else mult.planes
+            rc = lib.tfq_pairpanel_oz(
+                a.data_ptr(), xw.data_ptr(), y.data_ptr(),
+                mult.xloc.data_ptr(), mult.kcount.data_ptr(), mult.ntiles,
+                mult.m, mult.ku, mult.klm, mult.ln, mult.x_rows, mult.p,
+                mult.q, OZ_BODIES.index(mult.body), int(mult.a_int8), stream)
+            require(rc == 0, f"the other oz kernel returned {rc}")
+            return y
+
+        runs = {"other": run_other, "current": lambda: mult.body_out(xw)}
+        want = mult.body_plain(xw).view(torch.int32)
+        for name, fn in runs.items():
+            got = fn()
+            torch.cuda.synchronize()
+            require(torch.equal(got.view(torch.int32), want),
+                    f"oz {case} {name}: differs from the plain version")
+        label = (f"oz {case} ({mult.body}, p {mult.p}, A "
+                 f"{'int8' if mult.a_int8 else 'bf16'})")
+        print(f"[{label}] {mult.ntiles} tiles, M {mult.m}, ku {mult.ku}, "
+              f"{mult.ln} lanes; both versions equal the plain version to "
+              f"the bit", flush=True)
+        report(label, runs, {"other": "pairpanel_oz_kernel",
+                             "current": "pairpanel_oz_kernel"})
+        print(f"[{label}] current: {_time_ms(runs['current']):.4f} ms a "
+              f"single call", flush=True)
+        counter_readings(runs["current"], label)
+        del mult, xw, y
+
+
+def counter_readings(fn, label: str):
+    """One call of ``fn`` under torch.profiler's CUPTI range profiler,
+    ``COUNTERS`` per kernel: prints the values its trace holds, or that it
+    holds none and why."""
+    from torch.profiler import ProfilerActivity, _ExperimentalConfig, profile
+
+    path = os.path.join(ROOT, "build", "oz_counters.json")
+    try:
+        fn()
+        torch.cuda.synchronize()
+        cfg = _ExperimentalConfig(profiler_metrics=list(COUNTERS),
+                                  profiler_measure_per_kernel=True)
+        with profile(activities=[ProfilerActivity.CUDA],
+                     experimental_config=cfg) as prof:
+            fn()
+            torch.cuda.synchronize()
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f).get("traceEvents", [])
+    except Exception as e:   # the profiler's own failure is the reading
+        print(f"[{label}] counters: none read ({type(e).__name__}: {e})",
+              flush=True)
+        return
+    got = [(ev.get("name", "?")[:40], {k: ev["args"][k] for k in COUNTERS
+                                       if k in ev.get("args", {})})
+           for ev in events if any(k in ev.get("args", {}) for k in COUNTERS)]
+    cats = sorted({str(ev.get("cat")) for ev in events})
+    print(f"[{label}] counters: {got if got else 'none in the trace'} "
+          f"({len(events)} trace events, categories {cats})", flush=True)
 
 
 def panel_cases(which: str, dev):
@@ -286,7 +398,7 @@ def compare_panel(which: str, lib, current: bool, dev):
 def main():
     if (len(sys.argv) < 3 or sys.argv[1] not in SOURCES
             or not torch.cuda.is_available()):
-        raise SystemExit("usage: kernel_compare.py k1|k2|k3 OTHER_SOURCE "
+        raise SystemExit("usage: kernel_compare.py k1|k2|k3|oz OTHER_SOURCE "
                          "[NVCC FLAGS...] (needs CUDA)")
     from tfqmrgpu_tpu_torch import _build
 
@@ -301,6 +413,8 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     if which == "k1":
         compare_k1(lib, dev)
+    elif which == "oz":
+        compare_oz(lib, current, dev)
     else:
         compare_panel(which, lib, current, dev)
 
