@@ -120,8 +120,10 @@ two for each:
    phase 16 (e): (a) ``calibrate_hbm`` (a chain of adds over 512 MiB; its
    GB/s beside K4's and ``copy_``'s from phase 8, at most 1.05 x the data
    sheet's 3.35 TB/s), (b) the golden-class 'c' row-tile solve under
-   ``torch.profiler`` with TFQ_TRACE=1 (one ``tfq.solve.pallas`` range
-   holding every K3 kernel the profile kept) and unset (no range), (c)
+   ``torch.profiler`` on its loop graph with TFQ_TRACE=1 (one
+   ``tfq.solve.pallas`` range holding every device event of the solve but
+   the copies of the result and every event named K3's; the K3 launches
+   the card counted 2 an iteration and 1 a probe) and unset (no range), (c)
    ``timed_solve`` and ``solver_roofline`` on FD rtb=12.75 'z' (K1), golden
    'z' (K1), golden 'c' row tiles (K3) and packed pairs (K2): phases 3, 4,
    6 and 10's iterations, flops and bytes an iteration, light speed and the
@@ -218,7 +220,35 @@ two for each:
    3's iterations with X within 1e-9, or, as the JAX route does on FD,
    stopped at ``OZ_FD_CAP`` iterations with the residuum and X within
    ``OZ_FD_FLOOR``; every multiply through the oz kernel where the engine
-   is 'pairs'; (e) phase 19 (a)'s 'z' rows beside ``ops/rates.py``'s.
+   is 'pairs'; (e) phase 19 (a)'s 'z' rows beside ``ops/rates.py``'s;
+22. the device loop (``graphloop.py``, the control kernels of
+   ``csrc/loop_control.cu``), run last: (a) the control kernels against
+   their plain versions (``core.decide``, ``core.settle``,
+   ``LoopControl.running``) over a table of carry states to the bit (a tie
+   of the bound with its target, the iteration cap, every RHS broken, a
+   NaN column, a zero column of B, residuals at the underflow guard), and
+   their device times at FD's [ncols, LN]; (b) FD rtb=12.75 'z' (K1),
+   golden 'z' (K1), golden 'c' row tiles (K3), golden 'c' packed G=8 (K2),
+   FD rtb=6.75 'dense' and golden 'z' under TFQ_PAIRS_Z_OZ=1, each through
+   the graph driver and the plain driver from the same Solver: the same
+   iterations, probes, statuses, X to the bit ('dense', cuBLAS: 1e-12),
+   one graph launch and one state read a solve; wall an iteration (CUDA
+   events around the solve), device time an iteration (``torch.profiler``),
+   capture + instantiate, the plain driver's wall; FD 'z''s graph at most
+   half the plain driver's; the launches the card counted in each graph
+   solve (2 SpMM an iteration and 1 a probe; decide, continue and settle
+   its, its + 1 and probes times); (c) a second solve with a new B and
+   tolerance captures nothing and gives a fresh Solver's bits, and so does
+   a solve after a new A (golden 'z' on K1, golden 'c' on K3: the multiply
+   takes the new A in place); (d) ``bsrsv_z`` on FD rtb=12.75: the
+   capture's share of the call.
+
+Every single-device solve of phases 3-15 and 18-21 runs as one launch of
+its loop's CUDA graph (``core.tfqmr_loop``).  The kernels count their own
+launches on the card (``launch_counts``: block 0's thread 0 adds one to
+the kernel's counter whenever it runs, a graph's replay included), so
+every launch gate reads what ran; the graph's warm-up launches are not
+counted.  Phases 16 and 17 (the sharded solvers) run the plain driver.
 
 Then one JSON line on the kernels (time, launches on their path, bound,
 plain and library times; the launches of every path that runs the kernel
@@ -230,7 +260,10 @@ time on phase 19's plans; the split kernels ``rowtile_spmm_bf16`` and
 pass ``split_x_bf16`` its golden-class bf16x3 times and the launches of
 every split multiply; the oz kernel
 ``pairpanel_oz`` heads with 'xi8', its ``launches`` phase 21 (c)'s, every
-body under ``modes``) and, last, one JSON line on the device.
+body under ``modes``; ``loop_control`` heads with the decide kernel's
+device time at FD's shape, its ``launches`` phase 3's, every entry under
+``entries`` and phase 22 (b)'s solves under ``loop``) and, last, one JSON
+line on the device.
 K1's times in phase 2 are CUDA events around 20 calls issued back to back
 (``burst_ms`` for K2 and K3); ``kernel_ms`` is the kernel's device time
 from ``torch.profiler``; phase 19's kernel times are CUDA events around 20
@@ -243,6 +276,7 @@ place.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import statistics
@@ -678,6 +712,7 @@ def phase_kernel(dev, fd):
 
 def phase_fd(dev, fd):
     import tfqmrgpu_tpu_torch as tt
+    from tfqmrgpu_tpu_torch.graphloop import LoopControl, LoopGraph
     from tfqmrgpu_tpu_torch.ops.pairpanel import PairPlanMultiply
 
     a, b = fd.a_with_data(), fd.b_with_data()
@@ -685,11 +720,23 @@ def phase_fd(dev, fd):
     runs = []
     for _ in range(2):
         PairPlanMultiply.launches = 0
+        LoopControl.launches = 0
+        graphs = (LoopGraph.launches, LoopGraph.reads)
         t0 = time.perf_counter()
         xs, info = tt.bsrsv_z(a, fd.x, b, tolerance=1e-9, max_iterations=2000,
                               device=dev)
         wall_ms = (time.perf_counter() - t0) * 1e3
         launches = PairPlanMultiply.launches
+        control = LoopControl.launches
+        require((LoopGraph.launches - graphs[0], LoopGraph.reads - graphs[1])
+                == (1, 1), "the FD solve took more than one graph launch "
+                "and one state read")
+        # decide every iteration, continue before the loop and every
+        # iteration, settle every probe
+        require(control == 2 * info.iterations_needed + 1 + info.n_probes,
+                f"{control} loop control launches for "
+                f"{info.iterations_needed} iterations and {info.n_probes} "
+                "probes")
         maxdev = float(np.max(np.abs(xs.data - ref)) / np.max(np.abs(ref)))
         require(info.return_status == 0,
                 f"FD solve status {info.return_status} after "
@@ -699,15 +746,17 @@ def phase_fd(dev, fd):
         require(launches == 2 * info.iterations_needed + info.n_probes,
                 f"{launches} kernel launches for {info.iterations_needed} "
                 f"iterations and {info.n_probes} probes")
-        runs.append((info, wall_ms, maxdev, launches))
+        runs.append((info, wall_ms, maxdev, launches, control))
     require(runs[0][0].iterations_needed == runs[1][0].iterations_needed,
             "the two FD solves took different iteration counts")
-    info, wall_ms, maxdev, launches = runs[0]
+    info, wall_ms, maxdev, launches, control = runs[0]
     print(f"phase 3 FD rtb=12.75 bsrsv_z: {info.iterations_needed} iterations, "
           f"{info.n_probes} probes, residuum {info.residuum_reached:.3e}, "
           f"maxdev {maxdev:.3e}, wall {wall_ms:.1f} ms (second run "
-          f"{runs[1][1]:.1f} ms), kernel launches {launches}", flush=True)
-    return launches, info.iterations_needed, xs.data
+          f"{runs[1][1]:.1f} ms; each builds its Solver and captures its "
+          f"loop graph), kernel launches {launches}, loop control launches "
+          f"{control}, one graph launch", flush=True)
+    return launches, info.iterations_needed, xs.data, control
 
 
 def golden_z_problem(mb: int = 281, ncols: int = 16, deg: int = 11,
@@ -2117,10 +2166,14 @@ def phase_tuning(dev, fd, k4: dict, iterations: dict) -> dict:
           f"{k4['copy_gbps']:.1f} GB/s; TFQ_HBM_GBPS="
           f"{os.environ['TFQ_HBM_GBPS']}", flush=True)
 
-    # (b) the solve's trace range, with TFQ_TRACE set and unset
+    # (b) the solve's trace range, with TFQ_TRACE set and unset, on the
+    # loop graph
     kind = torch.autograd.DeviceType
     a, x, b = golden_c_problem()
     s = Solver(a, x, b, precision="c", engine="pallas", device=dev)
+    # the loop graph's capture outside the traces, in a profiler session
+    # of its own (``_capture_profiled``)
+    _capture_profiled(lambda: s.solve(tolerance=1e-5, max_iterations=500))
     seen = {}
     for flag in ("1", None):
         with environment({"TFQ_TRACE": flag}):
@@ -2136,8 +2189,10 @@ def phase_tuning(dev, fd, k4: dict, iterations: dict) -> dict:
             [e.time_range for e in events if e.name == "tfq.solve.pallas"
              and e.device_type == kind.CPU],
             [e.time_range for e in events if e.device_type == kind.CUDA
-             and "rowtile_spmm_kernel" in e.name])
-    for flag, (info, launches, ranges, k3) in seen.items():
+             and "rowtile_spmm_kernel" in e.name],
+            [(e.time_range, e.name) for e in events
+             if e.device_type == kind.CUDA])
+    for flag, (info, launches, *_) in seen.items():
         require(info.return_status == 0
                 and info.iterations_needed == iterations[6]
                 and launches == 2 * info.iterations_needed + info.n_probes,
@@ -2146,22 +2201,38 @@ def phase_tuning(dev, fd, k4: dict, iterations: dict) -> dict:
                 f"(phase 6: {iterations[6]}), {launches} K3 launches")
         by_path["k3"][f"phase 18 (b) golden c traced solve, TFQ_TRACE="
                       f"{flag or 'unset'}"] = launches
-    info, launches, ranges, k3 = seen["1"]
+    info, launches, ranges, k3, device = seen["1"]
     require(len(ranges) == 1, f"{len(ranges)} tfq.solve.pallas ranges with "
             "TFQ_TRACE=1")
     r = ranges[0]
-    inside = sum(r.start <= t.start and t.end <= r.end for t in k3)
-    require(0 < len(k3) <= launches and inside == len(k3),
+
+    def held(spans):
+        return sum(r.start <= t.start and t.end <= r.end for t in spans)
+
+    # the range holds every device event of the graph's solve but the
+    # copies that read the result back, and every event named K3's.  On
+    # the H100 the profiler names none of this graph's 10 K3 kernels so
+    # (PERF.md §6); the K3 launches are the card's own count
+    # (``launch_counts``), gated above
+    inside = held(k3)
+    outside = sorted({n for t, n in device
+                      if not (r.start <= t.start and t.end <= r.end)})
+    require(len(k3) <= launches and inside == len(k3),
             f"{len(k3)} K3 kernels in the profile for {launches} launches, "
             f"{inside} inside the tfq.solve.pallas range")
+    require(all(n.startswith("Memcpy") for n in outside),
+            f"device events outside the tfq.solve.pallas range: {outside}")
     require(not seen[None][2], "a tfq.solve.pallas range with TFQ_TRACE "
             "unset")
     print(f"phase 18 (b) golden-class 'c' row tiles under torch.profiler: "
           f"TFQ_TRACE=1 gives one tfq.solve.pallas range of "
-          f"{(r.end - r.start) / 1e3:.1f} ms holding all {len(k3)} K3 "
-          f"kernels the profile kept ({launches} launches, "
-          f"{info.iterations_needed} iterations); TFQ_TRACE unset gives no "
-          f"range ({len(seen[None][3])} K3 kernels)", flush=True)
+          f"{(r.end - r.start) / 1e3:.1f} ms holding all {len(k3)} events "
+          f"the profile names K3's ({launches} K3 launches counted on the "
+          f"card, {info.iterations_needed} iterations) and "
+          f"{held([t for t, _ in device])} of the graph's {len(device)} "
+          f"device events (outside it {', '.join(outside) or 'none'}); "
+          f"TFQ_TRACE unset gives no range ({len(seen[None][3])} K3 "
+          f"kernels)", flush=True)
     del s
 
     # (c) timed solves against the per-iteration roofline
@@ -3673,6 +3744,473 @@ def phase_oz(dev, k1: dict, golden: tuple, fd, fd_ref: tuple,
             "modes": modes, "launches_by_path": by_path}
 
 
+# ------------------------------------------------------------ phase 22
+
+def loop_carry(tau, status, it: int, target_bound2: float, dev,
+               stop_code: int = 0):
+    """A carry of the tfQMR loop (``core.Carry``) on ``dev`` with the given
+    per-RHS tau and status and scalars; its vectors are placeholders (the
+    loop's control kernels read none)."""
+    from tfqmrgpu_tpu_torch import core
+
+    def s(v, dtype):
+        return torch.tensor(v, dtype=dtype, device=dev)
+
+    z = torch.zeros(1, device=dev)
+    tau = torch.as_tensor(tau, dtype=torch.float64).to(dev)
+    return core.Carry(
+        it=s(it, torch.int32), v1=(z, z), v4=(z, z), v5=(z, z), v6=(z, z),
+        v7=(z, z), v8=(z, z), rho=(z, z), eta=(z, z), tau=tau,
+        var=torch.zeros_like(tau),
+        status=torch.as_tensor(status, dtype=torch.int32).to(dev),
+        target_bound2=s(target_bound2, torch.float64),
+        residual2=s(1e30, torch.float64),
+        stop_code=s(stop_code, torch.int32),
+        iters_needed=s(50, torch.int32), n_probes=s(3, torch.int32))
+
+
+def loop_control_table(shape: tuple, seed: int = 22) -> list:
+    """Phase 22 (a)'s carry states, host arrays: (name, tau, inv_bn2,
+    status, it, maxit, target_bound2, res2, tol2, max_bound2).  Ties of
+    the bound with its target, the iteration cap, every RHS broken, a NaN
+    column, a zero column of B, residuals at the underflow guard."""
+    rng = np.random.default_rng(seed)
+    n = int(np.prod(shape))
+    eps = 2.5e-308
+
+    def r(scale=1.0):
+        return scale * rng.random(shape)
+
+    rows = []
+    for name in ("tie", "below", "cap", "all broken", "nan column",
+                 "zero column", "guard", "subnormal", "nan residual",
+                 "mixed"):
+        tau, inv = r(1e-6), 1.0 / (1.0 + r())
+        status = np.zeros(shape, np.int64)
+        it, maxit, tol2 = 7, 100, 1e-18
+        res2 = r(1e-16)
+        if name == "all broken":
+            status = rng.choice([-1, -2], shape)
+            it = maxit
+        if name == "nan column":
+            tau[:, 3 % shape[1]] = np.nan
+        if name == "zero column":
+            inv[:, 5 % shape[1]] = 0.0
+            tau[:, 5 % shape[1]] = 1e300
+        if name == "cap":
+            it = maxit
+        if name == "guard":
+            res2 = np.zeros(shape)
+            res2[0, 0] = -0.0
+        if name == "subnormal":
+            res2 = np.full(shape, 1e-310)
+            tol2 = 1e-309
+        if name == "nan residual":
+            res2.flat[min(n - 1, 10)] = np.nan
+            status.flat[min(n - 1, 10)] = -3
+        if name == "mixed":
+            status = rng.choice([0, 1, -1, -2, -3], shape)
+            res2 = np.where(rng.random(shape) < 0.5, 1e-20, 1e-10)
+        with np.errstate(invalid="ignore"):
+            bound2 = np.max(tau * inv) * float(2 * it + 1)
+        target = {"tie": bound2, "below": np.nextafter(bound2, -np.inf),
+                  "cap": 0.0}.get(name, 1e-12)
+        rows.append((name, tau, inv, status, it, maxit, target, res2, tol2,
+                     bound2 if np.isfinite(bound2) else 1e-3))
+    assert all(v[1].size == n for v in rows)
+    return rows
+
+
+def _same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Equal to the bit, any NaN equal to any NaN."""
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.is_floating_point():
+        both = a.isnan() & b.isnan()
+        return bool(torch.all(both | (a.view(torch.int64)
+                                      == b.view(torch.int64))))
+    return torch.equal(a, b)
+
+
+def check_loop_control(dev, shape: tuple) -> int:
+    """Phase 22 (a): the loop's control kernels against their plain
+    versions (``core.decide``, ``core.settle``, ``LoopControl.running``,
+    torch on the card) over ``loop_control_table``, to the bit.  Returns
+    the states checked."""
+    from tfqmrgpu_tpu_torch import core
+    from tfqmrgpu_tpu_torch.graphloop import LoopControl
+
+    i32, f64 = torch.int32, torch.float64
+    rows = loop_control_table(shape)
+    for name, tau, inv, status, it, maxit, target, res2, tol2, bound2 \
+            in rows:
+        inv_t = torch.from_numpy(inv).to(dev)
+        maxit_t = torch.tensor(maxit, dtype=i32, device=dev)
+        # decide
+        c = loop_carry(tau, status, it, target, dev)
+        want = core.decide(c, inv_t, maxit_t)
+        mb = torch.zeros((), dtype=f64, device=dev)
+        probe = torch.zeros((), dtype=i32, device=dev)
+        LoopControl.decide(c, inv_t, maxit_t, mb, probe)
+        torch.cuda.synchronize()
+        require(_same_bits(c.stop_code, want[0]) and _same_bits(mb, want[1])
+                and int(probe) == int(want[2]),
+                f"decide '{name}': stop {int(c.stop_code)}/{int(want[0])}, "
+                f"bound {float(mb)!r}/{float(want[1])!r}, probe "
+                f"{int(probe)}/{int(want[2])}")
+        # settle
+        c = loop_carry(tau, status, it, target, dev, stop_code=0)
+        res2_t = torch.from_numpy(res2).to(dev)
+        mb_t = torch.tensor(bound2, dtype=f64, device=dev)
+        tol2_t = torch.tensor(tol2, dtype=f64, device=dev)
+        want = core.settle(c, res2_t, mb_t, tol2_t)
+        LoopControl.settle(c, res2_t, mb_t, tol2_t)
+        torch.cuda.synchronize()
+        for f in ("status", "residual2", "target_bound2", "stop_code",
+                  "iters_needed", "n_probes"):
+            require(_same_bits(getattr(c, f), getattr(want, f)),
+                    f"settle '{name}': {f} {getattr(c, f)} against "
+                    f"{getattr(want, f)}")
+        # continue
+        for stop in (0, 1, 2):
+            c = loop_carry(tau, status, it, target, dev, stop_code=stop)
+            go = torch.full((), -1, dtype=i32, device=dev)
+            LoopControl.cont(c, maxit_t, go)
+            require(int(go) == int(LoopControl.running(c, maxit_t)),
+                    f"continue '{name}' stop {stop}: {int(go)}")
+    return len(rows)
+
+
+def time_loop_control(dev, shape: tuple) -> dict:
+    """The control kernels' device times at ``shape`` (the main path's
+    [ncols, LN]) beside their plain versions' and their byte bounds."""
+    from tfqmrgpu_tpu_torch import core
+    from tfqmrgpu_tpu_torch.graphloop import LoopControl
+
+    i32, f64 = torch.int32, torch.float64
+    name, tau, inv, status, it, maxit, target, res2, tol2, bound2 = \
+        loop_control_table(shape)[1]
+    n = tau.size
+    c = loop_carry(tau, status, it, target, dev)
+    inv_t = torch.from_numpy(inv).to(dev)
+    maxit_t = torch.tensor(maxit, dtype=i32, device=dev)
+    mb = torch.zeros((), dtype=f64, device=dev)
+    probe = torch.zeros((), dtype=i32, device=dev)
+    res2_t = torch.from_numpy(res2).to(dev)
+    tol2_t = torch.tensor(tol2, dtype=f64, device=dev)
+    go = torch.zeros((), dtype=i32, device=dev)
+    calls = {
+        "decide_kernel": (lambda: LoopControl.decide(c, inv_t, maxit_t, mb,
+                                                     probe),
+                          lambda: core.decide(c, inv_t, maxit_t),
+                          20 * n + 40),
+        "settle_kernel": (lambda: LoopControl.settle(c, res2_t, mb, tol2_t),
+                          lambda: core.settle(c, res2_t, mb, tol2_t),
+                          16 * n + 64),
+        "continue_kernel": (lambda: LoopControl.cont(c, maxit_t, go),
+                            lambda: LoopControl.running(c, maxit_t), 16)}
+    out = {}
+    for kernel, (fn, plain, nbytes) in calls.items():
+        ms = _kernel_ms(fn, kernel, required=False)
+        bms, by = bound(nbytes, 0.0)
+        out[kernel.split("_")[0]] = dict(
+            ms=ms, burst_ms=_burst_ms(fn), plain_ms=_time_ms(plain),
+            bound_ms=bms, bound_by=by, bytes=nbytes)
+    return out
+
+
+def _loop_solvers(dev, fd):
+    """Phase 22 (b)'s solves: (label, Solver factory, tolerance, maximum
+    iterations, X to the bit, environment)."""
+    from tfqmrgpu_tpu_torch import Solver
+    from tfqmrgpu_tpu_torch.generator import generate_fd_problem
+
+    fd6 = generate_fd_problem(rtb=6.75)
+    return (
+        ("FD rtb=12.75 'z' (K1)",
+         lambda: Solver(fd.a_with_data(), fd.x, fd.b_with_data(),
+                        precision="z", engine="auto", device=dev),
+         1e-9, 2000, True, {}),
+        ("golden 'z' (K1)",
+         lambda: Solver(*golden_z_problem(), precision="z", engine="auto",
+                        device=dev), 1e-10, 500, True, {}),
+        ("golden 'c' row tiles (K3)",
+         lambda: Solver(*golden_c_problem(), precision="c", engine="pallas",
+                        device=dev), 1e-5, 500, True, {}),
+        ("golden 'c' packed G=8 (K2)",
+         lambda: Solver(*golden_c_problem(), precision="c", engine="pairs",
+                        device=dev), 1e-5, 500, True, {}),
+        ("FD rtb=6.75 'dense'",
+         lambda: Solver(fd6.a_with_data(), fd6.x, fd6.b_with_data(),
+                        precision="z", engine="auto", device=dev),
+         1e-9, 2000, False, {}),
+        ("golden 'z' TFQ_PAIRS_Z_OZ=1 (oz)",
+         lambda: Solver(*golden_z_problem(), precision="z", engine="pairs",
+                        device=dev), 1e-10, 500, True,
+         {"TFQ_PAIRS_Z_OZ": "1"}))
+
+
+@contextlib.contextmanager
+def plain_driver():
+    """Solves inside run the plain driver (``core.plain_loop``) on the
+    Solver's own primitives: the loop graph's plain version, which phase
+    22 and the card tests hold the graph against."""
+    from tfqmrgpu_tpu_torch import core
+
+    loop = core.tfqmr_loop
+
+    def plain(prim, v2, v3, v5_init, tau0, inv_bn2, tolerance,
+              max_iterations, dt, **_):
+        return core.plain_loop(prim, v2, v3, v5_init, tau0, inv_bn2,
+                               float(tolerance) ** 2, int(max_iterations), dt)
+
+    core.tfqmr_loop = plain
+    try:
+        yield
+    finally:
+        core.tfqmr_loop = loop
+
+
+def _capture_profiled(fn):
+    """Run ``fn``, which captures a loop graph, inside a profiler session:
+    a graph instantiated before the process's first profiler session shows
+    each of its conditional bodies' kernels to a later profile once, not
+    at every execution (``tools/loop_graph_profile.py``; PERF.md §6)."""
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU,
+                        torch.profiler.ProfilerActivity.CUDA]):
+        out = fn()
+        torch.cuda.synchronize()
+    return out
+
+
+def _events_of(fn):
+    """(device ms, events) of one call of ``fn``, from ``torch.profiler``:
+    every CUDA event the call put on the card.  Not by name: the profiler
+    names a graph's kernels wrongly (``phase_tuning`` (b))."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ev = [e for e in prof.events()
+          if e.device_type == torch.autograd.DeviceType.CUDA]
+    return sum(e.time_range.elapsed_us() for e in ev) / 1e3, len(ev)
+
+
+def phase_loop(dev, fd) -> dict:
+    """Phase 22: the device loop (``graphloop.py``, the control kernels of
+    ``csrc/loop_control.cu``)."""
+    import tfqmrgpu_tpu_torch as tt
+    from tfqmrgpu_tpu_torch import Solver, launch_counts
+    from tfqmrgpu_tpu_torch.autotune import environment
+    from tfqmrgpu_tpu_torch.graphloop import LoopGraph
+
+    def counted(fn):
+        """(fn(), the launches the card counted in it, by slot)."""
+        for slot in launch_counts.SLOTS:
+            launch_counts.reset(slot)
+        out = fn()
+        return out, launch_counts.read()
+
+    def spmm(counts: dict) -> int:
+        return sum(counts[k] for k in ("k1", "k2", "k2_split", "k3",
+                                       "k3_split", "oz"))
+
+    t_phase = time.perf_counter()
+    probe_solver = Solver(fd.a_with_data(), fd.x, fd.b_with_data(),
+                          precision="z", engine="auto", device=dev)
+    shape = (probe_solver.plan.ncols, probe_solver.ln)
+    del probe_solver
+    n_states = check_loop_control(dev, shape)
+    n_states += check_loop_control(dev, (16, 32))
+    times = time_loop_control(dev, shape)
+    print(f"phase 22 (a) the loop's control kernels against their plain "
+          f"versions: {n_states} carry states at [ncols, LN] = {shape} and "
+          f"(16, 32), to the bit; device ms at {shape}: "
+          + ", ".join(f"{k} {_ms_or_not(v['ms'])} (plain "
+                      f"{v['plain_ms']:.4f}, bound {v['bound_ms']:.6f})"
+                      for k, v in times.items()), flush=True)
+
+    rows = {}
+    for label, make, tol, maxit, exact, env in _loop_solvers(dev, fd):
+        with environment(env):
+            s = make()
+            c0 = LoopGraph.captures
+            _capture_profiled(lambda: s.solve(tolerance=tol,
+                                              max_iterations=maxit))
+            require(LoopGraph.captures == c0 + 1 and len(s.loop_graphs) == 1,
+                    f"{label}: {LoopGraph.captures - c0} captures, "
+                    f"{len(s.loop_graphs)} graphs")
+            graph = next(iter(s.loop_graphs._graphs.values()))
+            capture_ms = 1e3 * graph.capture_s
+            parts = {k: 1e3 * v for k, v in graph.capture_parts.items()}
+            counts = (LoopGraph.launches, LoopGraph.reads, LoopGraph.captures)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+
+            def timed_solve():
+                start.record()
+                out = s.solve(tolerance=tol, max_iterations=maxit)
+                end.record()
+                end.synchronize()
+                return out
+
+            info, on_card = counted(timed_solve)
+            graph_ms = start.elapsed_time(end)
+            got = (LoopGraph.launches - counts[0], LoopGraph.reads - counts[1],
+                   LoopGraph.captures - counts[2])
+            require(got == (1, 1, 0), f"{label}: (graph launches, state "
+                    f"reads, captures) {got} in one solve")
+            x_graph = s.get_matrix("X")
+            dev_ms, n_events = _events_of(
+                lambda: s.solve(tolerance=tol, max_iterations=maxit))
+            launches = LoopGraph.launches
+            with plain_driver():
+                plain_dev_ms, plain_events = _events_of(
+                    lambda: s.solve(tolerance=tol, max_iterations=maxit))
+                start.record()
+                plain = s.solve(tolerance=tol, max_iterations=maxit)
+                end.record()
+                end.synchronize()
+            plain_ms = start.elapsed_time(end)
+            require(LoopGraph.launches == launches,
+                    f"{label}: the plain driver launched a graph")
+            x_plain = s.get_matrix("X")
+        same = (info.iterations_needed, info.n_probes, info.return_status)
+        require(same == (plain.iterations_needed, plain.n_probes,
+                         plain.return_status)
+                and np.array_equal(info.rhs_status, plain.rhs_status),
+                f"{label}: graph (iterations, probes, status) {same}, plain "
+                f"{(plain.iterations_needed, plain.n_probes, plain.return_status)}"
+                f", rhs_status equal "
+                f"{np.array_equal(info.rhs_status, plain.rhs_status)}")
+        require(info.return_status == 0, f"{label}: status "
+                f"{info.return_status}")
+        dx = float(np.max(np.abs(x_graph - x_plain))
+                   / np.max(np.abs(x_plain)))
+        require(np.array_equal(x_graph, x_plain) if exact else dx <= 1e-12,
+                f"{label}: X of the graph against the plain driver's {dx:.3e}"
+                + (" (not the same bits)" if exact else ""))
+        its = info.iterations_needed
+        # the launches the card counted in the graph's solve: each kernel
+        # where it ran, a replay's too
+        want_spmm = 0 if "dense" in label else 2 * its + info.n_probes
+        control = (on_card["loop_decide"], on_card["loop_continue"],
+                   on_card["loop_settle"])
+        require(spmm(on_card) == want_spmm
+                and control == (its, its + 1, info.n_probes),
+                f"{label}: counted on the card {on_card} for {its} "
+                f"iterations and {info.n_probes} probes")
+        # the control kernels an iteration, from (a)'s times alone: decide
+        # and continue, and settle at each probe
+        ctl_ms = (its * (times["decide"]["ms"] or 0.0)
+                  + (its + 1) * (times["continue"]["ms"] or 0.0)
+                  + info.n_probes * (times["settle"]["ms"] or 0.0))
+        rows[label] = row = dict(
+            iterations=its, probes=info.n_probes,
+            graph_ms_per_it=graph_ms / its, plain_ms_per_it=plain_ms / its,
+            device_ms_per_it=dev_ms / its, control_ms_per_it=ctl_ms / its,
+            events_per_it=n_events / its,
+            plain_device_ms_per_it=plain_dev_ms / its,
+            plain_events_per_it=plain_events / its, capture_ms=capture_ms,
+            capture_parts_ms=parts, spmm_launches=spmm(on_card),
+            control_launches=sum(control), x_dev=dx)
+        print(f"phase 22 (b) {label}: {its} iterations, {info.n_probes} "
+              f"probes, X {'to the bit' if dx == 0 else f'within {dx:.1e}'}"
+              f" of the plain driver; graph {row['graph_ms_per_it']:.4f} ms "
+              f"an iteration (CUDA events around solve), device "
+              f"{row['device_ms_per_it']:.4f} ms an iteration "
+              f"(torch.profiler, {row['events_per_it']:.1f} events; the "
+              f"control kernels {row['control_ms_per_it']:.4f} by (a)'s "
+              f"times); plain driver {row['plain_ms_per_it']:.4f} ms an "
+              f"iteration, device {row['plain_device_ms_per_it']:.4f} ("
+              f"{row['plain_events_per_it']:.1f} events); capture + "
+              f"instantiate {capture_ms:.1f} ms (under the profiler; "
+              + ", ".join(f"{k} {v:.1f}" for k, v in parts.items())
+              + f"); counted on the card: {spmm(on_card)} SpMM launches, "
+              f"decide/continue/settle {control}", flush=True)
+    fd_row = rows["FD rtb=12.75 'z' (K1)"]
+    require(fd_row["graph_ms_per_it"] <= 0.5 * fd_row["plain_ms_per_it"],
+            f"FD 'z': graph {fd_row['graph_ms_per_it']:.4f} ms an iteration, "
+            f"plain driver {fd_row['plain_ms_per_it']:.4f}")
+
+    # (c) one Solver, a new B and a new tolerance: no capture, the bits of
+    # a fresh Solver
+    a, x, b = golden_z_problem()
+    rng = np.random.default_rng(2222)
+    b2 = rng.standard_normal((b.nnzb, 32, 32, 2)) @ [1, 1j]
+    s = Solver(a, x, b, precision="z", engine="auto", device=dev)
+    s.solve(tolerance=1e-10, max_iterations=500)
+    c0 = LoopGraph.captures
+    s.set_matrix("B", b2)
+    again = s.solve(tolerance=1e-8, max_iterations=500)
+    require(LoopGraph.captures == c0, "a new B and tolerance captured again")
+    fresh = Solver(a, x, b.with_data(b2), precision="z", engine="auto",
+                   device=dev)
+    want = fresh.solve(tolerance=1e-8, max_iterations=500)
+    require((again.iterations_needed, again.n_probes, again.return_status)
+            == (want.iterations_needed, want.n_probes, want.return_status)
+            and np.array_equal(s.get_matrix("X"), fresh.get_matrix("X")),
+            "the replayed solve differs from a fresh Solver's")
+    print(f"phase 22 (c) golden 'z', a new B and tolerance 1e-8 on the same "
+          f"Solver: no capture, {again.iterations_needed} iterations, "
+          f"{again.n_probes} probes, X equal to a fresh Solver's to the bit",
+          flush=True)
+    # and a new A: the multiply takes it in place (graphloop.refill), the
+    # graph replays
+    new_a = {}
+    for label, (a, x, b), precision, engine, tol in (
+            ("golden 'z' (K1)", golden_z_problem(), "z", "auto", 1e-10),
+            ("golden 'c' row tiles (K3)", golden_c_problem(), "c",
+             "pallas", 1e-5)):
+        s = Solver(a, x, b, precision=precision, engine=engine, device=dev)
+        s.solve(tolerance=tol, max_iterations=500)
+        mult, c0 = s._multiply, LoopGraph.captures
+        a2 = a.data * (1.0 + 0.1 * rng.random((a.nnzb, 1, 1)))
+        t0 = time.perf_counter()
+        s.set_matrix("A", a2)
+        again, on_card = counted(lambda: s.solve(tolerance=tol,
+                                                 max_iterations=500))
+        wall = (time.perf_counter() - t0) * 1e3
+        its = again.iterations_needed
+        require(LoopGraph.captures == c0 and s._multiply is mult,
+                f"{label}: a new A captured again")
+        require(spmm(on_card) == 2 * its + again.n_probes,
+                f"{label}, new A: counted {on_card} for {its} iterations")
+        fresh = Solver(a.with_data(a2), x, b, precision=precision,
+                       engine=engine, device=dev)
+        want = fresh.solve(tolerance=tol, max_iterations=500)
+        require((its, again.n_probes, again.return_status)
+                == (want.iterations_needed, want.n_probes,
+                    want.return_status) and again.return_status == 0
+                and np.array_equal(s.get_matrix("X"), fresh.get_matrix("X")),
+                f"{label}: the solve after a new A differs from a fresh "
+                "Solver's")
+        new_a[label] = dict(iterations=its, wall_ms=wall)
+        print(f"phase 22 (c) {label}, a new A on the same Solver: no "
+              f"capture, set_matrix + solve {wall:.1f} ms, {its} "
+              f"iterations, {spmm(on_card)} SpMM launches counted on the "
+              f"card, X equal to a fresh Solver's to the bit", flush=True)
+
+    # (d) the one-call solve builds its own Solver and graph
+    cap0 = LoopGraph.capture_seconds
+    t0 = time.perf_counter()
+    _, info = tt.bsrsv_z(fd.a_with_data(), fd.x, fd.b_with_data(),
+                         tolerance=1e-9, max_iterations=2000, device=dev)
+    wall = time.perf_counter() - t0
+    cap = LoopGraph.capture_seconds - cap0
+    require(info.return_status == 0 and info.iterations_needed
+            == fd_row["iterations"], f"bsrsv_z: {info.iterations_needed} "
+            "iterations")
+    print(f"phase 22 (d) FD rtb=12.75 bsrsv_z: wall {1e3 * wall:.1f} ms, of "
+          f"it capture + instantiate {1e3 * cap:.1f} ms "
+          f"({100 * cap / wall:.1f}%); phase 22 took "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    return dict(times=times, solves=rows, states=n_states, new_a=new_a)
+
+
 def pp_unpermute(pplan, gp, y: torch.Tensor) -> tuple:
     """A fused product on a packed plan -> (re, im) CPU tensors of the
     fine blocks."""
@@ -3696,7 +4234,7 @@ def main():
     card = phase_device()
     fd = generate_fd_problem(rtb=12.75, reference=True)
     timing = phase_kernel(dev, fd)
-    launches, fd_iterations, fd_x = phase_fd(dev, fd)
+    launches, fd_iterations, fd_x, control_launches = phase_fd(dev, fd)
     golden_z_iterations, golden_z_x = phase_golden(dev)
     k3 = phase_rowtile(dev)
     k3_launches, golden_c_iterations, golden_c_per_it = phase_golden_c(dev)
@@ -3733,6 +4271,9 @@ def main():
                   (fd_iterations, fd_x), sweep_rows)
     oz["card"] = card
     oz["launches_by_path"].update(tuning.pop("oz"))
+    loop = phase_loop(dev, fd)
+    decide = loop["times"]["decide"]
+    fd_loop = loop["solves"]["FD rtb=12.75 'z' (K1)"]
     print(json.dumps({"kernels": [
         {"name": "pairpanel_spmm", "route": "cuda",
          "source": "tfqmrgpu_tpu_torch/csrc/pairpanel_spmm.cu",
@@ -3770,6 +4311,17 @@ def main():
          "replaces": "tools/dma_probe.py:39", **k4, "card": card},
         *split_kernels,
         oz,
+        {"name": "loop_control", "route": "cuda",
+         "source": "tfqmrgpu_tpu_torch/csrc/loop_control.cu",
+         "replaces": "none: tfqmrgpu_tpu/core.py:188-227, the while_loop's "
+                     "control in XLA",
+         "launches": control_launches, "max_abs_err": 0.0,
+         "ms": decide["ms"], "plain_ms": decide["plain_ms"],
+         "bound_ms": decide["bound_ms"], "bound_by": decide["bound_by"],
+         "library_ms": None, "card": card, "entries": loop["times"],
+         "control_ms_per_iteration": fd_loop["control_ms_per_it"],
+         "loop": loop["solves"],
+         "launches_by_path": {"phase 3 FD z bsrsv_z": control_launches}},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -282,12 +282,9 @@ def test_autotune_races_caches_and_hits(monkeypatch, tmp_path, precision,
     want = _dense_solution(a, x, b, 4, 4)
     blocks = want[x.row_of(), x.colind]
     assert np.max(np.abs(got - blocks)) <= 1e3 * tol * np.max(np.abs(blocks))
-    for k, v in entry["env"].items():
-        monkeypatch.setenv(k, v)
-    direct = tt.Solver(*port, precision=precision, engine=entry["engine"],
-                       device="cpu")
-    for k in entry["env"]:
-        monkeypatch.delenv(k)
+    with tautotune.environment(entry["env"]):
+        direct = tt.Solver(*port, precision=precision,
+                           engine=entry["engine"], device="cpu")
     dinfo = direct.solve(tolerance=tol, max_iterations=300)
     assert dinfo.iterations_needed == info.iterations_needed
     assert np.array_equal(direct.get_matrix("X"), got)

@@ -939,3 +939,157 @@ def test_oz_solve_launches_the_oz_kernel_on_card():
     k1.solve(tolerance=1e-10, max_iterations=300)
     got, want = s.get_matrix("X"), k1.get_matrix("X")
     assert np.max(np.abs(got - want)) <= 1e-10 * np.max(np.abs(want))
+
+
+# ------------------------------------------------ the loop as a CUDA graph
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(16, 32), (3, 8)])
+def test_loop_control_kernels_match_plain_on_card(shape):
+    """The control kernels of csrc/loop_control.cu against core.decide,
+    core.settle and LoopControl.running on the card, to the bit, over phase
+    22 (a)'s carry states: a tie of the bound with its target, the cap,
+    every RHS broken, a NaN column, a zero column of B, residuals at the
+    underflow guard."""
+    _needs_card()
+    from chip_smoke import check_loop_control
+    from tfqmrgpu_tpu_torch.graphloop import LoopControl
+
+    before = LoopControl.launches
+    assert check_loop_control(torch.device("cuda"), shape) == 10
+    assert LoopControl.launches == before + 10 * 5
+
+
+def _loop_solver(case):
+    if case in ("k1", "dense"):
+        a, x, b = golden_z_problem(mb=24, ncols=4)
+        return Solver(a, x, b, precision="z",
+                      engine="pairs" if case == "k1" else "dense",
+                      device="cuda"), 1e-10
+    a, x, b = golden_c_problem(mb=24, ncols=4)
+    return Solver(a, x, b, precision="c",
+                  engine="pallas" if case == "k3" else "pairs",
+                  device="cuda"), 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["k1", "k3", "k2", "dense"])
+def test_loop_graph_matches_plain_driver_on_card(case):
+    """One graph launch a solve, and the plain driver's iterations, probes,
+    statuses and X: to the bit on the hand-written kernels, within 1e-12
+    on 'dense' (cuBLAS)."""
+    _needs_card()
+    from chip_smoke import plain_driver
+    from tfqmrgpu_tpu_torch.graphloop import LoopControl, LoopGraph
+
+    s, tol = _loop_solver(case)
+    counts = (LoopGraph.launches, LoopGraph.reads)
+    LoopControl.launches = 0
+    info = s.solve(tolerance=tol, max_iterations=300)
+    assert (LoopGraph.launches - counts[0], LoopGraph.reads - counts[1]) \
+        == (1, 1)
+    its = info.iterations_needed
+    assert (LoopControl.decides, LoopControl.continues,
+            LoopControl.settles) == (its, its + 1, info.n_probes)
+    x = s.get_matrix("X")
+    with plain_driver():
+        plain = s.solve(tolerance=tol, max_iterations=300)
+    assert LoopGraph.launches - counts[0] == 1
+    assert info.return_status == plain.return_status == 0
+    assert (info.iterations_needed, info.n_probes) == (
+        plain.iterations_needed, plain.n_probes)
+    assert np.array_equal(info.rhs_status, plain.rhs_status)
+    want = s.get_matrix("X")
+    if case == "dense":
+        assert np.max(np.abs(x - want)) <= 1e-12 * np.max(np.abs(want))
+    else:
+        assert np.array_equal(x, want)
+
+
+@pytest.mark.cuda
+def test_loop_graph_replays_without_capture_on_card():
+    """A second solve with another B and tolerance replays the graph (no
+    capture) and gives a fresh Solver's bits; the launch counters count
+    2 K1 launches an iteration and 1 a probe."""
+    _needs_card()
+    from tfqmrgpu_tpu_torch.graphloop import LoopGraph
+
+    a, x, b = golden_z_problem(mb=24, ncols=4)
+    s = Solver(a, x, b, precision="z", engine="pairs", device="cuda")
+    s.solve(tolerance=1e-10, max_iterations=300)
+    b2 = np.random.default_rng(5).standard_normal(b.data.shape + (2,)) \
+        @ [1, 1j]
+    s.set_matrix("B", b2)
+    captures = LoopGraph.captures
+    PairPlanMultiply.launches = 0
+    info = s.solve(tolerance=1e-8, max_iterations=300)
+    assert LoopGraph.captures == captures
+    assert PairPlanMultiply.launches == (2 * info.iterations_needed
+                                         + info.n_probes)
+    fresh = Solver(a, x, b.with_data(b2), precision="z", engine="pairs",
+                   device="cuda")
+    want = fresh.solve(tolerance=1e-8, max_iterations=300)
+    assert (info.iterations_needed, info.n_probes) == (
+        want.iterations_needed, want.n_probes)
+    assert np.array_equal(s.get_matrix("X"), fresh.get_matrix("X"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["k1", "k3"])
+def test_loop_graph_replays_after_a_new_a_on_card(case):
+    """A new A of the plan goes into the multiply the graph captured: the
+    next solve replays it (no capture), the card counts 2 launches an
+    iteration and 1 a probe, and X is a fresh Solver's to the bit."""
+    _needs_card()
+    from tfqmrgpu_tpu_torch.graphloop import LoopGraph
+
+    s, tol = _loop_solver(case)
+    s.solve(tolerance=tol, max_iterations=300)
+    kernel = PairPlanMultiply if case == "k1" else RowTileMultiply
+    a, x, b = (golden_z_problem if case == "k1" else golden_c_problem)(
+        mb=24, ncols=4)
+    a2 = a.data * (1.0 + 0.1 * np.random.default_rng(3).random(
+        (a.nnzb, 1, 1)))
+    captures, mult = LoopGraph.captures, s._multiply
+    s.set_matrix("A", a2)
+    kernel.launches = 0
+    info = s.solve(tolerance=tol, max_iterations=300)
+    assert LoopGraph.captures == captures and s._multiply is mult
+    assert kernel.launches == 2 * info.iterations_needed + info.n_probes
+    fresh = Solver(a.with_data(a2), x, b, precision=s.precision,
+                   engine=s.engine, device="cuda")
+    want = fresh.solve(tolerance=tol, max_iterations=300)
+    assert (info.iterations_needed, info.n_probes, info.return_status) == (
+        want.iterations_needed, want.n_probes, want.return_status)
+    assert np.array_equal(s.get_matrix("X"), fresh.get_matrix("X"))
+
+
+@pytest.mark.cuda
+def test_failed_capture_raises_on_card(monkeypatch):
+    """A host read inside the captured loop makes the capture fail: the
+    solve raises and never runs the plain driver; the next solve captures
+    and runs."""
+    _needs_card()
+    from tfqmrgpu_tpu_torch import core
+    from tfqmrgpu_tpu_torch.graphloop import LoopGraph
+
+    residual = core.probe_residual
+
+    def host_read(*args):
+        res2 = residual(*args)
+        float(res2.sum())                   # a device-to-host read
+        return res2
+
+    def refuse(*args):
+        raise AssertionError("a CUDA solve reached the plain driver")
+
+    s, tol = _loop_solver("k1")
+    monkeypatch.setattr(core, "probe_residual", host_read)
+    monkeypatch.setattr(core, "plain_loop", refuse)
+    launches = LoopGraph.launches
+    with pytest.raises(RuntimeError):
+        s.solve(tolerance=tol, max_iterations=300)
+    assert LoopGraph.launches == launches and len(s.loop_graphs) == 0
+    monkeypatch.setattr(core, "probe_residual", residual)
+    info = s.solve(tolerance=tol, max_iterations=300)
+    assert info.return_status == 0 and LoopGraph.launches == launches + 1

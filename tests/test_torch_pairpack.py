@@ -337,8 +337,9 @@ def test_fused_primitives_match_jax(group):
              (jprim.nrm2(jx), tprim.nrm2(tx), eprim.nrm2(ex)),
              (jprim.axpy(jy, jx, js), tprim.axpy(ty, tx, ts), None),
              (jprim.xpay(jy, js, jx), tprim.xpay(ty, ts, tx), None),
-             (jprim.add_rhs(jy, None, -1.0), tprim.add_rhs(ty, None, -1.0),
-              None)]
+             # the port's primitives hold no vector: B comes with the call
+             (jprim.add_rhs(jy, None, -1.0),
+              tprim.add_rhs(ty, torch.from_numpy(bv), -1.0), None)]
     for want, got, exact in cases:
         want = want if isinstance(want, tuple) else (want,)
         got = got if isinstance(got, tuple) else (got,)

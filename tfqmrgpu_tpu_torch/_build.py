@@ -28,41 +28,45 @@ LIB_NAME = "libtfqmrgpu_torch_kernels.so"
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_U = ctypes.c_ulonglong
 # name -> argtypes; every kernel returns a cudaError_t as int (0 = success)
 SIGNATURES = {
+    # Every kernel entry ends in (stream, count): count is the kernel's
+    # launch counter on the card (csrc/launch_count.cuh, launch_counts.py),
+    # or null.
     # a_re, a_im, x_re, x_im, tile_steps, tile_y, step_a, step_x,
     # step_mask, y_re, y_im, ntiles, lm, ln, warps_m, warps_n, rows, cols,
-    # stream
-    "tfq_pairpanel_spmm_f64": [_P] * 11 + [_I] * 7 + [_P],
+    # stream, count
+    "tfq_pairpanel_spmm_f64": [_P] * 11 + [_I] * 7 + [_P] * 2,
     # a_re, a_im, x_re, x_im, starts, pair_a, pair_x, y_re, y_im,
-    # nnzb_y, lm, ln, stream
-    "tfq_pairpanel_spmm_f32": [_P] * 9 + [_I] * 3 + [_P],
+    # nnzb_y, lm, ln, stream, count
+    "tfq_pairpanel_spmm_f32": [_P] * 9 + [_I] * 3 + [_P] * 2,
     # a_dm, x, y, uslot, ukidx, ucount, items, cta_start, nctas, ntiles,
-    # rlm, ku, lm, c, n_rows, nt, ksteps, bm, bn, stream
-    "tfq_pairpanel_tiles_f32": [_P] * 8 + [_I] * 11 + [_P],
+    # rlm, ku, lm, c, n_rows, nt, ksteps, bm, bn, stream, count
+    "tfq_pairpanel_tiles_f32": [_P] * 8 + [_I] * 11 + [_P] * 2,
     # a_dm, x_re, x_im, mask, y_re, y_im, uslot, ukidx, ucount, items,
     # cta_start, nctas, ntiles, rlm, ku, lm, nr, c, ln, nt, ksteps, bm, bn,
-    # stream
-    "tfq_rowtile_spmm_f32": [_P] * 11 + [_I] * 12 + [_P],
+    # stream, count
+    "tfq_rowtile_spmm_f32": [_P] * 11 + [_I] * 12 + [_P] * 2,
     # the bf16 split modes (panel_mma.cuh): maps (the tensor maps of the A
     # slabs and the X planes), y, uslot, ucount, abase, items, cta_start,
     # nctas, ntiles, rlm, lm, c, n_rows, nt, ksteps, bm, bn, kc, mode
-    # (1, 3, 4 or 6 bf16 products), stream
-    "tfq_pairpanel_tiles_bf16": [_P] * 7 + [_I] * 12 + [_P],
+    # (1, 3, 4 or 6 bf16 products), stream, count
+    "tfq_pairpanel_tiles_bf16": [_P] * 7 + [_I] * 12 + [_P] * 2,
     # maps, mask, y_re, y_im, uslot, ucount, abase, items, cta_start,
     # nctas, ntiles, rlm, lm, nr, c, ln, nt, ksteps, bm, bn, kc, mode,
-    # stream
-    "tfq_rowtile_spmm_bf16": [_P] * 9 + [_I] * 13 + [_P],
+    # stream, count
+    "tfq_rowtile_spmm_bf16": [_P] * 9 + [_I] * 13 + [_P] * 2,
     # their X split pass (split_x_bf16.cu): x_re, x_im, ldx, xs, nblocks,
-    # lm, klm, c, nlb16, planes, stream
-    "tfq_split_x_bf16": [_P, _P, _I, _P] + [_I] * 6 + [_P],
+    # lm, klm, c, nlb16, planes, stream, count
+    "tfq_split_x_bf16": [_P, _P, _I, _P] + [_I] * 6 + [_P] * 2,
     # maps (256 bytes, written), a, n_boxes, xs, xrows, nlb16, planes, kc,
     # lanes
     "tfq_panel_mma_maps": [_P, _P, _I, _P] + [_I] * 5,
     # K1's Ozaki modes (pairpanel_oz.cu): a (the staged A slices), x
     # (lane-major), y, xloc, kcount, ntiles, m, ku, lm, c, rows, p, q, body,
-    # a_int8, stream
-    "tfq_pairpanel_oz": [_P] * 5 + [_I] * 10 + [_P],
+    # a_int8, stream, count
+    "tfq_pairpanel_oz": [_P] * 5 + [_I] * 10 + [_P] * 2,
     # body, p, lm -> the bytes of its stage's depth
     "tfq_pairpanel_oz_stage_bytes": [_I] * 3,
     # bm, bn, lm, c -> CTAs the card holds at once (or -cudaError_t)
@@ -75,6 +79,29 @@ SIGNATURES = {
     "tfq_dma_probe_ctas": [_I] * 2,
     # x, n_ops, nsteps, rows, cols, stage_bytes, ctas, partial, out, stream
     "tfq_dma_probe_f32": [_P] + [_I] * 6 + [_P] * 3,
+    # the loop's control (loop_control.cu): tau, inv_bn2, status, n, it,
+    # maxit, target_bound2, stop_code, max_bound2, probe, handle,
+    # set_handle, stream, count
+    "tfq_loop_decide": [_P] * 3 + [_I] + [_P] * 6 + [_U, _I, _P, _P],
+    # res2, status, n, tol2, max_bound2, it, residual2, target_bound2,
+    # stop_code, iters_needed, n_probes, stream, count
+    "tfq_loop_settle": [_P] * 2 + [_I] + [_P] * 10,
+    # it, maxit, stop_code, go (or null), handle, set_handle, stream, count
+    "tfq_loop_continue": [_P] * 4 + [_U, _I, _P, _P],
+    # and its graph: stream, graph (out)
+    "tfq_loop_graph_begin": [_P, ctypes.POINTER(_P)],
+    # stream, handle (out)
+    "tfq_loop_graph_handle": [_P, ctypes.POINTER(_U)],
+    # stream, handle, kind (0 IF, 1 WHILE), node (out), body (out)
+    "tfq_loop_graph_open": [_P, _U, _I, ctypes.POINTER(_P),
+                            ctypes.POINTER(_P)],
+    # stream, the enclosing graph, the node
+    "tfq_loop_graph_close": [_P] * 3,
+    # stream, graph, exec (out)
+    "tfq_loop_graph_end": [_P, _P, ctypes.POINTER(_P)],
+    "tfq_loop_graph_abort": [_P],
+    "tfq_loop_graph_launch": [_P, _P],
+    "tfq_loop_graph_destroy": [_P, _P],
 }
 
 

@@ -91,7 +91,7 @@ def multiply_chain(solver: Solver, nrep: int):
     if solver._multiply is None:
         raise RuntimeError("matrix 'A' has not been set")
     if solver._packed:
-        multiply = solver._fused_primitives(solver._v3).multiply
+        multiply = solver._fused_primitives().multiply
 
         def step(x):
             y = multiply(x)

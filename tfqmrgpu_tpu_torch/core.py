@@ -9,10 +9,17 @@ every iteration (tau-based upper bound, tfqmrgpu_core.hxx:235-253) and
 probes the true residual ``|A@v1 - B|`` only when the bound crosses an
 adaptive target (tfqmrgpu_core.hxx:263-304).
 
-As in the reference, the convergence decision is taken on the host every
-iteration (tfqmrgpu_core.hxx:235-236): one small device-to-host read per
-iteration, and one more per probe.  The JAX package keeps the whole loop on
-the device instead; the carry, the probe logic and the numbers are the same.
+The loop is written in carry form, as the JAX package's: ``init_carry``,
+then per iteration ``step`` (the two half-steps), ``decide`` (the bound and
+the probe predicate) and, where ``decide`` says so, ``probe_residual`` and
+``settle`` (JAX's ``do_probe``).  The reference takes the convergence
+decision on the host every iteration (tfqmrgpu_core.hxx:235-236).  Here, on
+a CUDA device, the whole loop is one launch of one CUDA graph
+(``graphloop.py``): a WHILE node around the iteration and an IF node around
+the probe, whose predicates the kernels of ``csrc/loop_control.cu`` set on
+the card, so the host reads the loop's state once, after the loop, as the
+JAX package's ``jax.lax.while_loop`` does.  On the CPU, and in the sharded
+solvers, a plain Python driver runs the same functions (``plain_loop``).
 
 Iteration body (tfqmrgpu_core.hxx:179-306, two half-steps):
 
@@ -32,7 +39,7 @@ Iteration body (tfqmrgpu_core.hxx:179-306, two half-steps):
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, NamedTuple
+from typing import Any, Callable, NamedTuple
 
 import torch
 
@@ -63,9 +70,11 @@ def _identity(t: torch.Tensor) -> torch.Tensor:
 class TfqmrPrimitives:
     """The operations the loop body needs, bound to the plan's tables.
 
-    ``allmax`` and ``alland`` reduce a host-decision scalar (a float64 max,
-    a bool "all") over the other ranks of a sharded solve before the host
-    reads it (``parallel/``); on one device they are the identity."""
+    ``allmax`` and ``alland`` reduce a decision scalar (a float64 max, a
+    bool "all") over the other ranks of a sharded solve (``parallel/``); on
+    one device they are the identity.  ``host_loop`` sends the loop to the
+    plain driver on any device: the sharded primitives set it, since their
+    collectives run outside a CUDA graph."""
 
     multiply: Callable[[Pair], Pair]          # y = A @ x
     dotp: Callable[[Pair, Pair], Pair]        # per-column <x, y>  (f64)
@@ -75,6 +84,7 @@ class TfqmrPrimitives:
     add_rhs: Callable[[Pair, Pair, float], Pair]
     allmax: Callable[[torch.Tensor], torch.Tensor] = _identity
     alland: Callable[[torch.Tensor], torch.Tensor] = _identity
+    host_loop: bool = False
 
 
 def make_shadow_vector(nnzb_x: int, lm: int, ln: int, *, device,
@@ -97,107 +107,228 @@ def inverse_norms(n2: torch.Tensor) -> torch.Tensor:
     return torch.where(n2 > 0, 1.0 / torch.where(n2 > 0, n2, 1.0), 0.0)
 
 
-def tfqmr_loop(prim: TfqmrPrimitives, v2: Pair, v3: Pair, v5_init: Pair,
-               tau0: torch.Tensor, inv_bn2: torch.Tensor, tolerance: float,
-               max_iterations: int, dt) -> SolveResult:
-    """The tfQMR loop over the primitive set."""
-    f64 = torch.float64
-    tol2 = float(tolerance) ** 2
-    maxit = int(max_iterations)
+@dataclasses.dataclass
+class Carry:
+    """The loop state (JAX: ``core._Carry``): the X-shaped work vectors in
+    the engine's layout, the per-RHS fields [ncols, LN], and the loop's
+    scalars as 0-d tensors on the vectors' device, so that the decisions
+    can be taken there: ``it``, ``stop_code`` (0 running, 1 converged, 2
+    breakdown), ``iters_needed`` and ``n_probes`` int32, ``target_bound2``
+    and ``residual2`` float64."""
+
+    it: torch.Tensor
+    v1: Any
+    v4: Any
+    v5: Any
+    v6: Any
+    v7: Any
+    v8: Any
+    rho: Pair
+    eta: Pair
+    tau: torch.Tensor
+    var: torch.Tensor
+    status: torch.Tensor
+    target_bound2: torch.Tensor
+    residual2: torch.Tensor
+    stop_code: torch.Tensor
+    iters_needed: torch.Tensor
+    n_probes: torch.Tensor
+
+
+def _tree(fn, v):
+    """``fn`` over a vector: an (re, im) pair or one fused tensor."""
+    return fn(v) if torch.is_tensor(v) else tuple(fn(t) for t in v)
+
+
+def init_carry(v5_init, tau0: torch.Tensor, tol2: torch.Tensor,
+               maxit: torch.Tensor, dt) -> Carry:
+    """The state before the first iteration (tfqmrgpu_core.hxx:114-130),
+    from the loop's inputs: ``tol2`` (float64) and ``maxit`` (int32) are
+    0-d tensors.  The carry holds copies of ``v5_init``, ``tau0`` and
+    ``maxit``, so that the inputs stay as they were."""
     ncols, ln = tau0.shape
     dev = tau0.device
-
-    def czeros():
-        # vectors are (re, im) pairs, or single fused tensors (packed pairs)
-        if torch.is_tensor(v5_init):
-            return torch.zeros_like(v5_init)
-        return torch.zeros_like(v5_init[0]), torch.zeros_like(v5_init[1])
 
     def szeros(dtype=dt):
         return torch.zeros((ncols, ln), dtype=dtype, device=dev)
 
-    v1, v4, v6, v7, v8 = czeros(), czeros(), czeros(), czeros(), czeros()
-    v5 = v5_init
-    rho = (torch.ones((ncols, ln), dtype=dt, device=dev), szeros())
-    eta = (szeros(), szeros())
-    tau = tau0
-    var = szeros(f64)
-    status = szeros(torch.int32)
-    target_bound2 = tol2 * 100.0 * 100.0     # init test_factor=100 (:130)
-    residual2 = 1e30
-    stop_code = 0                            # 0 running, 1 converged, 2 breakdown
-    iters_needed = maxit
-    n_probes = 0
-    it = 0
+    def scalar(value, dtype):
+        return torch.full((), value, dtype=dtype, device=dev)
 
-    while it < maxit and stop_code == 0:
-        it += 1
-        # ---- first half-step
-        z35 = prim.dotp(v3, v5)                            # <v3, v5>
-        status, rho, beta = decisions.dec35(status, rho, z35, dt)
-        v6 = prim.xpay(v6, beta, v5)                       # v6 := v5 + beta*v6
-        v4 = prim.xpay(v4, beta, v8)                       # v4 := v8 + beta*v4
-        v9 = prim.multiply(v6)                             # v9 := A @ v6
-        v4 = prim.xpay(v4, beta, v9)                       # v4 := v9 + beta*v4
-        z34 = prim.dotp(v3, v4)                            # <v3, v4>
-        status, c67, alfa = decisions.dec34(status, rho, eta, z34, var, dt)
-        v7 = prim.xpay(v7, c67, v6)                        # v7 := v6 + c67*v7
-        v5 = prim.axpy(v5, v9, alfa)                       # v5 += alfa*v9
-        d55 = prim.nrm2(v5)
-        status, c67, eta, var, tau = decisions.dect(
-            status, var, tau, alfa, d55, dt, with_c67=True)
-        v1 = prim.axpy(v1, v7, eta)                        # v1 += eta*v7
-        v6 = prim.axpy(v6, v4, alfa)                       # v6 += alfa*v4
-        v7 = prim.xpay(v7, c67, v6)                        # v7 := v6 + c67*v7
-        # ---- second half-step
-        v8 = prim.multiply(v6)                             # v8 := A @ v6
-        v5 = prim.axpy(v5, v8, alfa)                       # v5 += alfa*v8
-        d55 = prim.nrm2(v5)
-        status, _, eta, var, tau = decisions.dect(
-            status, var, tau, alfa, d55, dt, with_c67=False)
-        v1 = prim.axpy(v1, v7, eta)                        # v1 += eta*v7
+    return Carry(
+        it=scalar(0, torch.int32),
+        v1=_tree(torch.zeros_like, v5_init),
+        v4=_tree(torch.zeros_like, v5_init),
+        v5=_tree(torch.clone, v5_init),
+        v6=_tree(torch.zeros_like, v5_init),
+        v7=_tree(torch.zeros_like, v5_init),
+        v8=_tree(torch.zeros_like, v5_init),
+        rho=(torch.ones((ncols, ln), dtype=dt, device=dev), szeros()),
+        eta=(szeros(), szeros()),
+        tau=tau0.clone(),
+        var=szeros(torch.float64),
+        status=szeros(torch.int32),
+        target_bound2=tol2 * 100.0 * 100.0,  # init test_factor=100 (:130)
+        residual2=scalar(1e30, torch.float64),
+        stop_code=scalar(0, torch.int32),
+        iters_needed=maxit.clone(),
+        n_probes=scalar(0, torch.int32),
+    )
 
-        # ---- convergence control on the host (tfqmrgpu_core.hxx:235-304)
-        broke = (status == -1) | (status == -2)
-        max_ub, all_broke = torch.stack(
-            [prim.allmax((tau * inv_bn2).max()),
-             prim.alland(broke.all()).to(f64)]).tolist()
-        max_bound2 = max_ub * float(2 * it + 1)
-        if all_broke:
-            stop_code = 2
-        elif max_bound2 <= target_bound2 or it >= maxit:
-            y = prim.multiply(v1)                          # v9 := A @ v1
-            y = prim.add_rhs(y, v2, -1.0)                  # v9 -= B
-            res2 = prim.nrm2(y) * inv_bn2
-            # isDone is evaluated with the status BEFORE the res2 <= 0
-            # update, as in the reference's loop (tfqmrgpu_core.hxx:276-286)
-            done = prim.alland(((res2 <= tol2) | (status != 0)).all())
-            status = torch.where(res2 <= 0, torch.ones_like(status), status)
-            max_res2, is_done = torch.stack(
-                [prim.allmax(res2.max()), done.to(f64)]).tolist()
-            # underflow guard (1.4e-76 in the reference)
-            residual2 = max(max_res2, decisions.EPSILON)
-            target_bound2 = (max_bound2 / residual2) * tol2
-            n_probes += 1
-            if is_done:
-                stop_code = 1
-                iters_needed = it
 
+def step(prim: TfqmrPrimitives, c: Carry, v3: Pair, dt) -> Carry:
+    """One iteration's two half-steps (tfqmrgpu_core.hxx:179-233): the
+    carry with ``it`` + 1 and new vectors and per-RHS fields."""
+    # ---- first half-step
+    z35 = prim.dotp(v3, c.v5)                              # <v3, v5>
+    status, rho, beta = decisions.dec35(c.status, c.rho, z35, dt)
+    v6 = prim.xpay(c.v6, beta, c.v5)                       # v6 := v5 + beta*v6
+    v4 = prim.xpay(c.v4, beta, c.v8)                       # v4 := v8 + beta*v4
+    v9 = prim.multiply(v6)                                 # v9 := A @ v6
+    v4 = prim.xpay(v4, beta, v9)                           # v4 := v9 + beta*v4
+    z34 = prim.dotp(v3, v4)                                # <v3, v4>
+    status, c67, alfa = decisions.dec34(status, rho, c.eta, z34, c.var, dt)
+    v7 = prim.xpay(c.v7, c67, v6)                          # v7 := v6 + c67*v7
+    v5 = prim.axpy(c.v5, v9, alfa)                         # v5 += alfa*v9
+    d55 = prim.nrm2(v5)
+    status, c67, eta, var, tau = decisions.dect(
+        status, c.var, c.tau, alfa, d55, dt, with_c67=True)
+    v1 = prim.axpy(c.v1, v7, eta)                          # v1 += eta*v7
+    v6 = prim.axpy(v6, v4, alfa)                           # v6 += alfa*v4
+    v7 = prim.xpay(v7, c67, v6)                            # v7 := v6 + c67*v7
+    # ---- second half-step
+    v8 = prim.multiply(v6)                                 # v8 := A @ v6
+    v5 = prim.axpy(v5, v8, alfa)                           # v5 += alfa*v8
+    d55 = prim.nrm2(v5)
+    status, _, eta, var, tau = decisions.dect(
+        status, var, tau, alfa, d55, dt, with_c67=False)
+    v1 = prim.axpy(v1, v7, eta)                            # v1 += eta*v7
+    return dataclasses.replace(c, it=c.it + 1, v1=v1, v4=v4, v5=v5, v6=v6,
+                               v7=v7, v8=v8, rho=rho, eta=eta, tau=tau,
+                               var=var, status=status)
+
+
+def decide(c: Carry, inv_bn2: torch.Tensor, maxit: torch.Tensor,
+           allmax=_identity, alland=_identity) -> tuple:
+    """The convergence control after an iteration (tfqmrgpu_core.hxx:
+    235-263; JAX: core.py:188-193): the residual bound max(tau * inv_bn2)
+    * (2 it + 1), the probe predicate (bound at or below the target, or the
+    iteration cap) unless every RHS broke down, which stops the loop.
+    Returns (stop_code, max_bound2, probe) as 0-d tensors.  The plain
+    version of ``graphloop.LoopControl.decide``."""
+    max_ub = allmax((c.tau * inv_bn2).max())
+    max_bound2 = max_ub * (2 * c.it + 1).to(torch.float64)
+    broke = (c.status == -1) | (c.status == -2)
+    all_broke = alland(broke.all())
+    probe = (((max_bound2 <= c.target_bound2) | (c.it >= maxit))
+             & ~all_broke)
+    stop_code = torch.where(all_broke, 2, c.stop_code)
+    return stop_code, max_bound2, probe
+
+
+def probe_residual(prim: TfqmrPrimitives, c: Carry, v2: Pair,
+                   inv_bn2: torch.Tensor) -> torch.Tensor:
+    """The probe's true residual |A @ v1 - B|^2 / |B|^2 per RHS
+    (tfqmrgpu_core.hxx:263-275): one multiply."""
+    y = prim.multiply(c.v1)                                # v9 := A @ v1
+    y = prim.add_rhs(y, v2, -1.0)                          # v9 -= B
+    return prim.nrm2(y) * inv_bn2
+
+
+def settle(c: Carry, res2: torch.Tensor, max_bound2: torch.Tensor,
+           tol2: torch.Tensor, allmax=_identity, alland=_identity) -> Carry:
+    """What the probe decides (tfqmrgpu_core.hxx:276-304; JAX's
+    ``do_probe``, core.py:195-211): isDone, the status of converged
+    columns, the next target bound and the counters.  The plain version of
+    ``graphloop.LoopControl.settle``."""
+    # isDone is evaluated with the status BEFORE the res2 <= 0 update, as
+    # in the reference's loop (tfqmrgpu_core.hxx:276-286)
+    is_done = alland(((res2 <= tol2) | (c.status != 0)).all())
+    status = torch.where(res2 <= 0, torch.ones_like(c.status), c.status)
+    # underflow guard (1.4e-76 in the reference); clamp keeps a NaN
+    residual2 = allmax(res2.max()).clamp_min(decisions.EPSILON)
+    return dataclasses.replace(
+        c, status=status, residual2=residual2,
+        target_bound2=(max_bound2 / residual2) * tol2,
+        stop_code=torch.where(is_done, 1, c.stop_code),
+        iters_needed=torch.where(is_done, c.it, c.iters_needed),
+        n_probes=c.n_probes + 1)
+
+
+def solve_result(c: Carry, stop_code: int, iters_needed: int, n_probes: int,
+                 residual2: float) -> SolveResult:
+    """The ``SolveResult`` of a final carry whose scalars the host read."""
     return_status = {1: Status.SUCCESS, 2: Status.BREAKDOWN}.get(
-        stop_code, Status.MAX_ITERATIONS)
-    return SolveResult(x=v1, return_status=int(return_status),
-                       iterations=iters_needed, residuum=residual2 ** 0.5,
-                       rhs_status=status, n_probes=n_probes, tau=tau)
+        int(stop_code), Status.MAX_ITERATIONS)
+    return SolveResult(x=c.v1, return_status=int(return_status),
+                       iterations=int(iters_needed),
+                       residuum=float(residual2) ** 0.5,
+                       rhs_status=c.status, n_probes=int(n_probes), tau=c.tau)
+
+
+def plain_loop(prim: TfqmrPrimitives, v2: Pair, v3: Pair, v5_init: Pair,
+               tau0: torch.Tensor, inv_bn2: torch.Tensor, tol2: float,
+               maxit: int, dt) -> SolveResult:
+    """The plain driver: a Python loop over ``step``, ``decide`` and, where
+    it says so, ``probe_residual`` and ``settle``, reading the predicates
+    on the host, one read an iteration and one a probe.  The CPU runs it,
+    the sharded solvers run it (their ``allmax`` / ``alland`` are
+    collectives), and ``chip_smoke.py`` holds the graph driver against it
+    on the card."""
+    dev = tau0.device
+    tol2_t = torch.full((), tol2, dtype=torch.float64, device=dev)
+    maxit_t = torch.full((), maxit, dtype=torch.int32, device=dev)
+    c = init_carry(v5_init, tau0, tol2_t, maxit_t, dt)
+    it, stop = 0, 0
+    while it < maxit and stop == 0:
+        c = step(prim, c, v3, dt)
+        it += 1
+        stop_code, max_bound2, probe = decide(c, inv_bn2, maxit_t,
+                                              prim.allmax, prim.alland)
+        c.stop_code = stop_code
+        go_probe, stop = torch.stack([probe.to(torch.int32),
+                                      stop_code]).tolist()
+        if go_probe:
+            res2 = probe_residual(prim, c, v2, inv_bn2)
+            c = settle(c, res2, max_bound2, tol2_t, prim.allmax, prim.alland)
+            stop = int(c.stop_code.item())
+    iters_needed, n_probes, residual2 = torch.stack([
+        c.iters_needed.to(torch.float64), c.n_probes.to(torch.float64),
+        c.residual2]).tolist()
+    return solve_result(c, stop, iters_needed, n_probes, residual2)
+
+
+def tfqmr_loop(prim: TfqmrPrimitives, v2: Pair, v3: Pair, v5_init: Pair,
+               tau0: torch.Tensor, inv_bn2: torch.Tensor, tolerance: float,
+               max_iterations: int, dt, *, graphs=None,
+               key: tuple = ()) -> SolveResult:
+    """The tfQMR loop over the primitive set.  On a CUDA device the whole
+    loop, the decisions to probe and to stop included, is one launch of a
+    CUDA graph (``graphloop``): ``graphs`` (a ``graphloop.LoopGraphs``)
+    keeps it under ``key`` for the next solve, and without it the graph is
+    made for this solve alone.  On the CPU, and where ``prim.host_loop``
+    says so (the sharded solvers), the plain driver runs the same
+    functions (``plain_loop``)."""
+    tol2 = float(tolerance) ** 2
+    maxit = int(max_iterations)
+    if prim.host_loop or tau0.device.type == "cpu":
+        return plain_loop(prim, v2, v3, v5_init, tau0, inv_bn2, tol2, maxit,
+                          dt)
+    from .graphloop import run_graph
+
+    return run_graph(graphs, key, prim, v2, v3, v5_init, tau0, inv_bn2, tol2,
+                     maxit, dt)
 
 
 def solve_core(multiply: Callable[[Pair], Pair], v2: Pair, v3: Pair,
                cols: linalg.Columns, subset: torch.Tensor, tolerance: float,
                max_iterations: int, inv_bn2_override=None, *, lm: int,
-               ln: int, rhs_trivial: bool = False) -> SolveResult:
+               ln: int, rhs_trivial: bool = False, graphs=None,
+               key: tuple = ()) -> SolveResult:
     """Prepare the right-hand side and its norms, then run the loop
     (tfqmrgpu_core.hxx:114-168).  ``v2`` holds B's blocks [nnzbB, LM, LN]
     (a shape placeholder when ``rhs_trivial``); ``subset`` maps them into
-    X's blocks."""
+    X's blocks.  ``graphs`` and ``key`` are ``tfqmr_loop``'s."""
     dt = v2[0].dtype
     dev = v2[0].device
     colindx = cols.colindx
@@ -222,19 +353,20 @@ def solve_core(multiply: Callable[[Pair], Pair], v2: Pair, v3: Pair,
     if inv_bn2_override is not None:
         inv_bn2 = inv_bn2_override
     return tfqmr_loop(prim, v2, v3, v5, tau0, inv_bn2, tolerance,
-                      max_iterations, dt)
+                      max_iterations, dt, graphs=graphs, key=key)
 
 
 def solve_core_panel(multiply: Callable[[Pair], Pair], b_panel: Pair,
                      v3_panel: Pair, tolerance: float, max_iterations: int,
-                     inv_bn2_override=None, *,
-                     rhs_trivial: bool = False) -> SolveResult:
+                     inv_bn2_override=None, *, rhs_trivial: bool = False,
+                     graphs=None, key: tuple = ()) -> SolveResult:
     """The panel engines' entry (JAX: core.solve_core_panel): vectors live
     as [NR, ncc, LN] panels (``ops/panel.py``); ``multiply`` returns masked
-    panels and ``b_panel`` holds B (the unit blocks when ``rhs_trivial``)."""
+    panels and ``b_panel`` holds B (the unit blocks when ``rhs_trivial``).
+    ``graphs`` and ``key`` are ``tfqmr_loop``'s."""
     from .ops.panel import make_panel_primitives
 
-    prim = make_panel_primitives(multiply, b_panel)
+    prim = make_panel_primitives(multiply)
     v5 = (b_panel[0], b_panel[1])
     _, ncc, ln = b_panel[0].shape
     if rhs_trivial:
@@ -247,18 +379,20 @@ def solve_core_panel(multiply: Callable[[Pair], Pair], b_panel: Pair,
     if inv_bn2_override is not None:
         inv_bn2 = inv_bn2_override
     return tfqmr_loop(prim, b_panel, v3_panel, v5, tau0, inv_bn2, tolerance,
-                      max_iterations, b_panel[0].dtype)
+                      max_iterations, b_panel[0].dtype, graphs=graphs,
+                      key=key)
 
 
 def solve_core_fused(prim: TfqmrPrimitives, b_fused: torch.Tensor,
                      v3_fused: torch.Tensor, ncols: int, ln: int,
                      tolerance: float, max_iterations: int,
-                     inv_bn2_override=None, *,
-                     rhs_trivial: bool = False) -> SolveResult:
+                     inv_bn2_override=None, *, rhs_trivial: bool = False,
+                     graphs=None, key: tuple = ()) -> SolveResult:
     """The packed pairs engine's entry (JAX: the step of its solver's
     ``_solve_pairs``): vectors are fused permuted panels
-    (``ops/pairpanel.fused_primitives``, whose ``add_rhs`` holds
-    ``b_fused``: B, or the unit blocks when ``rhs_trivial``)."""
+    (``ops/pairpanel.fused_primitives``); ``b_fused`` holds B, or the unit
+    blocks when ``rhs_trivial``.  ``graphs`` and ``key`` are
+    ``tfqmr_loop``'s."""
     v5 = prim.add_rhs(torch.zeros_like(b_fused), b_fused, 1.0)
     if rhs_trivial:
         tau0 = torch.ones((ncols, ln), dtype=torch.float64,
@@ -270,7 +404,7 @@ def solve_core_fused(prim: TfqmrPrimitives, b_fused: torch.Tensor,
     if inv_bn2_override is not None:
         inv_bn2 = inv_bn2_override
     return tfqmr_loop(prim, b_fused, v3_fused, v5, tau0, inv_bn2, tolerance,
-                      max_iterations, b_fused.dtype)
+                      max_iterations, b_fused.dtype, graphs=graphs, key=key)
 
 
 def flops_per_iteration(n_pairs: int, nnzb_x: int, lm: int, ln: int) -> float:

@@ -94,6 +94,7 @@
 #include <cstdint>
 #include <type_traits>
 
+#include "launch_count.cuh"
 #include "hopper.cuh"   // mbarriers, TMA, wgmma, the tensor-map encoder
 
 namespace {
@@ -136,6 +137,7 @@ struct OzArgs {
   const int* kcount;    // [ntiles]: the union's size
   int m, ku, lm, c, q;
   int nrb, nlb, nitems;   // row blocks, lane blocks, work items
+  unsigned long long* count;  // the launch counter (launch_count.cuh), or null
 };
 
 using namespace hopper;
@@ -184,6 +186,7 @@ pairpanel_oz_kernel(const __grid_constant__ CUtensorMap tma_a,
   const uint32_t empty = full + 8 * NST;
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  count_launch(p.count);
   const int per_tile = p.nrb * p.nlb;
   const int stages_of_slot = p.lm / C::KC;
   const int stages_of_tile = p.ku * stages_of_slot;
@@ -464,7 +467,8 @@ pairpanel_oz_kernel(const __grid_constant__ CUtensorMap tma_a,
 template <int BODY, int P, int KB>
 int launch(const void* a, const void* x, float* y, const int* xloc,
            const int* kcount, int ntiles, int m, int ku, int lm, int c,
-           int rows, int q, cudaStream_t stream) {
+           int rows, int q, cudaStream_t stream,
+           unsigned long long* count) {
   using C = Cfg<BODY, P, KB>;
   auto kernel = pairpanel_oz_kernel<BODY, P, KB>;
   const cuuint64_t esz = C::INT ? 1 : 2;
@@ -497,7 +501,7 @@ int launch(const void* a, const void* x, float* y, const int* xloc,
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
   if (err != cudaSuccess) return err;
   const int nlb = (c + C::LB - 1) / C::LB;
-  OzArgs args{y, xloc, kcount, m, ku, lm, c, q, nrb, nlb, 0};
+  OzArgs args{y, xloc, kcount, m, ku, lm, c, q, nrb, nlb, 0, count};
   const long long items = static_cast<long long>(ntiles) * nrb * nlb;
   if (items > 0x7FFFFFFF) return cudaErrorInvalidValue;
   args.nitems = static_cast<int>(items);
@@ -549,7 +553,7 @@ extern "C" int tfq_pairpanel_oz(const void* a, const void* x, void* y,
                                 const void* xloc, const void* kcount,
                                 int ntiles, int m, int ku, int lm, int c,
                                 int rows, int p, int q, int body, int a_int8,
-                                void* stream) {
+                                void* stream, void* count) {
   if (ntiles <= 0) return cudaSuccess;
   const int kb = tfq_pairpanel_oz_stage_bytes(body, p, lm);
   const int kc = body == BODY_XI8 ? kb : kb / 2;
@@ -563,14 +567,15 @@ extern "C" int tfq_pairpanel_oz(const void* a, const void* x, void* y,
   auto yf = static_cast<float*>(y);
   auto xl = static_cast<const int*>(xloc);
   auto kn = static_cast<const int*>(kcount);
+  auto cnt = static_cast<unsigned long long*>(count);
 #define TFQ_OZ_LAUNCH(BODY, P)                                              \
   (kb == 64                                                                  \
        ? launch<BODY, P,                                                     \
                 (BODY != BODY_XI8 && (BODY == BODY_OZC || P <= 9)) ? 64      \
                                                                    : 32>(    \
-             a, x, yf, xl, kn, ntiles, m, ku, lm, c, rows, q, st)            \
+             a, x, yf, xl, kn, ntiles, m, ku, lm, c, rows, q, st, cnt)       \
        : launch<BODY, P, 32>(a, x, yf, xl, kn, ntiles, m, ku, lm, c, rows,   \
-                             q, st))
+                             q, st, cnt))
   switch (body) {
     case BODY_OZ:
       switch (p) {

@@ -51,6 +51,8 @@
 
 #include <cstddef>
 
+#include "launch_count.cuh"
+
 namespace {
 
 // ----------------------------------------------------------------- 'z'
@@ -137,8 +139,10 @@ pairpanel_spmm_mma_kernel(const double* __restrict__ a_re,
                           const int* __restrict__ step_x,
                           const unsigned long long* __restrict__ step_mask,
                           double* __restrict__ y_re, double* __restrict__ y_im,
-                          int R, int W, int warps_n) {
+                          int R, int W, int warps_n,
+                          unsigned long long* count) {
   using G = TileGeo<LM, LN>;
+  count_launch(count);
   extern __shared__ __align__(16) unsigned char smem_raw[];
   auto* s_mask = reinterpret_cast<unsigned long long*>(smem_raw);
   double* s_data = reinterpret_cast<double*>(smem_raw + 16 * G::NST);
@@ -335,7 +339,8 @@ cudaError_t launch_tiles(const void* a_re, const void* a_im, const void* x_re,
                          const void* tile_y, const void* step_a,
                          const void* step_x, const void* step_mask,
                          void* y_re, void* y_im, int ntiles, int warps_m,
-                         int warps_n, int R, int W, cudaStream_t stream) {
+                         int warps_n, int R, int W, cudaStream_t stream,
+                         void* count) {
   using G = TileGeo<LM, LN>;
   const int warps = warps_m * warps_n;
   if (warps_m < 1 || warps_n < 1 || warps > kMaxWarps ||
@@ -360,7 +365,8 @@ cudaError_t launch_tiles(const void* a_re, const void* a_im, const void* x_re,
       static_cast<const int*>(tile_steps), static_cast<const int*>(tile_y),
       static_cast<const int*>(step_a), static_cast<const int*>(step_x),
       static_cast<const unsigned long long*>(step_mask),
-      static_cast<double*>(y_re), static_cast<double*>(y_im), R, W, warps_n);
+      static_cast<double*>(y_re), static_cast<double*>(y_im), R, W, warps_n,
+      static_cast<unsigned long long*>(count));
   return cudaGetLastError();
 }
 
@@ -390,8 +396,9 @@ pairpanel_spmm_kernel(const float* __restrict__ a_re,
                       const int* __restrict__ pair_a,
                       const int* __restrict__ pair_x,
                       float* __restrict__ y_re, float* __restrict__ y_im,
-                      int nnzb_y) {
+                      int nnzb_y, unsigned long long* count) {
   using Geo = Geometry<LM, LN>;
+  count_launch(count);
   extern __shared__ __align__(16) unsigned char smem_raw[];
 
   const int g = threadIdx.x / Geo::TPG;  // group (Y block) inside the CTA
@@ -468,7 +475,8 @@ template <int LM, int LN>
 cudaError_t launch_pairs(const void* a_re, const void* a_im, const void* x_re,
                          const void* x_im, const void* starts,
                          const void* pair_a, const void* pair_x, void* y_re,
-                         void* y_im, int nnzb_y, cudaStream_t stream) {
+                         void* y_im, int nnzb_y, cudaStream_t stream,
+                         void* count) {
   using Geo = Geometry<LM, LN>;
   constexpr size_t smem = sizeof(float) * Geo::G * (2 * Geo::NA + 2 * Geo::NE);
   if (nnzb_y <= 0) return cudaSuccess;
@@ -485,7 +493,8 @@ cudaError_t launch_pairs(const void* a_re, const void* a_im, const void* x_re,
       static_cast<const float*>(x_re), static_cast<const float*>(x_im),
       static_cast<const int*>(starts), static_cast<const int*>(pair_a),
       static_cast<const int*>(pair_x), static_cast<float*>(y_re),
-      static_cast<float*>(y_im), nnzb_y);
+      static_cast<float*>(y_im), nnzb_y,
+      static_cast<unsigned long long*>(count));
   return cudaGetLastError();
 }
 
@@ -505,13 +514,13 @@ extern "C" int tfq_pairpanel_spmm_f64(
     const void* tile_steps, const void* tile_y, const void* step_a,
     const void* step_x, const void* step_mask, void* y_re, void* y_im,
     int ntiles, int lm, int ln, int warps_m, int warps_n, int rows, int cols,
-    void* stream) {
+    void* stream, void* count) {
 #define TFQ_TILES(M, N)                                                      \
   if (lm == M && ln == N)                                                    \
     return static_cast<int>(launch_tiles<M, N>(                              \
         a_re, a_im, x_re, x_im, tile_steps, tile_y, step_a, step_x,          \
         step_mask, y_re, y_im, ntiles, warps_m, warps_n, rows, cols,         \
-        static_cast<cudaStream_t>(stream)));
+        static_cast<cudaStream_t>(stream), count));
   TFQ_BLOCK_SIZES(TFQ_TILES)
 #undef TFQ_TILES
   return -1;
@@ -523,12 +532,12 @@ extern "C" int tfq_pairpanel_spmm_f32(const void* a_re, const void* a_im,
                                       const void* starts, const void* pair_a,
                                       const void* pair_x, void* y_re,
                                       void* y_im, int nnzb_y, int lm, int ln,
-                                      void* stream) {
+                                      void* stream, void* count) {
 #define TFQ_PAIRS(M, N)                                                      \
   if (lm == M && ln == N)                                                    \
     return static_cast<int>(launch_pairs<M, N>(                              \
         a_re, a_im, x_re, x_im, starts, pair_a, pair_x, y_re, y_im, nnzb_y,  \
-        static_cast<cudaStream_t>(stream)));
+        static_cast<cudaStream_t>(stream), count));
   TFQ_BLOCK_SIZES(TFQ_PAIRS)
 #undef TFQ_PAIRS
   return -1;

@@ -60,7 +60,8 @@ extern "C" int tfq_pairpanel_tiles_f32(
     const void* a_dm, const void* x, void* y, const void* uslot,
     const void* ukidx, const void* ucount, const void* items,
     const void* cta_start, int nctas, int ntiles, int rlm, int ku, int lm,
-    int c, int n_rows, int nt, int ksteps, int bm, int bn, void* stream) {
+    int c, int n_rows, int nt, int ksteps, int bm, int bn, void* stream,
+    void* count) {
   if (ntiles <= 0 || n_rows <= 0 || c <= 0 || nctas <= 0) return cudaSuccess;
   const auto* xf = static_cast<const float*>(x);
   auto* yf = static_cast<float*>(y);
@@ -69,7 +70,8 @@ extern "C" int tfq_pairpanel_tiles_f32(
       static_cast<const int*>(uslot), static_cast<const int*>(ukidx),
       static_cast<const int*>(ucount), static_cast<const int4*>(items),
       static_cast<const int*>(cta_start), 2LL * c, 2LL * c, ntiles, rlm, ku,
-      lm, c, 1, n_rows, nt, ksteps};
+      lm, c, 1, n_rows, nt, ksteps,
+      static_cast<unsigned long long*>(count)};
   return static_cast<int>(panel::dispatch<PairTiles>(
       p, bm, bn, nctas, static_cast<cudaStream_t>(stream), nullptr));
 }

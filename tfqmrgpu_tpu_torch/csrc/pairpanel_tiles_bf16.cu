@@ -53,7 +53,7 @@ extern "C" int tfq_pairpanel_tiles_bf16(
     const void* maps, void* y, const void* uslot, const void* ucount,
     const void* abase, const void* items, const void* cta_start, int nctas,
     int ntiles, int rlm, int lm, int c, int n_rows, int nt, int ksteps,
-    int bm, int bn, int kc, int mode, void* stream) {
+    int bm, int bn, int kc, int mode, void* stream, void* count) {
   if (ntiles <= 0 || n_rows <= 0 || c <= 0 || nctas <= 0) return cudaSuccess;
   if (!maps) return cudaErrorInvalidValue;
   auto* yf = static_cast<float*>(y);
@@ -61,7 +61,8 @@ extern "C" int tfq_pairpanel_tiles_bf16(
       yf, yf + c, nullptr, static_cast<const int*>(uslot),
       static_cast<const int*>(ucount), static_cast<const int*>(abase),
       static_cast<const int4*>(items), static_cast<const int*>(cta_start),
-      2LL * c, ntiles, rlm, lm, lm < 16 ? 16 : lm, c, 1, n_rows, nt, ksteps};
+      2LL * c, ntiles, rlm, lm, lm < 16 ? 16 : lm, c, 1, n_rows, nt, ksteps,
+      static_cast<unsigned long long*>(count)};
   return static_cast<int>(pmma::dispatch<PairTilesBf16>(
       maps, p, mode, bm, bn, kc, nctas, static_cast<cudaStream_t>(stream),
       nullptr));

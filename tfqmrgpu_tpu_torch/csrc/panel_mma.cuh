@@ -69,6 +69,7 @@
 #include <cstdint>
 #include <cstring>
 
+#include "launch_count.cuh"
 #include "hopper.cuh"   // mbarriers, TMA, wgmma, the tensor-map encoder
 
 namespace pmma {
@@ -138,6 +139,7 @@ struct Args {
   const int* cta_start;  // [nctas + 1]
   long long ldy;
   int ntiles, rlm, lm, klm, c, ln, n_rows, nt, ksteps;
+  unsigned long long* count;  // the launch counter (launch_count.cuh), or null
 };
 
 template <int LANES, int MODE, int KB>
@@ -157,6 +159,7 @@ __device__ __forceinline__ void run(const CUtensorMap* tma_a,
   const uint32_t empty = full + 8 * NST;
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  count_launch(p.count);
   const int first = p.cta_start[blockIdx.x];
   const int nmine = p.cta_start[blockIdx.x + 1] - first;
   const int chunks = p.klm / C::KC;

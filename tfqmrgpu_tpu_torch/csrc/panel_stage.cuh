@@ -57,6 +57,8 @@
 #include <cstddef>
 #include <cstdint>
 
+#include "launch_count.cuh"
+
 // The ring depth; tools/kernel_compare.py times others (-DTFQ_PANEL_STAGES=n).
 #ifndef TFQ_PANEL_STAGES
 #define TFQ_PANEL_STAGES 5
@@ -110,6 +112,7 @@ struct Args {
   const int* cta_start;  // [nctas + 1]: CTA b runs items cta_start[b : b+2]
   long long ldx, ldy;
   int ntiles, rlm, ku, lm, c, ln, n_rows, nt, ksteps;
+  unsigned long long* count;  // the launch counter (launch_count.cuh), or null
 };
 
 // UNION_: the tiles of a unit share one X slab (the union of their blocks);
@@ -155,6 +158,7 @@ __device__ __forceinline__ void run(const Args& p) {
   extern __shared__ __align__(16) float smem[];
   int* s_ids = reinterpret_cast<int*>(smem + NS * Tl::STAGE);
   int4* s_items = reinterpret_cast<int4*>(s_ids + Tl::ID_INTS);
+  count_launch(p.count);
 
   const int tid = threadIdx.x;
   const int tx = tid % Tl::TX;

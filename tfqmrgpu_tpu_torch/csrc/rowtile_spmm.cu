@@ -56,7 +56,7 @@ extern "C" int tfq_rowtile_spmm_f32(
     void* y_re, void* y_im, const void* uslot, const void* ukidx,
     const void* ucount, const void* items, const void* cta_start, int nctas,
     int ntiles, int rlm, int ku, int lm, int nr, int c, int ln, int nt,
-    int ksteps, int bm, int bn, void* stream) {
+    int ksteps, int bm, int bn, void* stream, void* count) {
   if (ntiles <= 0 || nr <= 0 || c <= 0 || nctas <= 0) return cudaSuccess;
   if (!mask) return cudaErrorInvalidValue;
   const panel::Args p{
@@ -66,7 +66,7 @@ extern "C" int tfq_rowtile_spmm_f32(
       static_cast<const int*>(uslot), static_cast<const int*>(ukidx),
       static_cast<const int*>(ucount), static_cast<const int4*>(items),
       static_cast<const int*>(cta_start), c, c, ntiles, rlm, ku, lm, c, ln,
-      nr, nt, ksteps};
+      nr, nt, ksteps, static_cast<unsigned long long*>(count)};
   return static_cast<int>(panel::dispatch<RowTile>(
       p, bm, bn, nctas, static_cast<cudaStream_t>(stream), nullptr));
 }

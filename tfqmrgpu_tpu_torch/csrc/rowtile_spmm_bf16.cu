@@ -54,7 +54,7 @@ extern "C" int tfq_rowtile_spmm_bf16(
     const void* uslot, const void* ucount, const void* abase,
     const void* items, const void* cta_start, int nctas, int ntiles, int rlm,
     int lm, int nr, int c, int ln, int nt, int ksteps, int bm, int bn,
-    int kc, int mode, void* stream) {
+    int kc, int mode, void* stream, void* count) {
   if (ntiles <= 0 || nr <= 0 || c <= 0 || nctas <= 0) return cudaSuccess;
   if (!mask || !maps) return cudaErrorInvalidValue;
   const pmma::Args p{
@@ -63,7 +63,8 @@ extern "C" int tfq_rowtile_spmm_bf16(
       static_cast<const int*>(uslot), static_cast<const int*>(ucount),
       static_cast<const int*>(abase), static_cast<const int4*>(items),
       static_cast<const int*>(cta_start), c, ntiles, rlm, lm,
-      lm < 16 ? 16 : lm, c, ln, nr, nt, ksteps};
+      lm < 16 ? 16 : lm, c, ln, nr, nt, ksteps,
+      static_cast<unsigned long long*>(count)};
   return static_cast<int>(pmma::dispatch<RowTileBf16>(
       maps, p, mode, bm, bn, kc, nctas, static_cast<cudaStream_t>(stream),
       nullptr));

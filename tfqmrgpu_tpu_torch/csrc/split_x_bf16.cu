@@ -108,7 +108,8 @@ __global__ void __launch_bounds__(256)
 split_x_bf16_kernel(const float* __restrict__ x_re,
                     const float* __restrict__ x_im, long long ldx,
                     uint16_t* __restrict__ xs, int lm, int klm, int c,
-                    int nlb16, long long xrows) {
+                    int nlb16, long long xrows,
+                    unsigned long long* count) {
   // a CTA's tile, 64 rows of 32 lanes of one half, as P planes [lane][8
   // chunks of 8 rows]; chunk k of lane l at k ^ (l % 8), so that neither
   // the split's stores nor the copy-out's loads meet in a bank
@@ -116,6 +117,7 @@ split_x_bf16_kernel(const float* __restrict__ x_re,
   const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5;
   const long long r0 = static_cast<long long>(blockIdx.y) * 64;
   const int h = blockIdx.z;
+  count_launch(count);
   {  // warp w splits rows r0 + 8w.. of the 32 lanes, one lane a thread
     const int j = blockIdx.x * 32 + lane;
     const long long row = r0 + 8 * w;
@@ -168,7 +170,8 @@ split_x_bf16_kernel(const float* __restrict__ x_re,
 // 'bf16x3' / 'bf16x4', 'bf16x6').
 extern "C" int tfq_split_x_bf16(const void* x_re, const void* x_im, int ldx,
                                 void* xs, int nblocks, int lm, int klm,
-                                int c, int nlb16, int planes, void* stream) {
+                                int c, int nlb16, int planes, void* stream,
+                                void* count) {
   if (nblocks <= 0 || c <= 0) return cudaSuccess;
   if (lm <= 0 || klm < lm || klm % 16 != 0 || nlb16 * 16 < c ||
       ldx < c || reinterpret_cast<uintptr_t>(xs) % 16 != 0)
@@ -181,18 +184,19 @@ extern "C" int tfq_split_x_bf16(const void* x_re, const void* x_im, int ldx,
   const auto* xr = static_cast<const float*>(x_re);
   const auto* xi = static_cast<const float*>(x_im);
   auto* out = static_cast<uint16_t*>(xs);
+  auto* cnt = static_cast<unsigned long long*>(count);
   switch (planes) {
     case 1:
       split_x_bf16_kernel<1><<<grid, 256, 0, st>>>(xr, xi, ldx, out, lm, klm,
-                                                   c, nlb16, xrows);
+                                                   c, nlb16, xrows, cnt);
       break;
     case 2:
       split_x_bf16_kernel<2><<<grid, 256, 0, st>>>(xr, xi, ldx, out, lm, klm,
-                                                   c, nlb16, xrows);
+                                                   c, nlb16, xrows, cnt);
       break;
     case 3:
       split_x_bf16_kernel<3><<<grid, 256, 0, st>>>(xr, xi, ldx, out, lm, klm,
-                                                   c, nlb16, xrows);
+                                                   c, nlb16, xrows, cnt);
       break;
     default:
       return cudaErrorInvalidValue;

@@ -63,6 +63,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .. import launch_counts
 from ..errors import Status, TfqmrgpuError, encode_status
 from . import ozaki, paneltiles
 from .blocksparse import spmm_pairs
@@ -494,7 +495,7 @@ def spmm_schedule(a: Pair, x: Pair, sched: TileSchedule, nnzb_y: int) -> Pair:
 
 # ================================================================ K1
 
-class PairPlanMultiply:
+class PairPlanMultiply(metaclass=launch_counts.CountedLaunches):
     """``y = A @ x`` over a plan's pair table, with A held on the device.
 
     ``plan`` is a plan, or a ``PairTable`` whose X side differs from its Y
@@ -505,12 +506,13 @@ class PairPlanMultiply:
     pair table itself.  On a CPU tensor the plain version (``spmm_pairs``)
     runs instead.
 
-    ``launches`` counts the kernel's launches by every instance in this
-    process, so that a run can show that its multiplies went through the
-    kernel; the plain version never adds to it.
+    ``launches`` reads the kernel's launch counter on the card (every
+    instance's runs in this process, ``launch_counts``), so that a run can
+    show that its multiplies went through the kernel; the plain version
+    never adds to it.
     """
 
-    launches: int = 0
+    _counters = {"launches": "k1"}
 
     def __init__(self, plan, a_re: torch.Tensor, a_im: torch.Tensor, ln: int,
                  grid: tuple = None):
@@ -595,13 +597,14 @@ class PairPlanMultiply:
         planes = (self.a_re, self.a_im, x[0], x[1])
         with torch.cuda.device(self.device):
             stream = torch.cuda.current_stream(self.device).cuda_stream
+            count = launch_counts.pointer(self.device, "k1")
             s = self.schedule
             if s is None:
                 rc = fn(*(t.data_ptr() for t in planes),
                         self.starts.data_ptr(), self.pair_a.data_ptr(),
                         self.pair_x.data_ptr(), y_re.data_ptr(),
                         y_im.data_ptr(), self.nnzb_y, self.lm, self.ln,
-                        stream)
+                        stream, count)
             elif any(t.data_ptr() % 16 for t in planes):
                 raise ValueError("the 'z' kernel copies A and x in 16-byte "
                                  "pieces: their planes must be 16-byte "
@@ -610,11 +613,10 @@ class PairPlanMultiply:
                 rc = fn(*(t.data_ptr() for t in planes + self._tables),
                         y_re.data_ptr(), y_im.data_ptr(), s.ntiles, self.lm,
                         self.ln, s.warps_m, s.warps_n, s.rows, s.cols,
-                        stream)
+                        stream, count)
         if rc != 0:
             raise TfqmrgpuError(encode_status(Status.LAUNCH_FAILED),
                                 f"pair-plan kernel returned {rc}")
-        PairPlanMultiply.launches += 1
         return y_re, y_im
 
 
@@ -1204,7 +1206,7 @@ def auto_group_size(pair_a, pair_x, pair_y, nnzb: int, lm: int, ln: int,
 
 # ==================================================================== K2
 
-class PairPanelMultiply:
+class PairPanelMultiply(metaclass=launch_counts.CountedLaunches):
     """``y = A @ x`` on fused permuted panels over a resident plan: K2.
 
     ``x`` is one float32 tensor [n_slots*LM, 2*LN'] (re lanes, then im
@@ -1225,8 +1227,8 @@ class PairPanelMultiply:
     once, depth-major ([ntiles, ku*LM, 2*rlm], the layout the kernel stages
     from); ``a_panels`` is then a transposed view of them.  ``slots``
     overrides the CTAs the work list is dealt to (by default what the card
-    holds at once); the result does not depend on it.  ``launches`` counts
-    the kernel's launches by every instance in this process; the plain
+    holds at once); the result does not depend on it.  ``launches`` reads
+    the kernel's launch counter on the card (``launch_counts``); the plain
     version never adds to it.
 
     A sharded solve multiplies a part of the plan: ``tiles`` lists its
@@ -1247,11 +1249,10 @@ class PairPanelMultiply:
     plain version is ``split_product`` in the order of the kernel's
     products.  A split
     mode needs LM >= 16, as the JAX kernel's bf16 windows do, and raises
-    ValueError below.  ``split_launches`` counts that kernel's launches.
+    ValueError below.  ``split_launches`` reads that kernel's counter.
     """
 
-    launches: int = 0
-    split_launches: int = 0
+    _counters = {"launches": "k2", "split_launches": "k2_split"}
 
     def __init__(self, plan: PairPanelPlan, a_panels: torch.Tensor,
                  slots: int = None, *, tiles=None, src_base: int = 0,
@@ -1393,20 +1394,18 @@ class PairPanelMultiply:
                     ops.abase.data_ptr(), items, cta_start, nctas,
                     self.ntiles, self.rlm, self.lm, self.ln, self.n_rows,
                     self.units.nt, self.units.ksteps, lt.bm, lt.bn, ops.kc,
-                    mode, stream)
+                    mode, stream,
+                    launch_counts.pointer(self.device, "k2_split"))
             else:
                 tables, nctas = lt.args(lib.tfq_pairpanel_tiles_slots)
                 rc = lib.tfq_pairpanel_tiles_f32(
                     self.a_dm.data_ptr(), x.data_ptr(), y.data_ptr(),
-                    *tables, nctas, *dims, stream)
+                    *tables, nctas, *dims, stream,
+                    launch_counts.pointer(self.device, "k2"))
         if rc != 0:
             raise TfqmrgpuError(encode_status(Status.LAUNCH_FAILED),
                                 f"packed pairs kernel ({self.precision}) "
                                 f"returned {rc}")
-        if self.split:
-            PairPanelMultiply.split_launches += 1
-        else:
-            PairPanelMultiply.launches += 1
         return y
 
 
@@ -1687,7 +1686,7 @@ def oz_body_plain(a_cat: torch.Tensor, xw: torch.Tensor, xloc: torch.Tensor,
     return torch.cat(cols, dim=2)
 
 
-class OzPairPanelMultiply:
+class OzPairPanelMultiply(metaclass=launch_counts.CountedLaunches):
     """float64-quality ``y = A @ x`` on fused permuted panels from exact
     slice products: the JAX package's 'z' multiply of its 'pairs' engine
     (``OzPairPanelMultiply``), on the oz kernel ``csrc/pairpanel_oz.cu``.
@@ -1707,15 +1706,15 @@ class OzPairPanelMultiply:
     the card has float64, so the port always takes the float64 branch,
     which gives the same bits wherever the fast branch is valid.
 
-    ``launches`` counts the kernel's launches by every instance in this
-    process; the plain version never adds to it.  ``mode`` is the
+    ``launches`` reads the kernel's launch counter on the card
+    (``launch_counts``); the plain version never adds to it.  ``mode`` is the
     precision tag ('ozcN' or 'ozN'), ``body`` one of ``OZ_BODIES``.
     ``planes`` are the JAX package's A slices, which the plain version
     reads; the kernel reads ``kernel_planes``, the same slices staged once
     by ``oz_kernel_planes`` (int8 ones of the bf16 bodies re-scaled into
     the bf16 values they stand for), on the card."""
 
-    launches: int = 0
+    _counters = {"launches": "oz"}
 
     def __init__(self, plan: PairPanelPlan, planes: torch.Tensor,
                  sigma: torch.Tensor, p: int, q: int, comp: bool,
@@ -1849,11 +1848,10 @@ class OzPairPanelMultiply:
                 self.xloc.data_ptr(), self.kcount.data_ptr(), self.ntiles,
                 self.m, self.ku, self.klm, self.ln, self.x_rows,
                 self.p, self.q, OZ_BODIES.index(self.body), int(self.a_int8),
-                stream)
+                stream, launch_counts.pointer(self.device, "oz"))
         if rc != 0:
             raise TfqmrgpuError(encode_status(Status.LAUNCH_FAILED),
                                 f"oz kernel ({self.body}) returned {rc}")
-        OzPairPanelMultiply.launches += 1
         return y
 
     def combine(self, raw: torch.Tensor, tau: torch.Tensor) -> torch.Tensor:
@@ -1967,7 +1965,9 @@ def fused_primitives(mult, plan: PairPanelPlan, ncc: int,
     the order is fixed), and cast the per-column results to float64, the
     JAX package's order of types.  ``axpy``/``xpay`` expand the per-column
     scalars to slots by a gather, in the vectors' type (JAX: its
-    ``vdt == float64`` branch for 'z').  ``add_rhs`` is ``v + s * b_fused``.
+    ``vdt == float64`` branch for 'z').  ``add_rhs(v, b, s)`` is ``v + s *
+    b``.  ``b_fused`` is a vector of the layout (B, or v3): its rows, type
+    and device size the tables; the primitives hold no vector.
 
     A shard of a sharded solve holds some of the slots (``b_fused`` has its
     rows): ``slot_group`` gives the group of each (-1 for a pad slot),
@@ -2069,8 +2069,7 @@ def fused_primitives(mult, plan: PairPanelPlan, ncc: int,
         return fuse(xr + ar * yr - ai * yi, xi + ai * yr + ar * yi)
 
     def add_rhs(v, b, scal):
-        del b  # the fused B panel is closed over and stays on the device
-        return v + scal * b_fused
+        return v + scal * b
 
     return TfqmrPrimitives(multiply=multiply, dotp=dotp, nrm2=nrm2,
                            axpy=axpy, xpay=xpay, add_rhs=add_rhs)

@@ -33,6 +33,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from .. import launch_counts
 from ..errors import Status, TfqmrgpuError, encode_status
 from . import paneltiles
 from .pairpanel import (SPLIT_PRODUCTS, check_precision,
@@ -194,7 +195,7 @@ def build_a_panels_device(pack: RowTilePack,
     return p.reshape(pack.ntiles, r * lm, ku * lm).contiguous()
 
 
-class RowTileMultiply:
+class RowTileMultiply(metaclass=launch_counts.CountedLaunches):
     """Masked ``y = A @ x`` on [nr, ncc, LN] float32 panels over row-tile
     union panels.
 
@@ -206,8 +207,8 @@ class RowTileMultiply:
     default what the card holds at once); the result does not depend on it.
     ``x_rows`` is the block rows of the X panel that ``xcols`` index, where
     it is not the mask's (a shard reads a gathered panel); y has the
-    mask's rows.  ``launches`` counts the kernel's launches by every
-    instance in this process; the plain version never adds to it.
+    mask's rows.  ``launches`` reads the kernel's launch counter on the
+    card (``launch_counts``); the plain version never adds to it.
 
     ``precision`` is one of ``pairpanel.PRECISIONS`` (an unknown string
     raises ValueError, where the JAX kernel silently runs 'highest').
@@ -216,12 +217,11 @@ class RowTileMultiply:
     the X split pass (``paneltiles.XSplit``) and then
     ``csrc/rowtile_spmm_bf16.cu`` on the BF16 tensor cores over A split once
     into staged bf16 slabs (``paneltiles.SplitOperands``), with
-    ``split_launches`` counting its launches, and their plain version is
+    ``split_launches`` reading its counter, and their plain version is
     ``pairpanel.split_product`` in the order of the kernel's products (K2's).
     """
 
-    launches: int = 0
-    split_launches: int = 0
+    _counters = {"launches": "k3", "split_launches": "k3_split"}
 
     def __init__(self, pack: RowTilePack, a_re: torch.Tensor,
                  a_im: torch.Tensor, mask: np.ndarray, ln: int,
@@ -353,20 +353,17 @@ class RowTileMultiply:
                     ops.abase.data_ptr(), items, cta_start, nctas,
                     self.ntiles, self.rlm, self.lm, self.nr, self.c, self.ln,
                     self.units.nt, self.units.ksteps, lt.bm, lt.bn, ops.kc,
-                    mode, stream)
+                    mode, stream,
+                    launch_counts.pointer(self.device, "k3_split"))
             else:
                 tables, nctas = lt.args(lib.tfq_rowtile_spmm_slots)
                 rc = lib.tfq_rowtile_spmm_f32(
                     self.a_dm.data_ptr(), *ptrs, *tables, nctas, *dims,
-                    stream)
+                    stream, launch_counts.pointer(self.device, "k3"))
         if rc != 0:
             raise TfqmrgpuError(encode_status(Status.LAUNCH_FAILED),
                                 f"row-tile kernel ({self.mode}) returned "
                                 f"{rc}")
-        if self.split:
-            RowTileMultiply.split_launches += 1
-        else:
-            RowTileMultiply.launches += 1
         return y_re, y_im
 
 

@@ -109,12 +109,12 @@ def apply_mask(v: Pair, mask4: torch.Tensor, mb: int, lm: int, ncc: int,
     return m(v[0]), m(v[1])
 
 
-def make_panel_primitives(multiply_panel: Callable[[Pair], Pair],
-                          b_panel: Pair):
+def make_panel_primitives(multiply_panel: Callable[[Pair], Pair]):
     """Panel-form ``core.TfqmrPrimitives``.
 
     ``multiply_panel`` maps an [NR, ncc, LN] pair to a masked [NR, ncc, LN]
-    pair.  The reductions follow the JAX package's order of types: the sum
+    pair; ``add_rhs`` adds the B panel it is given, which lies in X's
+    shape.  The reductions follow the JAX package's order of types: the sum
     over axis 0 in the data type, then a cast to float64 (its panel.py:140-148).
     """
     from ..core import TfqmrPrimitives
@@ -138,8 +138,7 @@ def make_panel_primitives(multiply_panel: Callable[[Pair], Pair],
         return (x[0] + ar * y[0] - ai * y[1], x[1] + ai * y[0] + ar * y[1])
 
     def add_rhs(v: Pair, b: Pair, scal: float) -> Pair:
-        del b  # the B panel is closed over and stays on the device
-        return v[0] + scal * b_panel[0], v[1] + scal * b_panel[1]
+        return v[0] + scal * b[0], v[1] + scal * b[1]
 
     return TfqmrPrimitives(multiply=multiply_panel, dotp=dotp, nrm2=nrm2,
                            axpy=axpy, xpay=xpay, add_rhs=add_rhs)

@@ -55,6 +55,7 @@ import heapq
 import numpy as np
 import torch
 
+from .. import launch_counts
 from ..errors import Status, TfqmrgpuError, encode_status
 
 # CTA shapes (rows, lanes) of ``panel_stage.cuh``'s dispatch_shape: wide for
@@ -193,15 +194,15 @@ def x_planes(x_re: torch.Tensor, x_im: torch.Tensor, lm: int,
     return planes.permute(0, 3, 1, 4, 2).contiguous()
 
 
-class XSplit:
+class XSplit(metaclass=launch_counts.CountedLaunches):
     """The X split pass of the split modes: X's bf16 planes once a
     multiply, lane-major as the product's TMA boxes read them
     (``x_planes``).  On a CUDA tensor it launches ``csrc/split_x_bf16.cu``
     into ``out``, a buffer of its own that the product's tensor map names;
-    on a CPU tensor it returns ``x_planes``.  ``launches`` counts the
-    kernel's launches by every instance in this process."""
+    on a CPU tensor it returns ``x_planes``.  ``launches`` reads the
+    kernel's launch counter on the card (``launch_counts``)."""
 
-    launches: int = 0
+    _counters = {"launches": "x_split"}
 
     def __init__(self, rows: int, lm: int, c: int, precision: str, device):
         from .pairpanel import SPLIT_PRODUCTS
@@ -246,11 +247,11 @@ class XSplit:
             rc = lib.tfq_split_x_bf16(
                 x_re.data_ptr(), x_im.data_ptr(), x_re.stride(0),
                 self.out.data_ptr(), self.rows // self.lm, self.lm, self.klm,
-                self.c, self.nlb16, self.nplanes, stream)
+                self.c, self.nlb16, self.nplanes, stream,
+                launch_counts.pointer(self.device, "x_split"))
         if rc != 0:
             raise TfqmrgpuError(encode_status(Status.LAUNCH_FAILED),
                                 f"the X split pass returned {rc}")
-        XSplit.launches += 1
         return self.out
 
 

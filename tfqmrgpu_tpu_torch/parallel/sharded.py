@@ -17,10 +17,12 @@ returns the full result.  The loop body is the single-device one
   "rows" per call, on the float64 [ncmax, LN] partials (re and im of a
   dotp in one tensor).
 * **scalar recurrences**: replicated per column shard ([ncmax, LN] each).
-* **convergence control**: the host-decision scalars take ``all_reduce``
-  MAX (and MIN for "all") over every rank of the mesh before the host
-  reads them (``TfqmrPrimitives.allmax`` / ``alland``), so probe timing and
-  stopping agree on every rank and with one device.
+* **convergence control**: the decision scalars take ``all_reduce`` MAX
+  (and MIN for "all") over every rank of the mesh before the host reads
+  them (``TfqmrPrimitives.allmax`` / ``alland``), so probe timing and
+  stopping agree on every rank and with one device.  The loop runs on the
+  plain driver (``core.plain_loop``, ``TfqmrPrimitives.host_loop``), not
+  as a CUDA graph.
 
 The collectives follow the tensors' device: NCCL on the card, gloo on the
 CPU.  ``Mesh.calls`` counts them by kind.
@@ -330,7 +332,8 @@ class ShardedAction:
 def sharded_primitives(mesh: Mesh, prim: TfqmrPrimitives) -> TfqmrPrimitives:
     """``prim`` with its per-column reductions summed over the "rows" axis
     (one ``all_reduce`` a call; re and im of a dotp in one tensor) and the
-    mesh's ``allmax`` / ``alland``."""
+    mesh's ``allmax`` / ``alland``, on the plain driver (``host_loop``):
+    the collectives run outside a CUDA graph."""
     def dotp(x, y):
         z = torch.stack(prim.dotp(x, y))
         mesh.psum(z)
@@ -338,7 +341,8 @@ def sharded_primitives(mesh: Mesh, prim: TfqmrPrimitives) -> TfqmrPrimitives:
 
     return dataclasses.replace(prim, dotp=dotp,
                                nrm2=lambda x: mesh.psum(prim.nrm2(x)),
-                               allmax=mesh.allmax, alland=mesh.alland)
+                               allmax=mesh.allmax, alland=mesh.alland,
+                               host_loop=True)
 
 
 def sharded_solve_core(mesh: Mesh, act: ShardedAction, v2, v3, colindx,

@@ -342,7 +342,7 @@ class ShardedPairsSolver:
             slot_group=lay.slot_group(mesh.row),
             lane_mask=lay.lane_mask(mesh.row), psum=mesh.psum)
         prim = dataclasses.replace(prim, allmax=mesh.allmax,
-                                   alland=mesh.alland)
+                                   alland=mesh.alland, host_loop=True)
         res = core.solve_core_fused(prim, b, v3, lay.ncc, lay.ln0,
                                     float(tolerance), int(max_iterations))
         re, im = lay.unpack_vec(gather_global(res.x, mesh, ("rows",)))

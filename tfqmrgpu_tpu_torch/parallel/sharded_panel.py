@@ -46,7 +46,7 @@ def panel_loop(mesh: Mesh, multiply, b, v3, tolerance: float,
     """The loop over this rank's panel shards ``b`` and ``v3`` [NRl, nccl,
     LN] with the masked ``multiply``; ``col_valid`` bool [nccl] marks the
     column chunk's real columns (all of them when None)."""
-    prim = sharded_primitives(mesh, make_panel_primitives(multiply, b))
+    prim = sharded_primitives(mesh, make_panel_primitives(multiply))
     _, nccl, ln = b[0].shape
     colv = (torch.ones(nccl, dtype=torch.bool, device=b[0].device)
             if col_valid is None else col_valid)[:, None].expand(nccl, ln)

@@ -84,6 +84,7 @@ import torch
 from . import core
 from .bsr import Bsr
 from .errors import Status, TfqmrgpuError, encode_status
+from .graphloop import LoopGraphs, refill
 from .ops import layout as layout_ops
 from .ops import linalg
 from .ops import pairpanel as pp_ops
@@ -400,6 +401,10 @@ class Solver:
                         if self._panel else None)
         self._cols = linalg.columns(self.plan.colindx, self.plan.ncols)
         self._multiply = None          # the engine's y = A @ x
+        self._prim = None              # the packed engine's primitives
+        # the loop's CUDA graphs (graphloop.py), dropped with v3, and with
+        # A where its multiply cannot take the new values in place
+        self.loop_graphs = LoopGraphs()
         self._b: Optional[tuple] = None
         self._bn2: Optional[np.ndarray] = None   # B's column norms^2
         self._x0: Optional[tuple] = None
@@ -550,6 +555,7 @@ class Solver:
             self._v3 = tuple((v if torch.is_tensor(v) else torch.from_numpy(
                 np.array(v, dtype=np.float32))).to(self.device, torch.float32)
                 for v in (re, im))
+        self.loop_graphs.clear()
 
     def _upload(self, re: np.ndarray, im: np.ndarray) -> tuple:
         return (torch.from_numpy(re).to(self.device),
@@ -597,7 +603,13 @@ class Solver:
                                       conjugate=conjugate, dtype=npdt)
         lay = self._layout
         if var == "A":
-            self._multiply = self._make_multiply(re, im)
+            multiply = self._make_multiply(re, im)
+            # the graphs stay where the multiply they captured takes the
+            # new A in place: a capture once a plan, not once an A
+            if not (self.loop_graphs and refill(self._multiply, multiply)):
+                self.loop_graphs.clear()
+                self._prim = None
+                self._multiply = multiply
         elif var == "B":
             if self._packed:
                 self._b = self._pairs_b_panel(re, im)
@@ -709,7 +721,8 @@ class Solver:
         return core.solve_core(self._multiply, b, self._v3, self._cols,
                                self.plan.subset, tolerance, max_iterations,
                                rhs_trivial=rhs_trivial, lm=self.lm,
-                               ln=self.ln)
+                               ln=self.ln, graphs=self.loop_graphs,
+                               key=("blocks", rhs_trivial))
 
     def _solve_panel(self, tolerance, max_iterations, rhs_trivial):
         """The panel engines ('dense', 'pallas'), as the JAX package's
@@ -722,12 +735,18 @@ class Solver:
         else:
             b = self._b
         return core.solve_core_panel(self._multiply, b, self._v3, tolerance,
-                                     max_iterations, rhs_trivial=rhs_trivial)
+                                     max_iterations, rhs_trivial=rhs_trivial,
+                                     graphs=self.loop_graphs,
+                                     key=("panel", rhs_trivial))
 
-    def _fused_primitives(self, b: torch.Tensor) -> core.TfqmrPrimitives:
-        return pp_ops.fused_primitives(self._multiply, self._pp_plan,
-                                       self.plan.ncols, b, self._gp,
-                                       sup_mask=self._sup_mask)
+    def _fused_primitives(self) -> core.TfqmrPrimitives:
+        """The packed engine's primitives over A's multiply, made once an
+        A; they hold no vector (B comes with each call of ``add_rhs``)."""
+        if self._prim is None:
+            self._prim = pp_ops.fused_primitives(
+                self._multiply, self._pp_plan, self.plan.ncols, self._v3,
+                self._gp, sup_mask=self._sup_mask)
+        return self._prim
 
     def _solve_fused(self, tolerance, max_iterations, rhs_trivial):
         """The packed 'pairs' engine, as the JAX package's _solve_pairs."""
@@ -737,26 +756,32 @@ class Solver:
             b = self._pairs_b_panel(unit, np.zeros_like(unit))
         else:
             b = self._b
-        return core.solve_core_fused(self._fused_primitives(b), b, self._v3,
+        return core.solve_core_fused(self._fused_primitives(), b, self._v3,
                                      self.plan.ncols, self.ln, tolerance,
-                                     max_iterations, rhs_trivial=rhs_trivial)
+                                     max_iterations, rhs_trivial=rhs_trivial,
+                                     graphs=self.loop_graphs,
+                                     key=("fused", rhs_trivial))
 
     def _solve_x(self, b, tolerance, max_iterations, inv_bn2):
         """Solve A @ dX == b for an X-shaped ``b`` in the engine's vector
         layout, with the convergence normalization ``inv_bn2`` [ncols, LN]
         (float64 on the device)."""
+        graphs = self.loop_graphs
         if self._panel:
             return core.solve_core_panel(self._multiply, b, self._v3,
-                                         tolerance, max_iterations, inv_bn2)
+                                         tolerance, max_iterations, inv_bn2,
+                                         graphs=graphs, key=("panel", False))
         if self._packed:
-            return core.solve_core_fused(self._fused_primitives(b), b,
+            return core.solve_core_fused(self._fused_primitives(), b,
                                          self._v3, self.plan.ncols, self.ln,
-                                         tolerance, max_iterations, inv_bn2)
+                                         tolerance, max_iterations, inv_bn2,
+                                         graphs=graphs, key=("fused", False))
         ident = torch.arange(self.plan.nnzb_x, dtype=torch.int32,
                              device=self.device)
         return core.solve_core(self._multiply, b, self._v3, self._cols, ident,
                                tolerance, max_iterations, inv_bn2,
-                               lm=self.lm, ln=self.ln)
+                               lm=self.lm, ln=self.ln, graphs=graphs,
+                               key=("blocks_x", False))
 
     def _solve_shifted(self, tolerance, max_iterations):
         """The restart from the initial guess X0, as the JAX package's
@@ -765,7 +790,7 @@ class Solver:
         x0 = self._x0
         inv = core.inverse_norms(torch.from_numpy(self._bn2).to(self.device))
         if self._packed:
-            b = self._b - self._fused_primitives(self._b).multiply(x0)
+            b = self._b - self._fused_primitives().multiply(x0)
             result = self._solve_x(b, tolerance, max_iterations, inv)
             return result._replace(x=result.x + x0)
         bx = self._b                  # the panels hold B in X's shape

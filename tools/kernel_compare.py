@@ -261,7 +261,8 @@ def compare_oz(lib, current: bool, dev):
                 a.data_ptr(), xw.data_ptr(), y.data_ptr(),
                 mult.xloc.data_ptr(), mult.kcount.data_ptr(), mult.ntiles,
                 mult.m, mult.ku, mult.klm, mult.ln, mult.x_rows, mult.p,
-                mult.q, OZ_BODIES.index(mult.body), int(mult.a_int8), stream)
+                mult.q, OZ_BODIES.index(mult.body), int(mult.a_int8), stream,
+                None)
             require(rc == 0, f"the other oz kernel returned {rc}")
             return y
 

@@ -12,7 +12,11 @@ the profiler places on the card (kernels, copies, fills); the aten operators
 that launched them are not counted again.  The busy share is that device
 time over the unprofiled wall.  Prints one summary line per solve and its
 eight most expensive device kernels; the hand-written kernel's share is
-printed beside the rest (the vector passes, copies and fills).
+printed beside the rest (the vector passes, copies and fills).  Each solve
+is one launch of its loop's CUDA graph: the totals are the graph's, but
+the profiler may give the graph's kernels the names of others, so the
+per-kernel lines and the hand-written kernel's share are read with that
+in mind (PERF.md §6).
 """
 
 from __future__ import annotations
@@ -42,9 +46,14 @@ def device_events(prof):
 def profile_solve(label: str, solver, tolerance: float, max_iterations: int,
                   counter, kernel_name: str):
     """Profile one solve; ``counter`` is the wrapper class whose
-    ``launches`` count the hand-written kernel ``kernel_name``."""
-    solver.solve(tolerance=tolerance, max_iterations=max_iterations)
-    torch.cuda.synchronize()
+    ``launches`` count the hand-written kernel ``kernel_name``.  The first
+    solve captures the loop's CUDA graph inside a profiler session: a graph
+    instantiated while the profiler's CUPTI is off shows the kernels of its
+    conditional bodies to a later profile once, not at every iteration."""
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]):
+        solver.solve(tolerance=tolerance, max_iterations=max_iterations)
+        torch.cuda.synchronize()
     t0 = time.perf_counter()
     info = solver.solve(tolerance=tolerance, max_iterations=max_iterations)
     torch.cuda.synchronize()
