@@ -99,8 +99,14 @@ two for each:
    1e-9, residual < 1e-8, K3 in the c stage, one K1 launch per float64
    residual), (d) FD rtb=6.75 'z' through ``ShardedPanelSolver`` (phase
    7's iterations), each with its collectives checked and printed per
-   iteration and its wall; (e) the sharded example as its own process
-   (row tiles, packed pairs and 'm'), run after phase 17;
+   iteration and its wall; each solve runs through its loop graph (one
+   CUDA graph, NCCL's collectives and the cross-rank decision stages in
+   the WHILE body: one graph launch and one state read a loop) and again
+   through the plain driver on the same mesh (``plain_driver()``): the
+   same iterations, probes, kernel launches and collectives of each kind,
+   read from the card's counters, and X to the bit; (e) the sharded
+   example as its own process (row tiles, packed pairs and 'm'), run after
+   phase 17;
 17. the sharded packed-pairs engine (``parallel/sharded_pairs.py``, K2 per
    shard) at world size 1 on phase 16's process group: (a) the golden-class
    'c' system of phase 10 through ``solve_sharded(engine='pairs')``, every
@@ -113,7 +119,8 @@ two for each:
    with 48 block columns, whose X panel passes the row tiles' limit,
    through ``solve_sharded(engine='auto')`` -> 'pairs' (residual < 1e-4
    over X's pattern; the iterations and X of ``Solver(engine='pairs')`` to
-   the bit), each with its collectives checked; (e) the comm
+   the bit), each with its collectives checked and held against the plain
+   driver as in phase 16; (e) the comm
    model (``parallel/comm_model.py``) for the golden class at pr 1, 2, 4
    and 8, from layouts alone;
 18. the measurement and tuning layer (``profiling``, ``autotune``), after
@@ -241,14 +248,24 @@ two for each:
    tolerance captures nothing and gives a fresh Solver's bits, and so does
    a solve after a new A (golden 'z' on K1, golden 'c' on K3: the multiply
    takes the new A in place); (d) ``bsrsv_z`` on FD rtb=12.75: the
-   capture's share of the call.
+   capture's share of the call; (e) the sharded loop at world size 1 on
+   NCCL: FD rtb=12.75 'z' through ``sharded_solve`` (K1), golden 'c'
+   through ``ShardedRowTileSolver`` (K3) and through
+   ``ShardedPairsSolver`` (K2), each loop timed alone (CUDA events around
+   the graph's launch and state read, and around the plain driver's loop)
+   and its device time from ``torch.profiler``, in ms an iteration; (a)'s
+   table also holds the sharded stages (``decide_local`` /
+   ``decide_finish``, ``settle_local`` / ``settle_finish``) against
+   ``core``'s, with and without ``keep_nan``.
 
 Every single-device solve of phases 3-15 and 18-21 runs as one launch of
 its loop's CUDA graph (``core.tfqmr_loop``).  The kernels count their own
 launches on the card (``launch_counts``: block 0's thread 0 adds one to
 the kernel's counter whenever it runs, a graph's replay included), so
 every launch gate reads what ran; the graph's warm-up launches are not
-counted.  Phases 16 and 17 (the sharded solvers) run the plain driver.
+counted.  So does every sharded solve of phases 16, 17 and 20 (one graph
+a rank; a collective is counted on the card by a one-thread kernel after
+it, ``Mesh.calls``).
 
 Then one JSON line on the kernels (time, launches on their path, bound,
 plain and library times; the launches of every path that runs the kernel
@@ -1755,18 +1772,80 @@ def phase_capi(dev, fd, card: str, fd_iterations: int, fd_probes: int):
             "k2": {"phase 15 C paths (a)-(d)": sum(k2_launches)}}
 
 
-def _sharded_calls(mesh, its: int, probes: int, gathers: int) -> str:
-    """Check a sharded solve's collectives: one halo all_gather a multiply
-    and ``gathers`` for the result; per iteration four column sums and two
-    convergence reductions, per probe three, and one for |B|.  Returns
-    them per iteration."""
-    ag, ar = mesh.calls["all_gather"], mesh.calls["all_reduce"]
+COLLECTIVES = ("all_gather", "all_reduce", "neighbour_exchange")
+SHARDED_STAGES = ("loop_decide_local", "loop_decide_finish",
+                  "loop_settle_local", "loop_settle_finish")
+
+
+def sharded_both(mesh, solve, counters: dict, loops=lambda info: 1) -> dict:
+    """Phases 16 and 17: ``solve()`` -> (X, info) through its loop graphs
+    and then through the plain driver on the same mesh.  The graphs' run
+    must take ``loops(info)`` graph launches and state reads (one a loop), the
+    plain driver's none; both must give the same iterations, probes,
+    launches of the kernels of ``counters`` (name -> wrapper class) and
+    collectives of each kind, all read from the card's counters, and X to
+    the bit.  Returns the graphs' X, info, launches, collectives (``calls``)
+    and sharded control stages (``stages``), the walls of both runs (ms)."""
+    from tfqmrgpu_tpu_torch import launch_counts
+    from tfqmrgpu_tpu_torch.graphloop import LoopGraph
+
+    runs = []
+    for plain in (False, True):
+        mesh.calls.clear()
+        for slot in SHARDED_STAGES:
+            launch_counts.reset(slot)
+        for k in counters.values():
+            k.launches = 0
+        g0 = (LoopGraph.launches, LoopGraph.reads)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with (plain_driver() if plain else contextlib.nullcontext()):
+            x, info = solve()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        on_card = launch_counts.read()
+        runs.append(dict(
+            x=np.asarray(x), info=info, wall_ms=wall,
+            graphs=(LoopGraph.launches - g0[0], LoopGraph.reads - g0[1]),
+            launches={n: k.launches for n, k in counters.items()},
+            calls={k: mesh.calls[k] for k in COLLECTIVES},
+            stages={k: on_card[k] for k in SHARDED_STAGES}))
+    g, p = runs
+    n = loops(g["info"])
+    require(g["graphs"] == (n, n) and p["graphs"] == (0, 0),
+            f"(graph launches, state reads): {g['graphs']} on the graph, "
+            f"{p['graphs']} on the plain driver; want {n} loops")
+    same = [(r["info"]["iterations"], r["info"]["n_probes"], r["launches"],
+             r["calls"]) for r in runs]
+    require(same[0] == same[1], f"graph (iterations, probes, launches, "
+            f"collectives) {same[0]}, plain driver {same[1]}")
+    require(np.array_equal(g["x"], p["x"]), "the graph's X differs from "
+            f"the plain driver's by {np.max(np.abs(g['x'] - p['x'])):.3e}")
+    require(sum(g["stages"].values()) > 0 and sum(p["stages"].values()) == 0,
+            f"sharded control stages counted: graph {g['stages']}, plain "
+            f"{p['stages']}")
+    return dict(x=g["x"], info=g["info"], launches=g["launches"],
+                calls=g["calls"], stages=g["stages"], wall_ms=g["wall_ms"],
+                plain_wall_ms=p["wall_ms"])
+
+
+def _sharded_calls(calls: dict, its: int, probes: int, gathers: int) -> str:
+    """Check a sharded solve's collectives, read from the card: one halo
+    all_gather a multiply and ``gathers`` for the result; per iteration
+    four column sums and one reduction of the decision's partials, per
+    probe two, and one for |B|.  Returns them per iteration."""
+    ag, ar = calls["all_gather"], calls["all_reduce"]
     require(ag == 2 * its + probes + gathers,
             f"{ag} all_gathers for {its} iterations and {probes} probes")
-    require(ar == 6 * its + 3 * probes + 1,
+    require(ar == 5 * its + 2 * probes + 1,
             f"{ar} all_reduces for {its} iterations and {probes} probes")
     return (f"{ag / its:.2f} all_gather + {ar / its:.2f} all_reduce per "
             f"iteration")
+
+
+def _stage_text(stages: dict) -> str:
+    return "sharded stages " + "/".join(
+        str(stages[k]) for k in SHARDED_STAGES)
 
 
 def phase_sharded(dev, fd, fd_x, fd_iterations: int, fd_launches: int,
@@ -1793,28 +1872,24 @@ def phase_sharded(dev, fd, fd_x, fd_iterations: int, fd_launches: int,
             f"{dist.get_world_size()} ranks")
     mesh = make_mesh(1, 1, device=dev)
 
-    def timed(fn):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        return out, (time.perf_counter() - t0) * 1e3
-
     # (a) FD rtb=12.75 'z' through sharded_solve: K1 per shard
     a, b = fd.a_with_data(), fd.b_with_data()
     plan = create_plan(a, fd.x, b, device=dev)
     plan.lm, plan.ln = a.slow_block_dim, b.fast_block_dim
     part = partition_plan(plan, 1, 1)
-    mesh.calls.clear()
-    PairPlanMultiply.launches = 0
-    (xr, xi, info), wall_a = timed(lambda: sharded_solve(
-        plan, part, mesh, a.data.real, a.data.imag, b.data.real,
-        b.data.imag, tolerance=1e-9, max_iterations=2000))
-    k1_a = PairPlanMultiply.launches
+
+    def fd_solve():
+        xr, xi, info = sharded_solve(
+            plan, part, mesh, a.data.real, a.data.imag, b.data.real,
+            b.data.imag, tolerance=1e-9, max_iterations=2000)
+        return xr + 1j * xi, info
+
+    r = sharded_both(mesh, fd_solve, {"k1": PairPlanMultiply})
+    info, k1_a, wall_a = r["info"], r["launches"]["k1"], r["wall_ms"]
     its, probes = info["iterations"], info["n_probes"]
-    xdev = float(np.max(np.abs(xr + 1j * xi - fd_x)))
+    xdev = float(np.max(np.abs(r["x"] - fd_x)))
     ref = fd.x_reference.astype(np.float64)
-    maxdev = float(np.max(np.abs(xr + 1j * xi - ref)) / np.max(np.abs(ref)))
+    maxdev = float(np.max(np.abs(r["x"] - ref)) / np.max(np.abs(ref)))
     require(info["return_status"] == 0, f"sharded FD status "
             f"{info['return_status']}")
     require(its == fd_iterations and k1_a == fd_launches,
@@ -1822,49 +1897,67 @@ def phase_sharded(dev, fd, fd_x, fd_iterations: int, fd_launches: int,
             f"{fd_iterations}, {fd_launches}")
     require(xdev <= 1e-10, f"sharded FD X {xdev:.3e} from phase 3's")
     require(maxdev < 1e-5, f"sharded FD maxdev {maxdev:.3e} >= 1e-5")
-    calls_a = _sharded_calls(mesh, its, probes, 2)
-    print(f"phase 16 (a) FD rtb=12.75 'z' sharded_solve (1 x 1 on NCCL): "
-          f"{its} iterations, {probes} probes (phase 3: {fd_iterations}), K1 "
-          f"launches {k1_a}, X {xdev:.1e} from phase 3's, maxdev "
-          f"{maxdev:.3e}, wall {wall_a:.1f} ms (set-up included), {calls_a}",
+    require(r["stages"] == dict(zip(SHARDED_STAGES,
+                                    (its, its, probes, probes))),
+            f"sharded FD stages {r['stages']}")
+    calls_a = _sharded_calls(r["calls"], its, probes, 2)
+    stages = {"phase 16 (a) FD z sharded_solve": r["stages"]}
+    print(f"phase 16 (a) FD rtb=12.75 'z' sharded_solve (1 x 1 on NCCL, one "
+          f"graph): {its} iterations, {probes} probes (phase 3: "
+          f"{fd_iterations}), K1 launches {k1_a}, X {xdev:.1e} from phase "
+          f"3's, maxdev {maxdev:.3e}, wall {wall_a:.1f} ms (set-up and "
+          f"capture included; plain driver {r['plain_wall_ms']:.1f}), "
+          f"{calls_a}, {_stage_text(r['stages'])}; the plain driver's "
+          "iterations, probes, launches, collectives and X to the bit",
           flush=True)
 
     # (b) golden-class 'c' through solve_sharded(engine='auto'): K3
     a, x, b = golden_c_problem()
-    mesh.calls.clear()
-    RowTileMultiply.launches = 0
-    (xs, info), wall_b = timed(lambda: solve_sharded(
-        a, x, b, mesh=mesh, engine="auto", tolerance=1e-5,
-        max_iterations=500))
-    k3_b = RowTileMultiply.launches
+    engines = []
+
+    def golden_c():
+        xs, info = solve_sharded(a, x, b, mesh=mesh, engine="auto",
+                                 tolerance=1e-5, max_iterations=500)
+        engines.append(info["engine"])
+        return xs, info
+
+    r = sharded_both(mesh, golden_c, {"k3": RowTileMultiply})
+    info, k3_b, wall_b = r["info"], r["launches"]["k3"], r["wall_ms"]
     its, probes = info["iterations"], info["n_probes"]
-    require(info["engine"] == "rowtile" and info["return_status"] == 0,
-            f"sharded golden 'c': {info['engine']}, status "
-            f"{info['return_status']}")
+    require(engines == ["rowtile"] * 2 and info["return_status"] == 0,
+            f"sharded golden 'c': {engines}, status {info['return_status']}")
     require(abs(its - golden_c_iterations) <= 1,
             f"sharded golden 'c' {its} iterations, phase 6 "
             f"{golden_c_iterations}")
     require(k3_b == 2 * its + probes > 0,
             f"{k3_b} K3 launches for {its} iterations, {probes} probes")
-    res_b = pattern_residual(create_plan(a, x, b, device=dev), xs, a, b, dev)
+    res_b = pattern_residual(create_plan(a, x, b, device=dev), r["x"], a, b,
+                             dev)
     require(res_b < 1e-4, f"sharded golden 'c' |AX-B|/|B| = {res_b:.3e}")
-    calls_b = _sharded_calls(mesh, its, probes, 1)
-    print(f"phase 16 (b) golden-class 'c' solve_sharded -> {info['engine']}: "
+    calls_b = _sharded_calls(r["calls"], its, probes, 1)
+    stages["phase 16 (b) golden c solve_sharded rowtile"] = r["stages"]
+    print(f"phase 16 (b) golden-class 'c' solve_sharded -> {engines[0]}: "
           f"{its} iterations, {probes} probes (phase 6: "
           f"{golden_c_iterations}), K3 launches {k3_b}, |AX-B|/|B| "
-          f"{res_b:.3e}, wall {wall_b:.1f} ms (set-up included), {calls_b}",
+          f"{res_b:.3e}, wall {wall_b:.1f} ms (set-up included; plain "
+          f"driver {r['plain_wall_ms']:.1f}), {calls_b}, "
+          f"{_stage_text(r['stages'])}; the plain driver's to the bit",
           flush=True)
 
     # (c) golden-class 'm': K3 in the c stage, K1 for the residuals
     a = a.with_data(a.data.astype(np.complex128))
     b = b.with_data(b.data.astype(np.complex128))
-    mesh.calls.clear()
-    PairPlanMultiply.launches = RowTileMultiply.launches = 0
-    (xm, info), wall_c = timed(lambda: solve_sharded(
+    # one loop graph for the c stage and one replay a correction round
+    r = sharded_both(mesh, lambda: solve_sharded(
         a, x, b, mesh=mesh, precision="m", tolerance=1e-9,
-        max_iterations=500))
-    k1_c, k3_c = PairPlanMultiply.launches, RowTileMultiply.launches
-    res_c = pattern_residual(create_plan(a, x, b, device=dev), xm, a, b, dev)
+        max_iterations=500), {"k1": PairPlanMultiply,
+                              "k3": RowTileMultiply},
+        loops=lambda info: 1 + info["refine_rounds"])
+    info = r["info"]
+    k1_c, k3_c, wall_c = r["launches"]["k1"], r["launches"]["k3"], \
+        r["wall_ms"]
+    res_c = pattern_residual(create_plan(a, x, b, device=dev), r["x"], a, b,
+                             dev)
     require(info["converged"] and info["residuum"] <= 1e-9,
             f"sharded golden 'm' residuum {info['residuum']:.3e}")
     require(res_c < 1e-8, f"sharded golden 'm' |AX-B|/|B| = {res_c:.3e}")
@@ -1872,23 +1965,28 @@ def phase_sharded(dev, fd, fd_x, fd_iterations: int, fd_launches: int,
             f"sharded golden 'm': {k1_c} K1, {k3_c} K3 launches for "
             f"{info['refine_rounds']} rounds")
     # each row-tile solve (the c stage and one a round) issues 2 all_gathers
-    # an iteration, 1 a probe and 1 for X, and 6 all_reduces an iteration, 3
-    # a probe and 1 for |B|: all_reduce - 3 all_gather = -2 a solve
+    # an iteration, 1 a probe and 1 for X, and 5 all_reduces an iteration, 2
+    # a probe and 1 for |B|: all_reduce - 2 all_gather = iterations - solves
     solves = 1 + info["refine_rounds"]
-    ag, ar = mesh.calls["all_gather"], mesh.calls["all_reduce"]
-    require(ar - 3 * ag == -2 * solves
+    ag, ar = r["calls"]["all_gather"], r["calls"]["all_reduce"]
+    require(ar - 2 * ag == info["iterations"] - solves
             and ag >= 2 * info["iterations"] + 2 * solves,
             f"sharded golden 'm': {ag} all_gathers, {ar} all_reduces for "
             f"{solves} solves of {info['iterations']} iterations")
+    stages["phase 16 (c) golden m sharded (c stage, corrections)"] = \
+        r["stages"]
     print(f"phase 16 (c) golden-class 'm' solve_sharded: "
           f"{info['c_iterations']} c-iterations + "
           f"{info['iterations'] - info['c_iterations']} over "
-          f"{info['refine_rounds']} rounds, residuum {info['residuum']:.3e}, "
+          f"{info['refine_rounds']} rounds ({solves} loops, one graph "
+          f"launch each, one capture), residuum {info['residuum']:.3e}, "
           f"|AX-B|/|B| {res_c:.3e}, K3 launches {k3_c}, K1 launches {k1_c} "
           f"(phase 13: K3 {golden_m[1]}, K1 {golden_m[0]}), wall "
-          f"{wall_c:.1f} ms (set-up included), "
+          f"{wall_c:.1f} ms (set-up included; plain driver "
+          f"{r['plain_wall_ms']:.1f}), "
           f"{ag / info['iterations']:.2f} all_gather + "
-          f"{ar / info['iterations']:.2f} all_reduce per iteration",
+          f"{ar / info['iterations']:.2f} all_reduce per iteration, "
+          f"{_stage_text(r['stages'])}; the plain driver's to the bit",
           flush=True)
 
     # (d) FD rtb=6.75 'z' through ShardedPanelSolver (torch.matmul)
@@ -1896,28 +1994,33 @@ def phase_sharded(dev, fd, fd_x, fd_iterations: int, fd_launches: int,
     a, b = fd6.a_with_data(), fd6.b_with_data()
     plan = create_plan(a, fd6.x, b, device=dev)
     plan.lm, plan.ln = a.slow_block_dim, b.fast_block_dim
-    mesh.calls.clear()
-    (xd, info), wall_d = timed(lambda: ShardedPanelSolver(
+    r = sharded_both(mesh, lambda: ShardedPanelSolver(
         plan, mesh, precision="z").solve(
             a.data.real, a.data.imag, b.data.real, b.data.imag,
-            tolerance=1e-9, max_iterations=2000))
+            tolerance=1e-9, max_iterations=2000), {})
+    info, wall_d = r["info"], r["wall_ms"]
     its, probes = info["iterations"], info["n_probes"]
     ref = fd6.x_reference.astype(np.float64)
-    maxdev = float(np.max(np.abs(xd - ref)) / np.max(np.abs(ref)))
+    maxdev = float(np.max(np.abs(r["x"] - ref)) / np.max(np.abs(ref)))
     require(info["return_status"] == 0 and its == dense_iterations,
             f"sharded panel FD: status {info['return_status']}, {its} "
             f"iterations, phase 7 {dense_iterations}")
     require(maxdev < 1e-5, f"sharded panel FD maxdev {maxdev:.3e}")
-    calls_d = _sharded_calls(mesh, its, probes, 2)
+    calls_d = _sharded_calls(r["calls"], its, probes, 2)
+    stages["phase 16 (d) FD z ShardedPanelSolver"] = r["stages"]
     print(f"phase 16 (d) FD rtb=6.75 'z' ShardedPanelSolver: {its} "
           f"iterations (phase 7: {dense_iterations}), maxdev {maxdev:.3e}, "
-          f"wall {wall_d:.1f} ms (set-up included), {calls_d}; phase 16 (a)-"
-          f"(d) took {time.perf_counter() - t_phase:.1f} s", flush=True)
+          f"wall {wall_d:.1f} ms (set-up included; plain driver "
+          f"{r['plain_wall_ms']:.1f}), {calls_d}, "
+          f"{_stage_text(r['stages'])}; the plain driver's to the bit; "
+          f"phase 16 (a)-(d) took {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
     return mesh, {"k1": {"phase 16 (a) FD z sharded_solve": k1_a,
                          "phase 16 (c) golden m sharded (residuals)": k1_c},
                   "k3": {"phase 16 (b) golden c solve_sharded rowtile": k3_b,
                          "phase 16 (c) golden m sharded (c stage, "
-                         "corrections)": k3_c}}
+                         "corrections)": k3_c},
+                  "stages": stages}
 
 
 def phase_sharded_example():
@@ -1942,17 +2045,17 @@ def phase_sharded_example():
           flush=True)
 
 
-def _pairs_calls(mesh, its: int, probes: int, gathers: int) -> str:
-    """Check a sharded packed-pairs solve's collectives: ``gathers``
-    all_gathers in all (one a multiply when every tile is remote, and one
-    for X), no edge exchange at one rank, and per iteration four column
-    sums and two convergence reductions, per probe three, and one for |B|.
-    Returns them per iteration."""
-    ag, ar = mesh.calls["all_gather"], mesh.calls["all_reduce"]
-    require(ag == gathers and mesh.calls["neighbour_exchange"] == 0,
+def _pairs_calls(calls: dict, its: int, probes: int, gathers: int) -> str:
+    """Check a sharded packed-pairs solve's collectives, read from the
+    card: ``gathers`` all_gathers in all (one a multiply when every tile is
+    remote, and one for X), no edge exchange at one rank, and per iteration
+    four column sums and one reduction of the decision's partials, per
+    probe two, and one for |B|.  Returns them per iteration."""
+    ag, ar = calls["all_gather"], calls["all_reduce"]
+    require(ag == gathers and calls["neighbour_exchange"] == 0,
             f"{ag} all_gathers (want {gathers}), "
-            f"{mesh.calls['neighbour_exchange']} edge exchanges")
-    require(ar == 6 * its + 3 * probes + 1,
+            f"{calls['neighbour_exchange']} edge exchanges")
+    require(ar == 5 * its + 2 * probes + 1,
             f"{ar} all_reduces for {its} iterations and {probes} probes")
     return (f"{ag / its:.2f} all_gather + {ar / its:.2f} all_reduce per "
             f"iteration")
@@ -1971,76 +2074,87 @@ def phase_sharded_pairs(dev, mesh, golden_pairs: tuple):
 
     t_phase = time.perf_counter()
     k2_10, x_10, its_10, probes_10 = golden_pairs[:4]
-
-    def timed(fn):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        return out, (time.perf_counter() - t0) * 1e3
+    stages = {}
 
     # (a) golden 'c' through solve_sharded(engine='pairs'): every tile local
     a, x, b = golden_c_problem()
-    mesh.calls.clear()
-    PairPanelMultiply.launches = 0
-    (xa, info), wall_a = timed(lambda: solve_sharded(
-        a, x, b, mesh=mesh, engine="pairs", tolerance=1e-5,
-        max_iterations=500))
-    k2_a = PairPanelMultiply.launches
+    engines = []
+
+    def pairs():
+        xs, info = solve_sharded(a, x, b, mesh=mesh, engine="pairs",
+                                 tolerance=1e-5, max_iterations=500)
+        engines.append(info["engine"])
+        return xs, info
+
+    r = sharded_both(mesh, pairs, {"k2": PairPanelMultiply})
+    info, xa, k2_a, wall_a = r["info"], r["x"], r["launches"]["k2"], \
+        r["wall_ms"]
     its, probes = info["iterations"], info["n_probes"]
-    require(info["engine"] == "pairs" and info["return_status"] == 0,
-            f"sharded pairs golden 'c': {info['engine']}, status "
+    require(engines == ["pairs"] * 2 and info["return_status"] == 0,
+            f"sharded pairs golden 'c': {engines}, status "
             f"{info['return_status']}")
     require((its, probes, k2_a) == (its_10, probes_10, k2_10),
             f"sharded pairs golden 'c': {its} iterations, {probes} probes, "
             f"{k2_a} K2 launches; phase 10: {its_10}, {probes_10}, {k2_10}")
     require(np.array_equal(xa, x_10), "sharded pairs golden 'c' X differs "
             f"from phase 10's by {np.max(np.abs(xa - x_10)):.3e}")
-    calls_a = _pairs_calls(mesh, its, probes, 1)
+    calls_a = _pairs_calls(r["calls"], its, probes, 1)
+    stages["phase 17 (a) golden c solve_sharded pairs"] = r["stages"]
     print(f"phase 17 (a) golden-class 'c' solve_sharded(engine='pairs') (1 x "
-          f"1 on NCCL, every tile local): {its} iterations, {probes} probes, "
-          f"K2 launches {k2_a} (phase 10: {its_10}, {probes_10}, {k2_10}), X "
-          f"equal to phase 10's to the bit, wall {wall_a:.1f} ms (set-up "
-          f"included), {calls_a}", flush=True)
+          f"1 on NCCL, every tile local, one graph): {its} iterations, "
+          f"{probes} probes, K2 launches {k2_a} (phase 10: {its_10}, "
+          f"{probes_10}, {k2_10}), X equal to phase 10's to the bit, wall "
+          f"{wall_a:.1f} ms (set-up included; plain driver "
+          f"{r['plain_wall_ms']:.1f}), {calls_a}, "
+          f"{_stage_text(r['stages'])}; the plain driver's to the bit",
+          flush=True)
 
     # (b) every tile remote, read through the gathered panel
+    layouts = []
+
     def all_remote():
         plan = create_plan(a, x, b, device=dev)
         plan.lm, plan.ln = 32, 32
         sp = ShardedPairsSolver(plan, mesh, overlap=False)
-        return sp.layout, sp.solve(a.data.real, a.data.imag, b.data.real,
-                                   b.data.imag, tolerance=1e-5,
-                                   max_iterations=500)
+        layouts.append(sp.layout)
+        return sp.solve(a.data.real, a.data.imag, b.data.real, b.data.imag,
+                        tolerance=1e-5, max_iterations=500)
 
-    mesh.calls.clear()
-    PairPanelMultiply.launches = 0
-    (lay, (xb, info)), wall_b = timed(all_remote)
+    r = sharded_both(mesh, all_remote, {"k2": PairPanelMultiply})
+    lay, info, xb = layouts[0], r["info"], r["x"]
+    k2_b, wall_b = r["launches"]["k2"], r["wall_ms"]
     require(lay.group_size == 8 and lay.n_loc == 0
             and lay.p == lay.tiles_local,
             f"overlap=False layout: G {lay.group_size}, p {lay.p}, n_loc "
             f"{lay.n_loc}")
-    k2_b = PairPanelMultiply.launches
     its, probes = info["iterations"], info["n_probes"]
     require(info["return_status"] == 0 and k2_b == k2_a == 2 * its + probes,
             f"all-remote golden 'c': status {info['return_status']}, {k2_b} "
             f"K2 launches for {its} iterations, {probes} probes")
     require(np.array_equal(xb, xa), "all-remote golden 'c' X differs from "
             f"(a)'s by {np.max(np.abs(xb - xa)):.3e}")
-    calls_b = _pairs_calls(mesh, its, probes, 2 * its + probes + 1)
+    calls_b = _pairs_calls(r["calls"], its, probes, 2 * its + probes + 1)
+    stages["phase 17 (b) golden c ShardedPairsSolver all remote"] = \
+        r["stages"]
     print(f"phase 17 (b) golden-class 'c' ShardedPairsSolver(overlap=False): "
-          f"G {lay.group_size}, {lay.tiles_local} tiles all remote, {its} "
-          f"iterations, K2 launches {k2_b}, X equal to (a)'s to the bit, "
-          f"wall {wall_b:.1f} ms (set-up included), {calls_b}", flush=True)
+          f"G {lay.group_size}, {lay.tiles_local} tiles all remote (the "
+          f"async all_gather a branch of the WHILE body), {its} iterations, "
+          f"K2 launches {k2_b}, X equal to (a)'s to the bit, wall "
+          f"{wall_b:.1f} ms (set-up included; plain driver "
+          f"{r['plain_wall_ms']:.1f}), {calls_b}, "
+          f"{_stage_text(r['stages'])}; the plain driver's to the bit",
+          flush=True)
 
     # (c) golden 'm': the c stage and the corrections on K2, residuals on K1
     a = a.with_data(a.data.astype(np.complex128))
     b = b.with_data(b.data.astype(np.complex128))
-    mesh.calls.clear()
-    PairPlanMultiply.launches = PairPanelMultiply.launches = 0
-    (xm, info), wall_c = timed(lambda: solve_sharded(
+    r = sharded_both(mesh, lambda: solve_sharded(
         a, x, b, mesh=mesh, engine="pairs", precision="m", tolerance=1e-9,
-        max_iterations=500))
-    k1_c, k2_c = PairPlanMultiply.launches, PairPanelMultiply.launches
+        max_iterations=500), {"k1": PairPlanMultiply,
+                              "k2": PairPanelMultiply},
+        loops=lambda info: 1 + info["refine_rounds"])
+    info, xm, wall_c = r["info"], r["x"], r["wall_ms"]
+    k1_c, k2_c = r["launches"]["k1"], r["launches"]["k2"]
     res_c = pattern_residual(create_plan(a, x, b, device=dev), xm, a, b, dev)
     require(info["engine"] == "pairs" and info["converged"]
             and info["residuum"] <= 1e-9,
@@ -2052,12 +2166,16 @@ def phase_sharded_pairs(dev, mesh, golden_pairs: tuple):
             and k2_c >= 2 * info["iterations"],
             f"sharded pairs golden 'm': {k1_c} K1, {k2_c} K2 launches for "
             f"{info['refine_rounds']} rounds, {info['iterations']} iterations")
+    stages["phase 17 (c) golden m sharded pairs (c stage, corrections)"] = \
+        r["stages"]
     print(f"phase 17 (c) golden-class 'm' solve_sharded(engine='pairs'): "
           f"{info['c_iterations']} c-iterations + "
           f"{info['iterations'] - info['c_iterations']} over "
           f"{info['refine_rounds']} rounds, residuum {info['residuum']:.3e}, "
           f"|AX-B|/|B| {res_c:.3e}, K2 launches {k2_c}, K1 launches {k1_c}, "
-          f"wall {wall_c:.1f} ms (set-up included)", flush=True)
+          f"wall {wall_c:.1f} ms (set-up included; plain driver "
+          f"{r['plain_wall_ms']:.1f}), {_stage_text(r['stages'])}; the "
+          f"plain driver's to the bit", flush=True)
 
     # (d) 48 block columns: an X panel past the row tiles' limit -> 'pairs'
     from tfqmrgpu_tpu_torch.solver import PALLAS_X_BYTE_LIMIT
@@ -2065,12 +2183,11 @@ def phase_sharded_pairs(dev, mesh, golden_pairs: tuple):
     a, x, b = golden_c_problem(ncols=48)
     panel_mb = 2 * x.nrows * 32 * x.ncols * 32 * 4 / 1e6
     require(panel_mb * 1e6 > PALLAS_X_BYTE_LIMIT, f"X panel {panel_mb} MB")
-    mesh.calls.clear()
-    PairPanelMultiply.launches = 0
-    (xd, info), wall_d = timed(lambda: solve_sharded(
+    r = sharded_both(mesh, lambda: solve_sharded(
         a, x, b, mesh=mesh, engine="auto", tolerance=1e-5,
-        max_iterations=500))
-    k2_d = PairPanelMultiply.launches
+        max_iterations=500), {"k2": PairPanelMultiply})
+    xd, info, k2_d, wall_d = r["x"], r["info"], r["launches"]["k2"], \
+        r["wall_ms"]
     its, probes = info["iterations"], info["n_probes"]
     require(info["engine"] == "pairs" and info["return_status"] == 0
             and k2_d == 2 * its + probes,
@@ -2079,7 +2196,9 @@ def phase_sharded_pairs(dev, mesh, golden_pairs: tuple):
             f"iterations, {probes} probes")
     res_d = pattern_residual(create_plan(a, x, b, device=dev), xd, a, b, dev)
     require(res_d < 1e-4, f"48-column golden 'c' |AX-B|/|B| = {res_d:.3e}")
-    calls_d = _pairs_calls(mesh, its, probes, 1)
+    calls_d = _pairs_calls(r["calls"], its, probes, 1)
+    stages["phase 17 (d) golden 48 columns solve_sharded auto pairs"] = \
+        r["stages"]
     # the single-device packed engine on the same system: at one rank every
     # tile is local, so the same iterations and X to the bit
     s = Solver(a, x, b, precision="c", engine="pairs", device=dev)
@@ -2096,7 +2215,9 @@ def phase_sharded_pairs(dev, mesh, golden_pairs: tuple):
           f"{s._gp.group_size if s._gp else 1}, {pd.ntiles} tiles, ku "
           f"{pd.ku}): {its} iterations, {probes} probes, K2 launches {k2_d}, "
           f"|AX-B|/|B| {res_d:.3e}, X equal to Solver(engine='pairs')'s to "
-          f"the bit, wall {wall_d:.1f} ms (set-up included), {calls_d}",
+          f"the bit, wall {wall_d:.1f} ms (set-up included; plain driver "
+          f"{r['plain_wall_ms']:.1f}), {calls_d}, "
+          f"{_stage_text(r['stages'])}; the plain driver's to the bit",
           flush=True)
     del s
 
@@ -2121,7 +2242,8 @@ def phase_sharded_pairs(dev, mesh, golden_pairs: tuple):
                    "phase 17 (b) golden c sharded pairs all remote": k2_b,
                    "phase 17 (c) golden m sharded pairs (c stage, "
                    "corrections)": k2_c,
-                   "phase 17 (d) golden 48 columns auto -> pairs": k2_d}}
+                   "phase 17 (d) golden 48 columns auto -> pairs": k2_d},
+            "stages": stages}
 
 
 TIMED_REPEATS = 3        # phase 18 (c): a warm-up, then the best of two
@@ -3878,7 +4000,68 @@ def check_loop_control(dev, shape: tuple) -> int:
             LoopControl.cont(c, maxit_t, go)
             require(int(go) == int(LoopControl.running(c, maxit_t)),
                     f"continue '{name}' stop {stop}: {int(go)}")
+        check_sharded_stages(dev, name, tau, inv_t, status, it, maxit_t,
+                             target, res2, tol2, bound2)
     return len(rows)
+
+
+def check_sharded_stages(dev, name, tau, inv_t, status, it, maxit_t, target,
+                         res2, tol2, bound2):
+    """Phase 22 (a): the sharded stages of the loop's control
+    (``LoopControl.decide_local`` / ``decide_finish``, ``settle_local`` /
+    ``settle_finish``) against ``core``'s on one carry state, to the bit:
+    the local stages on a mesh of one rank (``keep_nan``) and of more, the
+    finish stages on their own partials and on reduced ones that no rank
+    sends alone (every rank NaN: -inf; a flag on every rank)."""
+    from tfqmrgpu_tpu_torch import core
+    from tfqmrgpu_tpu_torch.graphloop import LoopControl
+
+    i32, f64 = torch.int32, torch.float64
+    res2_t = torch.from_numpy(res2).to(dev)
+    mb_t = torch.tensor(bound2, dtype=f64, device=dev)
+    tol2_t = torch.tensor(tol2, dtype=f64, device=dev)
+    parts = [torch.tensor(v, dtype=f64, device=dev) for v in
+             ([float("-inf"), -1.0], [float("-inf"), 0.0],
+              [float("nan"), 0.0], [bound2, -1.0], [1e-30, 0.0])]
+    for keep_nan in (True, False):
+        c = loop_carry(tau, status, it, target, dev)
+        part = torch.zeros(2, dtype=f64, device=dev)
+        LoopControl.decide_local(c, inv_t, part, keep_nan)
+        want = core.decide_local(c, inv_t, keep_nan)
+        torch.cuda.synchronize()
+        require(_same_bits(part, want), f"decide_local '{name}' keep_nan "
+                f"{keep_nan}: {part.tolist()} against {want.tolist()}")
+        parts.append(want)
+        c = loop_carry(tau, status, it, target, dev)
+        part = torch.zeros(2, dtype=f64, device=dev)
+        want_status, want = core.settle_local(c, res2_t, tol2_t, keep_nan)
+        LoopControl.settle_local(c, res2_t, tol2_t, part, keep_nan)
+        torch.cuda.synchronize()
+        require(_same_bits(part, want) and _same_bits(c.status, want_status),
+                f"settle_local '{name}' keep_nan {keep_nan}: "
+                f"{part.tolist()} against {want.tolist()}")
+        parts.append(want)
+    for p in parts:
+        c = loop_carry(tau, status, it, target, dev)
+        want = core.decide_finish(c, p, maxit_t)
+        mb = torch.zeros((), dtype=f64, device=dev)
+        probe = torch.zeros((), dtype=i32, device=dev)
+        LoopControl.decide_finish(c, p, maxit_t, mb, probe)
+        torch.cuda.synchronize()
+        require(_same_bits(c.stop_code, want[0]) and _same_bits(mb, want[1])
+                and int(probe) == int(want[2]),
+                f"decide_finish '{name}' {p.tolist()}: stop "
+                f"{int(c.stop_code)}/{int(want[0])}, bound {float(mb)!r}/"
+                f"{float(want[1])!r}, probe {int(probe)}/{int(want[2])}")
+        c = loop_carry(tau, status, it, target, dev)
+        want = core.settle_finish(c, c.status, p, mb_t, tol2_t)
+        LoopControl.settle_finish(c, p, mb_t, tol2_t)
+        torch.cuda.synchronize()
+        for f in ("residual2", "target_bound2", "stop_code", "iters_needed",
+                  "n_probes"):
+            require(_same_bits(getattr(c, f), getattr(want, f)),
+                    f"settle_finish '{name}' {p.tolist()}: {f} "
+                    f"{getattr(c, f)} against {getattr(want, f)}")
 
 
 def time_loop_control(dev, shape: tuple) -> dict:
@@ -3899,6 +4082,7 @@ def time_loop_control(dev, shape: tuple) -> dict:
     res2_t = torch.from_numpy(res2).to(dev)
     tol2_t = torch.tensor(tol2, dtype=f64, device=dev)
     go = torch.zeros((), dtype=i32, device=dev)
+    part = torch.zeros(2, dtype=f64, device=dev)
     calls = {
         "decide_kernel": (lambda: LoopControl.decide(c, inv_t, maxit_t, mb,
                                                      probe),
@@ -3908,12 +4092,25 @@ def time_loop_control(dev, shape: tuple) -> dict:
                           lambda: core.settle(c, res2_t, mb, tol2_t),
                           16 * n + 64),
         "continue_kernel": (lambda: LoopControl.cont(c, maxit_t, go),
-                            lambda: LoopControl.running(c, maxit_t), 16)}
+                            lambda: LoopControl.running(c, maxit_t), 16),
+        # the sharded stages (a mesh of more than one rank)
+        "decide_local_kernel": (
+            lambda: LoopControl.decide_local(c, inv_t, part, False),
+            lambda: core.decide_local(c, inv_t, False), 20 * n + 16),
+        "decide_finish_kernel": (
+            lambda: LoopControl.decide_finish(c, part, maxit_t, mb, probe),
+            lambda: core.decide_finish(c, part, maxit_t), 48),
+        "settle_local_kernel": (
+            lambda: LoopControl.settle_local(c, res2_t, tol2_t, part, False),
+            lambda: core.settle_local(c, res2_t, tol2_t, False), 16 * n + 24),
+        "settle_finish_kernel": (
+            lambda: LoopControl.settle_finish(c, part, mb, tol2_t),
+            lambda: core.settle_finish(c, c.status, part, mb, tol2_t), 68)}
     out = {}
     for kernel, (fn, plain, nbytes) in calls.items():
         ms = _kernel_ms(fn, kernel, required=False)
         bms, by = bound(nbytes, 0.0)
-        out[kernel.split("_")[0]] = dict(
+        out[kernel[:-len("_kernel")]] = dict(
             ms=ms, burst_ms=_burst_ms(fn), plain_ms=_time_ms(plain),
             bound_ms=bms, bound_by=by, bytes=nbytes)
     return out
@@ -3953,22 +4150,13 @@ def _loop_solvers(dev, fd):
 @contextlib.contextmanager
 def plain_driver():
     """Solves inside run the plain driver (``core.plain_loop``) on the
-    Solver's own primitives: the loop graph's plain version, which phase
-    22 and the card tests hold the graph against."""
-    from tfqmrgpu_tpu_torch import core
+    Solver's own primitives: the loop graph's plain version, which phases
+    16, 17 and 22 and the card tests hold the graph against
+    (``parallel.dryrun.plain_driver``)."""
+    from tfqmrgpu_tpu_torch.parallel.dryrun import plain_driver as plain
 
-    loop = core.tfqmr_loop
-
-    def plain(prim, v2, v3, v5_init, tau0, inv_bn2, tolerance,
-              max_iterations, dt, **_):
-        return core.plain_loop(prim, v2, v3, v5_init, tau0, inv_bn2,
-                               float(tolerance) ** 2, int(max_iterations), dt)
-
-    core.tfqmr_loop = plain
-    try:
+    with plain():
         yield
-    finally:
-        core.tfqmr_loop = loop
 
 
 def _capture_profiled(fn):
@@ -4211,6 +4399,162 @@ def phase_loop(dev, fd) -> dict:
     return dict(times=times, solves=rows, states=n_states, new_a=new_a)
 
 
+@contextlib.contextmanager
+def timed_loops(profile: bool = False):
+    """Inside, every loop a solve runs (``LoopGraph.run``, or
+    ``core.plain_loop`` under ``plain_driver()``) is timed alone: CUDA
+    events around it (the graph's launch and state read, or the plain
+    driver's loop; no set-up and no capture), and with ``profile`` its
+    device time, the sum of ``torch.profiler``'s CUDA events inside it.
+    Yields the list it fills with (wall ms, device ms or None, events or
+    None, iterations)."""
+    from tfqmrgpu_tpu_torch import core
+    from tfqmrgpu_tpu_torch.graphloop import LoopGraph
+
+    out = []
+    run, plain = LoopGraph.run, core.plain_loop
+    cuda = torch.autograd.DeviceType.CUDA
+
+    def timed(fn):
+        def wrapper(*args, **kw):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            with (torch.profiler.profile(
+                    activities=[torch.profiler.ProfilerActivity.CUDA])
+                  if profile else contextlib.nullcontext()) as prof:
+                torch.cuda.synchronize()
+                start.record()
+                res = fn(*args, **kw)
+                end.record()
+                end.synchronize()
+            dev_ms = events = None
+            if profile:
+                ev = [e for e in prof.events() if e.device_type == cuda]
+                dev_ms = sum(e.time_range.elapsed_us() for e in ev) / 1e3
+                events = len(ev)
+            out.append((start.elapsed_time(end), dev_ms, events,
+                        res.iterations))
+            return res
+        return wrapper
+
+    LoopGraph.run, core.plain_loop = timed(run), timed(plain)
+    try:
+        yield out
+    finally:
+        LoopGraph.run, core.plain_loop = run, plain
+
+
+def phase_loop_sharded(dev, fd) -> dict:
+    """Phase 22 (e): the sharded loop at world size 1 on NCCL, beside (b)'s
+    single-device rows: each solve's loop alone (``timed_loops``) through
+    the graph (wall and device time) and through the plain driver, in ms
+    an iteration; the same iterations and X on both drivers; the row-tile
+    and packed-pairs solvers keep their graph across solves and a new A
+    (no capture)."""
+    from tfqmrgpu_tpu_torch import create_plan
+    from tfqmrgpu_tpu_torch.graphloop import LoopGraph
+    from tfqmrgpu_tpu_torch.parallel import (ShardedPairsSolver,
+                                             ShardedRowTileSolver, make_mesh,
+                                             multihost, partition_plan,
+                                             sharded_solve)
+
+    t_phase = time.perf_counter()
+    multihost.initialize(device=dev)
+    mesh = make_mesh(1, 1, device=dev)
+    a, b = fd.a_with_data(), fd.b_with_data()
+    plan = create_plan(a, fd.x, b, device=dev)
+    plan.lm, plan.ln = a.slow_block_dim, b.fast_block_dim
+    part = partition_plan(plan, 1, 1)
+
+    def fd_solve():
+        xr, xi, info = sharded_solve(
+            plan, part, mesh, a.data.real, a.data.imag, b.data.real,
+            b.data.imag, tolerance=1e-9, max_iterations=2000)
+        return xr + 1j * xi, info
+
+    ga, gx, gb = golden_c_problem()
+    gplan = create_plan(ga, gx, gb, device=dev)
+    gplan.lm, gplan.ln = 32, 32
+    rng = np.random.default_rng(2223)
+    a2 = ga.data * (1.0 + 0.1 * rng.random((ga.nnzb, 1, 1)))
+    solvers = {}
+
+    def kept(label, cls, **kw):
+        def solve():
+            if label not in solvers:
+                solvers[label] = cls(gplan, mesh, **kw)
+            return solvers[label].solve(
+                ga.data.real, ga.data.imag, gb.data.real, gb.data.imag,
+                tolerance=1e-5, max_iterations=500)
+        return solve
+
+    rows = {}
+    for label, solve, persistent in (
+            ("sharded FD rtb=12.75 'z' sharded_solve (K1)", fd_solve, False),
+            ("sharded golden 'c' ShardedRowTileSolver (K3)",
+             kept("rt", ShardedRowTileSolver), True),
+            ("sharded golden 'c' ShardedPairsSolver (K2)",
+             kept("pp", ShardedPairsSolver), True)):
+        solve()                             # the capture, and a warm run
+        c0 = LoopGraph.captures
+        with timed_loops() as t:
+            x_graph, info = solve()
+        with timed_loops(profile=True) as tp:
+            solve()
+        if persistent:
+            require(LoopGraph.captures == c0, f"{label}: a later solve "
+                    f"captured {LoopGraph.captures - c0} graphs")
+        with plain_driver(), timed_loops() as tq:
+            x_plain, plain = solve()
+        its = info["iterations"]
+        require((its, info["n_probes"]) == (plain["iterations"],
+                                           plain["n_probes"])
+                and np.array_equal(np.asarray(x_graph), np.asarray(x_plain)),
+                f"{label}: graph {its}, plain {plain['iterations']} "
+                "iterations, or X differs")
+        (wall, _, _, n), (_, dev_ms, events, _), (pwall, _, _, _) = \
+            t[0], tp[0], tq[0]
+        require(len(t) == len(tp) == len(tq) == 1 and n == its,
+                f"{label}: loops timed {len(t)}, {len(tp)}, {len(tq)}")
+        rows[label] = row = dict(
+            iterations=its, probes=info["n_probes"],
+            graph_ms_per_it=wall / its, device_ms_per_it=dev_ms / its,
+            events_per_it=events / its, plain_ms_per_it=pwall / its)
+        extra = ""
+        if persistent:
+            sp = solvers["rt" if "RowTile" in label else "pp"]
+            sp.set_matrix_a(a2.real, a2.imag)
+            x_new, info_new = sp.solve(ga.data.real, ga.data.imag,
+                                       gb.data.real, gb.data.imag,
+                                       tolerance=1e-5, max_iterations=500)
+            fresh = type(sp)(gplan, mesh)
+            x_fresh, info_fresh = fresh.solve(
+                a2.real, a2.imag, gb.data.real, gb.data.imag,
+                tolerance=1e-5, max_iterations=500)
+            require(LoopGraph.captures == c0 + 1
+                    and info_new["iterations"] == info_fresh["iterations"]
+                    and np.array_equal(x_new, x_fresh),
+                    f"{label}: a new A through set_matrix_a captured "
+                    f"{LoopGraph.captures - c0 - 1} graphs or differs from a "
+                    "fresh solver's")
+            extra = (f"; a new A (set_matrix_a) replayed without a capture, "
+                     f"{info_new['iterations']} iterations, X equal to a "
+                     f"fresh solver's to the bit")
+            del fresh
+        print(f"phase 22 (e) {label}: {its} iterations, {info['n_probes']} "
+              f"probes, X equal to the plain driver's to the bit; the loop "
+              f"alone: graph {row['graph_ms_per_it']:.4f} ms an iteration "
+              f"(CUDA events around its launch and state read), device "
+              f"{row['device_ms_per_it']:.4f} (torch.profiler, "
+              f"{row['events_per_it']:.1f} events); plain driver "
+              f"{row['plain_ms_per_it']:.4f}{extra}", flush=True)
+    solvers.clear()
+    multihost.shutdown()
+    print(f"phase 22 (e) took {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return rows
+
+
 def pp_unpermute(pplan, gp, y: torch.Tensor) -> tuple:
     """A fused product on a packed plan -> (re, im) CPU tensors of the
     fine blocks."""
@@ -4259,7 +4603,9 @@ def main():
         10: (golden_pairs[2], golden_pairs[4]), 13: golden_m_counts})
     for row in split_kernels:
         row["card"] = card
-    torch.distributed.destroy_process_group()
+    from tfqmrgpu_tpu_torch.parallel import multihost
+
+    multihost.shutdown()
     phase_sharded_example()
     tuning = phase_tuning(dev, fd, k4, {
         3: fd_iterations, 4: golden_z_iterations, 6: golden_c_iterations,
@@ -4272,8 +4618,12 @@ def main():
     oz["card"] = card
     oz["launches_by_path"].update(tuning.pop("oz"))
     loop = phase_loop(dev, fd)
+    sharded_loop = phase_loop_sharded(dev, fd)
     decide = loop["times"]["decide"]
+    local = loop["times"]["decide_local"]
     fd_loop = loop["solves"]["FD rtb=12.75 'z' (K1)"]
+    stages = {**sharded["stages"], **pairs["stages"]}
+    fd_stages = stages["phase 16 (a) FD z sharded_solve"]
     print(json.dumps({"kernels": [
         {"name": "pairpanel_spmm", "route": "cuda",
          "source": "tfqmrgpu_tpu_torch/csrc/pairpanel_spmm.cu",
@@ -4320,8 +4670,22 @@ def main():
          "bound_ms": decide["bound_ms"], "bound_by": decide["bound_by"],
          "library_ms": None, "card": card, "entries": loop["times"],
          "control_ms_per_iteration": fd_loop["control_ms_per_it"],
-         "loop": loop["solves"],
+         "loop": {**loop["solves"], **sharded_loop},
          "launches_by_path": {"phase 3 FD z bsrsv_z": control_launches}},
+        {"name": "loop_control_sharded", "route": "cuda",
+         "source": "tfqmrgpu_tpu_torch/csrc/loop_control.cu",
+         "replaces": "none: tfqmrgpu_tpu/core.py:188-206 and "
+                     "tfqmrgpu_tpu/parallel/sharded.py:109-168, the pmax / "
+                     "pmin of the while_loop's control in XLA",
+         "launches": sum(fd_stages.values()), "max_abs_err": 0.0,
+         "ms": local["ms"], "plain_ms": local["plain_ms"],
+         "bound_ms": local["bound_ms"], "bound_by": local["bound_by"],
+         "library_ms": None, "card": card,
+         "entries": {k: loop["times"][k] for k in (
+             "decide_local", "decide_finish", "settle_local",
+             "settle_finish")},
+         "launches_by_path": {k: sum(v.values()) for k, v in stages.items()},
+         "stages_by_path": stages},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

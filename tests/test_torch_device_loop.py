@@ -320,7 +320,9 @@ def _blocks_loop(seed=4, tol=1e-10, maxit=200):
 @pytest.mark.parametrize("cls,name,slots", [
     ("PairPlanMultiply", "launches", ("k1",)),
     ("LoopControl", "launches", ("loop_decide", "loop_settle",
-                                 "loop_continue"))])
+                                 "loop_continue", "loop_decide_local",
+                                 "loop_decide_finish", "loop_settle_local",
+                                 "loop_settle_finish"))])
 def test_launch_counters_read_and_reset(cls, name, slots):
     """A wrapper's counter attribute reads and resets its slots of
     ``launch_counts``; without a card (the CPU) no counter is made and
@@ -414,9 +416,9 @@ def test_loop_inputs_buffers_and_fill():
 
 
 def test_tfqmr_loop_routes(monkeypatch):
-    """CPU tensors and ``host_loop`` primitives take the plain driver; any
-    other device goes to the graph driver (meta tensors stand in for the
-    card), with the Solver's graphs and key."""
+    """CPU tensors take the plain driver; any other device goes to the
+    graph driver (meta tensors stand in for the card), with the Solver's
+    graphs and key, the sharded primitives too."""
     calls = []
     plain = core.plain_loop
 
@@ -440,17 +442,21 @@ def test_tfqmr_loop_routes(monkeypatch):
              meta, tol, maxit, torch.float64)
     assert core.tfqmr_loop(prim, *margs, graphs=graphs,
                            key=("k",)) == "graph"
-    # the sharded primitives' route is the plain driver, on any device
+    # the sharded primitives take the same routes: the graph on the card
     from tfqmrgpu_tpu_torch.parallel.sharded import sharded_primitives
 
     class Mesh:
-        allmax = alland = staticmethod(lambda t: t)
+        ranks = 2
+        psum = reduce_max = staticmethod(lambda t: t)
 
     sp = sharded_primitives(Mesh(), prim)
-    assert sp.host_loop and not prim.host_loop
-    assert core.tfqmr_loop(sp, *margs) == "plain"
+    assert isinstance(sp.mesh, Mesh) and prim.mesh is None
+    assert not hasattr(sp, "host_loop")
+    assert core.tfqmr_loop(sp, *margs, graphs=graphs,
+                           key=("s",)) == "graph"
+    assert core.tfqmr_loop(sp, *args).return_status == Status.SUCCESS
     assert calls == [("plain", "cpu"), ("graph", graphs, ("k",)),
-                     ("plain", "meta")]
+                     ("graph", graphs, ("s",)), ("plain", "cpu")]
 
 
 class FakeGraph:

@@ -405,7 +405,7 @@ def test_c_one_call_runs_k1_on_card(monkeypatch):
 @pytest.fixture
 def nccl_mesh():
     """A world of one rank on NCCL (the card) and its 1 x 1 mesh; the
-    process group is torn down after the test."""
+    process group is torn down after the test (``multihost.shutdown``)."""
     _needs_card()
     import torch.distributed as dist
 
@@ -417,7 +417,7 @@ def nccl_mesh():
         yield make_mesh(1, 1, device="cuda:0")
     finally:
         if started:
-            dist.destroy_process_group()
+            multihost.shutdown()
 
 
 @pytest.mark.cuda
@@ -955,9 +955,16 @@ def test_loop_control_kernels_match_plain_on_card(shape):
     from chip_smoke import check_loop_control
     from tfqmrgpu_tpu_torch.graphloop import LoopControl
 
-    before = LoopControl.launches
+    def single():
+        return (LoopControl.decides + LoopControl.settles
+                + LoopControl.continues)
+
+    before, every = single(), LoopControl.launches
     assert check_loop_control(torch.device("cuda"), shape) == 10
-    assert LoopControl.launches == before + 10 * 5
+    assert single() == before + 10 * 5
+    # and each state's sharded stages (check_sharded_stages): 2 local
+    # stages at keep_nan True and False, 2 finish stages on 9 partials
+    assert LoopControl.launches == every + 10 * (5 + 4 + 18)
 
 
 def _loop_solver(case):
@@ -1093,3 +1100,164 @@ def test_failed_capture_raises_on_card(monkeypatch):
     monkeypatch.setattr(core, "probe_residual", residual)
     info = s.solve(tolerance=tol, max_iterations=300)
     assert info.return_status == 0 and LoopGraph.launches == launches + 1
+
+
+# ------------------------------------------- the sharded loop as a CUDA graph
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(16, 32), (3, 8)])
+def test_sharded_stages_match_plain_on_card(shape):
+    """The sharded stages of the loop's control (decide_local /
+    decide_finish, settle_local / settle_finish) against core's on the card,
+    to the bit, over phase 22 (a)'s carry states, on a mesh of one rank
+    (keep_nan) and of more, the finish stages also on reduced partials no
+    rank sends alone; each stage counts its launches on the card."""
+    _needs_card()
+    from chip_smoke import check_sharded_stages, loop_control_table
+    from tfqmrgpu_tpu_torch.graphloop import LoopControl
+
+    dev = torch.device("cuda")
+    LoopControl.launches = 0
+    rows = loop_control_table(shape)
+    for name, tau, inv, status, it, maxit, target, res2, tol2, bound2 \
+            in rows:
+        check_sharded_stages(
+            dev, name, tau, torch.from_numpy(inv).to(dev), status, it,
+            torch.tensor(maxit, dtype=torch.int32, device=dev), target, res2,
+            tol2, bound2)
+    n = len(rows)
+    assert (LoopControl.decide_locals, LoopControl.settle_locals,
+            LoopControl.decide_finishes, LoopControl.settle_finishes) == (
+        2 * n, 2 * n, 9 * n, 9 * n)
+    assert LoopControl.decides == LoopControl.settles == 0
+
+
+def _sharded_solve(case, mesh):
+    """(solve() -> (X, info), the kernel's wrapper, the solver or None) at
+    a small golden-class size: 'k1' ``sharded_solve`` in 'z', 'k3'
+    ``ShardedRowTileSolver`` and 'k2' ``ShardedPairsSolver`` in 'c'."""
+    from tfqmrgpu_tpu_torch.parallel import (ShardedPairsSolver,
+                                             ShardedRowTileSolver,
+                                             partition_plan, sharded_solve)
+
+    a, x, b = (golden_z_problem if case == "k1" else golden_c_problem)(
+        mb=24, ncols=4)
+    plan = create_plan(a, x, b, device="cuda")
+    plan.lm = plan.ln = 32
+    if case == "k1":
+        part = partition_plan(plan, 1, 1)
+
+        def solve():
+            xr, xi, info = sharded_solve(
+                plan, part, mesh, a.data.real, a.data.imag, b.data.real,
+                b.data.imag, tolerance=1e-10, max_iterations=300)
+            return xr + 1j * xi, info
+        return solve, PairPlanMultiply, None
+    sp = (ShardedRowTileSolver if case == "k3" else ShardedPairsSolver)(
+        plan, mesh)
+    return (lambda: sp.solve(a.data.real, a.data.imag, b.data.real,
+                             b.data.imag, tolerance=1e-5,
+                             max_iterations=300),
+            RowTileMultiply if case == "k3" else PairPanelMultiply, sp)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["k1", "k3", "k2"])
+def test_sharded_graph_matches_plain_driver_on_card(nccl_mesh, case):
+    """A sharded solve at world size 1 on NCCL is one graph launch and one
+    state read (the collectives and the sharded stages in the WHILE body),
+    and the plain driver's on the same mesh to the bit: iterations,
+    probes, kernel launches and collectives of each kind, read from the
+    card's counters."""
+    from chip_smoke import SHARDED_STAGES, sharded_both
+
+    solve, kernel, _ = _sharded_solve(case, nccl_mesh)
+    r = sharded_both(nccl_mesh, solve, {"kernel": kernel})
+    its, probes = r["info"]["iterations"], r["info"]["n_probes"]
+    assert r["info"]["return_status"] == 0
+    assert r["launches"]["kernel"] == 2 * its + probes
+    assert r["stages"] == dict(zip(SHARDED_STAGES,
+                                   (its, its, probes, probes)))
+    assert r["calls"]["all_reduce"] == 5 * its + 2 * probes + 1
+
+
+@pytest.mark.cuda
+def test_mesh_calls_read_and_reset_on_card(nccl_mesh):
+    """``Mesh.calls`` on the card reads the collectives counted there and
+    ``clear()`` resets them; under ``launch_counts.uncounted()`` (a graph's
+    warm-up) nothing is counted."""
+    from tfqmrgpu_tpu_torch import core, launch_counts
+
+    t = torch.ones(4, dtype=torch.float64, device="cuda")
+    nccl_mesh.calls.clear()
+    assert [nccl_mesh.calls[k] for k in
+            ("all_gather", "all_reduce", "neighbour_exchange")] == [0, 0, 0]
+    nccl_mesh.psum(t)
+    nccl_mesh.reduce_max(torch.zeros(2, dtype=torch.float64, device="cuda"))
+    nccl_mesh.gather(t)
+    assert (nccl_mesh.calls["all_reduce"], nccl_mesh.calls["all_gather"]) \
+        == (2, 1)
+    with launch_counts.uncounted():
+        nccl_mesh.psum(t)
+    assert nccl_mesh.calls["all_reduce"] == 2
+    part = core.decision_partials(
+        torch.tensor(float("nan"), dtype=torch.float64, device="cuda"),
+        torch.ones((), dtype=torch.bool, device="cuda"), True)
+    assert nccl_mesh.reduce_max(part)[0].isnan() and part[1] == -1
+    assert nccl_mesh.calls["all_reduce"] == 3
+    nccl_mesh.calls.clear()
+    assert nccl_mesh.calls["all_reduce"] == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["k3", "k2"])
+def test_sharded_set_matrix_a_replays_without_capture_on_card(nccl_mesh,
+                                                              case):
+    """A new A through ``set_matrix_a`` goes into the K3 / K2 the sharded
+    solver's graph captured: the next solve replays it (no capture) and
+    gives a fresh solver's X to the bit."""
+    from tfqmrgpu_tpu_torch.graphloop import LoopGraph
+
+    solve, kernel, sp = _sharded_solve(case, nccl_mesh)
+    solve()
+    captures = LoopGraph.captures
+    info = solve()
+    assert LoopGraph.captures == captures
+    a, x, b = golden_c_problem(mb=24, ncols=4)
+    a2 = a.data * (1.0 + 0.1 * np.random.default_rng(4).random(
+        (a.nnzb, 1, 1)))
+    sp.set_matrix_a(a2.real, a2.imag)
+    kernel.launches = 0
+    x_new, info = sp.solve(a2.real, a2.imag, b.data.real, b.data.imag,
+                           tolerance=1e-5, max_iterations=300)
+    assert LoopGraph.captures == captures and len(sp.loop_graphs) == 1
+    assert kernel.launches == 2 * info["iterations"] + info["n_probes"]
+    fresh = type(sp)(sp.plan, nccl_mesh)
+    x_want, want = fresh.solve(a2.real, a2.imag, b.data.real, b.data.imag,
+                               tolerance=1e-5, max_iterations=300)
+    assert info["iterations"] == want["iterations"]
+    assert np.array_equal(x_new, x_want)
+
+
+
+@pytest.mark.cuda
+def test_shutdown_closes_held_sharded_graphs_on_card():
+    """``multihost.shutdown`` closes the loop graph of a sharded solver that
+    is still held, then destroys the process group."""
+    _needs_card()
+    import torch.distributed as dist
+
+    from tfqmrgpu_tpu_torch.parallel import make_mesh, multihost
+
+    if dist.is_initialized():
+        pytest.skip("a process group of another test is up")
+    multihost.initialize(device="cuda:0")
+    try:
+        solve, _, sp = _sharded_solve("k3", make_mesh(1, 1, device="cuda:0"))
+        solve()
+        (graph,) = sp.loop_graphs._graphs.values()
+        assert graph.exec is not None
+    finally:
+        multihost.shutdown()
+    assert graph.exec is None and graph.pool is None
+    assert not dist.is_initialized()

@@ -352,6 +352,295 @@ def case_scaling(d: dict) -> dict:
     return out
 
 
+def case_nanmax(d: dict) -> dict:
+    """The max over the mesh of each rank's value and the "all" of each
+    rank's flag, as the sharded decisions take them (``Mesh.reduce_max`` of
+    ``core.decision_partials``), one scenario a row of ``values`` /
+    ``flags`` (column r: rank r's), and every rank's answers gathered, so
+    that rank 0 can show that they agree."""
+    import torch
+
+    from tfqmrgpu_tpu_torch import core
+    from tfqmrgpu_tpu_torch.parallel import make_mesh
+
+    world = int(d["world"])
+    mesh = make_mesh(world, 1, device="cpu")
+    r = mesh.row
+
+    def reduced(value: float, flag: bool) -> torch.Tensor:
+        return mesh.reduce_max(core.decision_partials(
+            torch.tensor(value, dtype=torch.float64), torch.tensor(flag),
+            mesh.ranks == 1))
+
+    got = torch.stack([reduced(float(v[r]), False)[0] for v in d["values"]])
+    anded = torch.stack([reduced(0.0, bool(f[r]))[1] < 0
+                         for f in d["flags"]]).to(torch.int32)
+    return dict(max=mesh.gather(got).reshape(world, -1).numpy(),
+                all=mesh.gather(anded).reshape(world, -1).numpy())
+
+
+def case_agree(d: dict) -> dict:
+    """The agreements a sharded loop graph's capture makes (``Mesh.agree``)
+    on a mesh of rank 0 alone, then on a mesh of both ranks: rank 0 agrees
+    3 times alone; on the mesh of two a capture that failed on rank 1
+    fails on both, and one that held on both holds.  Every rank's answers,
+    gathered."""
+    import torch
+
+    from tfqmrgpu_tpu_torch.parallel import make_mesh
+
+    alone = make_mesh(1, 1, device="cpu")
+    held_alone = [alone.agree(True) for _ in range(3)] if alone.member \
+        else [True] * 3
+    both = make_mesh(2, 1, device="cpu")
+    failed = both.agree(both.row == 0)
+    held = both.agree(True)
+    got = torch.tensor(held_alone + [failed, held], dtype=torch.int32)
+    return dict(agreed=both.gather(got).reshape(2, -1).numpy())
+
+
+def case_shutdown(d: dict) -> dict:
+    """``multihost.shutdown`` closes every live loop graph of a sharded
+    solve (``graphloop._sharded``; stand-ins here, as a loop graph needs a
+    card) and then destroys the process group."""
+    import torch.distributed as dist
+
+    from tfqmrgpu_tpu_torch import graphloop
+    from tfqmrgpu_tpu_torch.parallel import multihost
+
+    class Graph:
+        closed = 0
+
+        def close(self):
+            self.closed += 1
+
+    graphs = [Graph() for _ in range(3)]
+    for g in graphs:
+        graphloop._sharded.add(g)
+    multihost.shutdown()
+    return dict(closed=[g.closed for g in graphs],
+                left=len(graphloop._sharded),
+                initialized=dist.is_initialized())
+
+
+class _DryCapture:
+    """A capture that captures nothing: ``graphloop.record`` under it runs
+    the loop's outer part, one iteration and one probe eagerly."""
+
+    def handle(self):
+        return None
+
+    def node(self, handle, kind: int):
+        import contextlib
+
+        return contextlib.nullcontext()
+
+
+class _PlainControl:
+    """``graphloop.LoopControl`` on CPU tensors: ``core``'s plain versions,
+    in place."""
+
+    @staticmethod
+    def decide(c, inv_bn2, maxit, max_bound2, probe, handle=None):
+        from tfqmrgpu_tpu_torch import core
+
+        stop, bound2, go = core.decide(c, inv_bn2, maxit)
+        c.stop_code.copy_(stop)
+        max_bound2.copy_(bound2)
+        probe.copy_(go)
+
+    @staticmethod
+    def settle(c, res2, max_bound2, tol2):
+        from tfqmrgpu_tpu_torch import core
+
+        _PlainControl._into(c, core.settle(c, res2, max_bound2, tol2))
+
+    @staticmethod
+    def decide_local(c, inv_bn2, part, keep_nan):
+        from tfqmrgpu_tpu_torch import core
+
+        part.copy_(core.decide_local(c, inv_bn2, keep_nan))
+
+    @staticmethod
+    def decide_finish(c, part, maxit, max_bound2, probe, handle=None):
+        from tfqmrgpu_tpu_torch import core
+
+        stop, bound2, go = core.decide_finish(c, part, maxit)
+        c.stop_code.copy_(stop)
+        max_bound2.copy_(bound2)
+        probe.copy_(go)
+
+    @staticmethod
+    def settle_local(c, res2, tol2, part, keep_nan):
+        from tfqmrgpu_tpu_torch import core
+
+        status, p = core.settle_local(c, res2, tol2, keep_nan)
+        c.status.copy_(status)
+        part.copy_(p)
+
+    @staticmethod
+    def settle_finish(c, part, max_bound2, tol2):
+        from tfqmrgpu_tpu_torch import core
+
+        _PlainControl._into(c, core.settle_finish(c, c.status, part,
+                                                  max_bound2, tol2))
+
+    @staticmethod
+    def cont(c, maxit, go=None, handle=None):
+        pass
+
+    @staticmethod
+    def _into(c, s):
+        for name in ("status", "residual2", "target_bound2", "stop_code",
+                     "iters_needed", "n_probes"):
+            getattr(c, name).copy_(getattr(s, name))
+
+
+def case_sharded_record(d: dict) -> dict:
+    """Every loop of a sharded solve (``engine``: 'blocklist', 'rowtile'
+    or 'pairs') also recorded as the loop graph holds it
+    (``graphloop.record``) under a dry capture and the plain control, at
+    maxit 1, and run by ``core.plain_loop`` at maxit 1: X, the final
+    scalars and the collectives of each kind must agree to the bit on every
+    rank.  Then the solve itself runs on, on the plain driver."""
+    import torch
+
+    from tfqmrgpu_tpu_torch import core, graphloop
+    from tfqmrgpu_tpu_torch.parallel import (ShardedPairsSolver,
+                                             ShardedRowTileSolver, make_mesh,
+                                             partition_plan, sharded_solve)
+
+    a, x, b = _problem(d)
+    plan = _plan(d, a, x, b)
+    pr, pc = (int(v) for v in d["grid"])
+    mesh = make_mesh(pr, pc, device="cpu")
+    kinds = ("all_gather", "all_reduce", "neighbour_exchange")
+    loop, seen = core.tfqmr_loop, []
+
+    def both(prim, v2, v3, v5_init, tau0, inv_bn2, tolerance,
+             max_iterations, dt, **kw):
+        tol2 = float(tolerance) ** 2
+        mesh.calls.clear()
+        want = core.plain_loop(prim, v2, v3, v5_init, tau0, inv_bn2, tol2, 1,
+                               dt)
+        calls_plain = [mesh.calls[k] for k in kinds]
+        ins = graphloop.LoopInputs(
+            v2=v2, v3=v3, v5_init=v5_init, tau0=tau0, inv_bn2=inv_bn2,
+            tol2=torch.tensor(tol2, dtype=torch.float64),
+            maxit=torch.tensor(1, dtype=torch.int32))
+        mesh.calls.clear()
+        control, graphloop.LoopControl = graphloop.LoopControl, _PlainControl
+        try:
+            c, state = graphloop.record(prim, ins, dt, _DryCapture())
+        finally:
+            graphloop.LoopControl = control
+        calls_record = [mesh.calls[k] for k in kinds]
+        stop, iters_needed, it, n_probes, residual2 = state.tolist()
+        got = core.solve_result(c, stop, iters_needed, n_probes, residual2)
+        same = (it == 1 and calls_record == calls_plain
+                and (got.return_status, got.iterations, got.n_probes)
+                == (want.return_status, want.iterations, want.n_probes)
+                and np.float64(got.residuum).tobytes()
+                == np.float64(want.residuum).tobytes()
+                and all(torch.equal(g, w) for g, w in
+                        zip(graphloop._leaves(got.x),
+                            graphloop._leaves(want.x)))
+                and torch.equal(got.rhs_status, want.rhs_status))
+        if not same:
+            def scalars(r):
+                return (r.return_status, r.iterations, r.n_probes,
+                        r.residuum)
+            raise AssertionError(
+                f"rank {mesh.row}: the recorded loop differs from the plain "
+                f"driver's: calls {calls_record} / {calls_plain}, "
+                f"(status, iterations, probes, residuum) {scalars(got)} / "
+                f"{scalars(want)}")
+        seen.append(calls_plain)
+        return loop(prim, v2, v3, v5_init, tau0, inv_bn2, tolerance,
+                    max_iterations, dt, **kw)
+
+    core.tfqmr_loop = both
+    try:
+        tol, maxit = float(d["tol"]), int(d["maxit"])
+        engine = str(d["engine"])
+        planes = (a.data.real, a.data.imag, b.data.real, b.data.imag)
+        if engine == "blocklist":
+            x_re, x_im, info = sharded_solve(
+                plan, partition_plan(plan, pr, pc), mesh, *planes,
+                tolerance=tol, max_iterations=maxit, v3=_v3(d))
+            xs = x_re + 1j * x_im
+        else:
+            cls = ShardedRowTileSolver if engine == "rowtile" \
+                else ShardedPairsSolver
+            xs, info = cls(plan, mesh).solve(*planes, tolerance=tol,
+                                             max_iterations=maxit)
+    finally:
+        core.tfqmr_loop = loop
+    return dict(x=xs, loops=len(seen), first_calls=np.asarray(seen[0]),
+                **_info(info))
+
+
+def case_release(d: dict) -> dict:
+    """Whether a sharded solver whose loop graphs hold its loop's
+    primitives (as ``graphloop.LoopGraph`` does) is freed when its last
+    reference goes, with the collector off: its graphs go with it, as
+    NCCL needs before a communicator is destroyed.  For the row tiles and
+    the packed pairs."""
+    import gc
+    import weakref
+
+    from tfqmrgpu_tpu_torch import core
+    from tfqmrgpu_tpu_torch.parallel import (ShardedPairsSolver,
+                                             ShardedRowTileSolver, make_mesh)
+
+    a, x, b = _problem(d)
+    plan = _plan(d, a, x, b)
+    mesh = make_mesh(1, 1, device="cpu")
+    loop, out = core.tfqmr_loop, {}
+    for name, cls in (("rowtile", ShardedRowTileSolver),
+                      ("pairs", ShardedPairsSolver)):
+        sp = cls(plan, mesh)
+        prims = []
+
+        def keep(prim, *args, **kw):
+            prims.append(prim)
+            return loop(prim, *args, **kw)
+
+        core.tfqmr_loop = keep
+        try:
+            sp.solve(a.data.real, a.data.imag, b.data.real, b.data.imag,
+                     tolerance=1e-4, max_iterations=50)
+        finally:
+            core.tfqmr_loop = loop
+        sp.loop_graphs._graphs["held"] = prims[0]
+        ref = weakref.ref(sp)
+        del prims
+        gc.disable()
+        try:
+            del sp
+            out[name] = int(ref() is None)
+        finally:
+            gc.enable()
+    return out
+
+
+def case_rowtile_v3(d: dict) -> dict:
+    """The sharded row tiles with a given shadow vector (JAX's)."""
+    from tfqmrgpu_tpu_torch.parallel import ShardedRowTileSolver, make_mesh
+    from tfqmrgpu_tpu_torch.parallel.multihost import put_global
+
+    a, x, b = _problem(d)
+    plan = _plan(d, a, x, b)
+    mesh = make_mesh(int(d["pr"]), 1, device="cpu")
+    sp = ShardedRowTileSolver(plan, mesh, r_tile=int(d["r_tile"]))
+    sp.v3 = tuple(put_global(sp._shard_panel(sp.lay.pack_x(v)), mesh,
+                             ("rows",)) for v in _v3(d))
+    got, info = sp.solve(a.data.real, a.data.imag, b.data.real, b.data.imag,
+                         tolerance=float(d["tol"]),
+                         max_iterations=int(d["maxit"]))
+    return dict(x=got, **_info(info))
+
+
 CASES = {name[5:]: fn for name, fn in globals().items()
          if name.startswith("case_")}
 
@@ -372,7 +661,7 @@ def main(argv) -> int:
     result = CASES[case](data)
     if rank == 0:
         np.savez(out, **result)
-    dist.destroy_process_group()
+    multihost.shutdown()
     return 0
 
 

@@ -88,6 +88,19 @@ SIGNATURES = {
     "tfq_loop_settle": [_P] * 2 + [_I] + [_P] * 10,
     # it, maxit, stop_code, go (or null), handle, set_handle, stream, count
     "tfq_loop_continue": [_P] * 4 + [_U, _I, _P, _P],
+    # the sharded stages: tau, inv_bn2, status, n, keep_nan, part, stream,
+    # count
+    "tfq_loop_decide_local": [_P] * 3 + [_I, _I] + [_P] * 3,
+    # part, it, maxit, target_bound2, stop_code, max_bound2, probe, handle,
+    # set_handle, stream, count
+    "tfq_loop_decide_finish": [_P] * 7 + [_U, _I, _P, _P],
+    # res2, status, n, tol2, keep_nan, part, stream, count
+    "tfq_loop_settle_local": [_P, _P, _I, _P, _I, _P, _P, _P],
+    # part, tol2, max_bound2, it, residual2, target_bound2, stop_code,
+    # iters_needed, n_probes, stream, count
+    "tfq_loop_settle_finish": [_P] * 11,
+    # stream, count: one collective counted on the card
+    "tfq_count": [_P, _P],
     # and its graph: stream, graph (out)
     "tfq_loop_graph_begin": [_P, ctypes.POINTER(_P)],
     # stream, handle (out)
@@ -97,8 +110,8 @@ SIGNATURES = {
                             ctypes.POINTER(_P)],
     # stream, the enclosing graph, the node
     "tfq_loop_graph_close": [_P] * 3,
-    # stream, graph, exec (out)
-    "tfq_loop_graph_end": [_P, _P, ctypes.POINTER(_P)],
+    # stream, graph, exec (out), why (out: int[2])
+    "tfq_loop_graph_end": [_P, _P, ctypes.POINTER(_P), _P],
     "tfq_loop_graph_abort": [_P],
     "tfq_loop_graph_launch": [_P, _P],
     "tfq_loop_graph_destroy": [_P, _P],

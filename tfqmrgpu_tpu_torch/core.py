@@ -18,8 +18,9 @@ a CUDA device, the whole loop is one launch of one CUDA graph
 (``graphloop.py``): a WHILE node around the iteration and an IF node around
 the probe, whose predicates the kernels of ``csrc/loop_control.cu`` set on
 the card, so the host reads the loop's state once, after the loop, as the
-JAX package's ``jax.lax.while_loop`` does.  On the CPU, and in the sharded
-solvers, a plain Python driver runs the same functions (``plain_loop``).
+JAX package's ``jax.lax.while_loop`` does; a sharded solve's graph holds
+its collectives too (``parallel/``).  On the CPU a plain Python driver runs
+the same functions (``plain_loop``).
 
 Iteration body (tfqmrgpu_core.hxx:179-306, two half-steps):
 
@@ -62,19 +63,16 @@ class SolveResult(NamedTuple):
     tau: torch.Tensor            # f64[nCols, LN] final squared-norm recurrence
 
 
-def _identity(t: torch.Tensor) -> torch.Tensor:
-    return t
-
-
 @dataclasses.dataclass(frozen=True)
 class TfqmrPrimitives:
     """The operations the loop body needs, bound to the plan's tables.
 
-    ``allmax`` and ``alland`` reduce a decision scalar (a float64 max, a
-    bool "all") over the other ranks of a sharded solve (``parallel/``); on
-    one device they are the identity.  ``host_loop`` sends the loop to the
-    plain driver on any device: the sharded primitives set it, since their
-    collectives run outside a CUDA graph."""
+    ``mesh`` is a sharded solve's ``parallel.sharded.Mesh``, None on one
+    device: the decisions then take their scalars over every rank, each in
+    two stages around one ``mesh.reduce_max`` of the rank's partials
+    (``decide_local`` / ``decide_finish``, ``settle_local`` /
+    ``settle_finish``), and the graph driver agrees with the other ranks
+    on its capture (``mesh.agree``)."""
 
     multiply: Callable[[Pair], Pair]          # y = A @ x
     dotp: Callable[[Pair, Pair], Pair]        # per-column <x, y>  (f64)
@@ -82,9 +80,7 @@ class TfqmrPrimitives:
     axpy: Callable[[Pair, Pair, Pair], Pair]  # y + a[col]*x
     xpay: Callable[[Pair, Pair, Pair], Pair]  # x + a[col]*y   (y, a, x)
     add_rhs: Callable[[Pair, Pair, float], Pair]
-    allmax: Callable[[torch.Tensor], torch.Tensor] = _identity
-    alland: Callable[[torch.Tensor], torch.Tensor] = _identity
-    host_loop: bool = False
+    mesh: Any = None
 
 
 def make_shadow_vector(nnzb_x: int, lm: int, ln: int, *, device,
@@ -208,22 +204,83 @@ def step(prim: TfqmrPrimitives, c: Carry, v3: Pair, dt) -> Carry:
                                var=var, status=status)
 
 
-def decide(c: Carry, inv_bn2: torch.Tensor, maxit: torch.Tensor,
-           allmax=_identity, alland=_identity) -> tuple:
+def decide(c: Carry, inv_bn2: torch.Tensor, maxit: torch.Tensor) -> tuple:
     """The convergence control after an iteration (tfqmrgpu_core.hxx:
     235-263; JAX: core.py:188-193): the residual bound max(tau * inv_bn2)
     * (2 it + 1), the probe predicate (bound at or below the target, or the
     iteration cap) unless every RHS broke down, which stops the loop.
     Returns (stop_code, max_bound2, probe) as 0-d tensors.  The plain
     version of ``graphloop.LoopControl.decide``."""
-    max_ub = allmax((c.tau * inv_bn2).max())
+    max_ub = (c.tau * inv_bn2).max()
     max_bound2 = max_ub * (2 * c.it + 1).to(torch.float64)
     broke = (c.status == -1) | (c.status == -2)
-    all_broke = alland(broke.all())
+    all_broke = broke.all()
     probe = (((max_bound2 <= c.target_bound2) | (c.it >= maxit))
              & ~all_broke)
     stop_code = torch.where(all_broke, 2, c.stop_code)
     return stop_code, max_bound2, probe
+
+
+def decision_partials(m: torch.Tensor, flag: torch.Tensor,
+                      keep_nan: bool) -> torch.Tensor:
+    """A rank's partials of a decision, float64 [the max, -1 where the
+    flag holds else 0], so that one MAX over the ranks reduces both.  The
+    max over more than one rank follows JAX's pmax: a NaN is dropped (sent
+    as -inf; -0 as +0, so that no order of the ranks picks the sign); on a
+    mesh of one rank (``keep_nan``) the max goes as it is, as pmax over one
+    device is the identity.  The plain version of the local stages of
+    ``csrc/loop_control.cu``."""
+    f64 = torch.float64
+    if not keep_nan:
+        m = torch.where(m.isnan(), float("-inf"), m + 0.0)
+    return torch.stack([m.to(f64), torch.where(
+        flag, torch.tensor(-1.0, dtype=f64, device=m.device),
+        torch.tensor(0.0, dtype=f64, device=m.device))])
+
+
+def decide_local(c: Carry, inv_bn2: torch.Tensor,
+                 keep_nan: bool) -> torch.Tensor:
+    """``decide``'s partials on this rank: the max of tau * inv_bn2 and
+    whether every RHS broke down (``decision_partials``)."""
+    broke = (c.status == -1) | (c.status == -2)
+    return decision_partials((c.tau * inv_bn2).max(), broke.all(), keep_nan)
+
+
+def decide_finish(c: Carry, part: torch.Tensor, maxit: torch.Tensor) -> tuple:
+    """``decide`` from the partials reduced over the ranks (the max over
+    every rank, the flag on every rank): (stop_code, max_bound2, probe).
+    On one rank ``decide_finish(c, decide_local(c, inv_bn2, True), maxit)``
+    equals ``decide``."""
+    max_bound2 = part[0] * (2 * c.it + 1).to(torch.float64)
+    all_broke = part[1] < 0
+    probe = (((max_bound2 <= c.target_bound2) | (c.it >= maxit))
+             & ~all_broke)
+    stop_code = torch.where(all_broke, 2, c.stop_code)
+    return stop_code, max_bound2, probe
+
+
+def settle_local(c: Carry, res2: torch.Tensor, tol2: torch.Tensor,
+                 keep_nan: bool) -> tuple:
+    """``settle``'s stage on this rank: (the status after the res2 <= 0
+    update, the partials of the max of res2 and of isDone, taken with the
+    status before the update)."""
+    is_done = ((res2 <= tol2) | (c.status != 0)).all()
+    status = torch.where(res2 <= 0, torch.ones_like(c.status), c.status)
+    return status, decision_partials(res2.max(), is_done, keep_nan)
+
+
+def settle_finish(c: Carry, status: torch.Tensor, part: torch.Tensor,
+                  max_bound2: torch.Tensor, tol2: torch.Tensor) -> Carry:
+    """``settle`` from ``settle_local``'s status and the partials reduced
+    over the ranks."""
+    is_done = part[1] < 0
+    residual2 = part[0].clamp_min(decisions.EPSILON)
+    return dataclasses.replace(
+        c, status=status, residual2=residual2,
+        target_bound2=(max_bound2 / residual2) * tol2,
+        stop_code=torch.where(is_done, 1, c.stop_code),
+        iters_needed=torch.where(is_done, c.it, c.iters_needed),
+        n_probes=c.n_probes + 1)
 
 
 def probe_residual(prim: TfqmrPrimitives, c: Carry, v2: Pair,
@@ -236,17 +293,17 @@ def probe_residual(prim: TfqmrPrimitives, c: Carry, v2: Pair,
 
 
 def settle(c: Carry, res2: torch.Tensor, max_bound2: torch.Tensor,
-           tol2: torch.Tensor, allmax=_identity, alland=_identity) -> Carry:
+           tol2: torch.Tensor) -> Carry:
     """What the probe decides (tfqmrgpu_core.hxx:276-304; JAX's
     ``do_probe``, core.py:195-211): isDone, the status of converged
     columns, the next target bound and the counters.  The plain version of
     ``graphloop.LoopControl.settle``."""
     # isDone is evaluated with the status BEFORE the res2 <= 0 update, as
     # in the reference's loop (tfqmrgpu_core.hxx:276-286)
-    is_done = alland(((res2 <= tol2) | (c.status != 0)).all())
+    is_done = ((res2 <= tol2) | (c.status != 0)).all()
     status = torch.where(res2 <= 0, torch.ones_like(c.status), c.status)
     # underflow guard (1.4e-76 in the reference); clamp keeps a NaN
-    residual2 = allmax(res2.max()).clamp_min(decisions.EPSILON)
+    residual2 = res2.max().clamp_min(decisions.EPSILON)
     return dataclasses.replace(
         c, status=status, residual2=residual2,
         target_bound2=(max_bound2 / residual2) * tol2,
@@ -271,26 +328,35 @@ def plain_loop(prim: TfqmrPrimitives, v2: Pair, v3: Pair, v5_init: Pair,
                maxit: int, dt) -> SolveResult:
     """The plain driver: a Python loop over ``step``, ``decide`` and, where
     it says so, ``probe_residual`` and ``settle``, reading the predicates
-    on the host, one read an iteration and one a probe.  The CPU runs it,
-    the sharded solvers run it (their ``allmax`` / ``alland`` are
-    collectives), and ``chip_smoke.py`` holds the graph driver against it
-    on the card."""
+    on the host, one read an iteration and one a probe.  The CPU runs it
+    (a sharded solve's decisions in their two stages around the mesh's
+    ``reduce_max``, as the graph holds them), and ``chip_smoke.py`` holds
+    the graph driver against it on the card."""
     dev = tau0.device
     tol2_t = torch.full((), tol2, dtype=torch.float64, device=dev)
     maxit_t = torch.full((), maxit, dtype=torch.int32, device=dev)
+    mesh = prim.mesh
     c = init_carry(v5_init, tau0, tol2_t, maxit_t, dt)
     it, stop = 0, 0
     while it < maxit and stop == 0:
         c = step(prim, c, v3, dt)
         it += 1
-        stop_code, max_bound2, probe = decide(c, inv_bn2, maxit_t,
-                                              prim.allmax, prim.alland)
+        if mesh is None:
+            stop_code, max_bound2, probe = decide(c, inv_bn2, maxit_t)
+        else:
+            part = mesh.reduce_max(decide_local(c, inv_bn2, mesh.ranks == 1))
+            stop_code, max_bound2, probe = decide_finish(c, part, maxit_t)
         c.stop_code = stop_code
         go_probe, stop = torch.stack([probe.to(torch.int32),
                                       stop_code]).tolist()
         if go_probe:
             res2 = probe_residual(prim, c, v2, inv_bn2)
-            c = settle(c, res2, max_bound2, tol2_t, prim.allmax, prim.alland)
+            if mesh is None:
+                c = settle(c, res2, max_bound2, tol2_t)
+            else:
+                status, part = settle_local(c, res2, tol2_t, mesh.ranks == 1)
+                c = settle_finish(c, status, mesh.reduce_max(part),
+                                  max_bound2, tol2_t)
             stop = int(c.stop_code.item())
     iters_needed, n_probes, residual2 = torch.stack([
         c.iters_needed.to(torch.float64), c.n_probes.to(torch.float64),
@@ -306,12 +372,11 @@ def tfqmr_loop(prim: TfqmrPrimitives, v2: Pair, v3: Pair, v5_init: Pair,
     loop, the decisions to probe and to stop included, is one launch of a
     CUDA graph (``graphloop``): ``graphs`` (a ``graphloop.LoopGraphs``)
     keeps it under ``key`` for the next solve, and without it the graph is
-    made for this solve alone.  On the CPU, and where ``prim.host_loop``
-    says so (the sharded solvers), the plain driver runs the same
+    made for this solve alone.  On the CPU the plain driver runs the same
     functions (``plain_loop``)."""
     tol2 = float(tolerance) ** 2
     maxit = int(max_iterations)
-    if prim.host_loop or tau0.device.type == "cpu":
+    if tau0.device.type == "cpu":
         return plain_loop(prim, v2, v3, v5_init, tau0, inv_bn2, tol2, maxit,
                           dt)
     from .graphloop import run_graph

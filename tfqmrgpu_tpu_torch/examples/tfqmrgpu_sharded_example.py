@@ -109,4 +109,4 @@ if info_p["engine"] != "pairs" or not rel_p < 1e-4:
 if rank0:
     print(f"tfqmrgpu_sharded_example: OK (dense residual {rel:.2e}, packed "
           f"pairs {rel_p:.2e})")
-dist.destroy_process_group()
+multihost.shutdown()

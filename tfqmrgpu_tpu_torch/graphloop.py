@@ -34,6 +34,18 @@ and tau out of the pool (the next launch overwrites them) and reads the
 state in one device-to-host copy.  ``LoopGraphs`` keeps a Solver's graphs;
 a new A that the captured multiply takes in place (``refill``) keeps them.
 
+A sharded solve (``parallel/``) is one such graph on every rank: its
+halo exchanges and column sums are NCCL collectives captured in the WHILE
+body, and ``decide`` and ``settle`` each become a local stage, one
+captured ``all_reduce`` of the rank's partials over the mesh and a finish
+stage that sets the node, so every rank takes each decision from the
+same reduced scalars.  The ranks tell each other, through the process
+group's store, whether their capture succeeded before any launches, so
+that a failed capture raises on every rank rather than leaving the others
+in a collective.  Such a graph holds NCCL's captured work until it is
+closed: ``multihost.shutdown`` closes them all before it destroys the
+process group (``close_sharded``).
+
 A replay launches the kernels without their Python wrappers; the kernels
 count their own launches on the card (``launch_counts``), so the counters
 (``PairPlanMultiply.launches`` and the others) move with every replay.  The
@@ -50,6 +62,7 @@ import functools
 import gc
 import time
 import types
+import weakref
 
 import numpy as np
 import torch
@@ -87,13 +100,20 @@ class LoopControl(metaclass=launch_counts.CountedLaunches):
     card.  Each acts in place on the carry's scalars and, inside a graph,
     sets a conditional node's ``handle``; it launches its kernel or raises.
     Their plain versions are ``core.decide``, ``core.settle`` and
-    ``running``.  ``launches`` reads the three kernels' launch counters on
-    the card (``launch_counts``), ``decides``, ``settles`` and
-    ``continues`` each one's."""
+    ``running``, and for a sharded solve's two stages ``core.decide_local``
+    / ``decide_finish`` and ``core.settle_local`` / ``settle_finish``.
+    ``launches`` reads every control kernel's launch counter on the card
+    (``launch_counts``), the other attributes each one's."""
 
-    _counters = {"launches": ("loop_decide", "loop_settle", "loop_continue"),
+    _counters = {"launches": ("loop_decide", "loop_settle", "loop_continue",
+                              "loop_decide_local", "loop_decide_finish",
+                              "loop_settle_local", "loop_settle_finish"),
                  "decides": "loop_decide", "settles": "loop_settle",
-                 "continues": "loop_continue"}
+                 "continues": "loop_continue",
+                 "decide_locals": "loop_decide_local",
+                 "decide_finishes": "loop_decide_finish",
+                 "settle_locals": "loop_settle_local",
+                 "settle_finishes": "loop_settle_finish"}
 
     @staticmethod
     def _lib():
@@ -117,6 +137,15 @@ class LoopControl(metaclass=launch_counts.CountedLaunches):
                                 f"no loop control kernel for {c.tau.device}")
 
     @staticmethod
+    def _run(entry: str, slot: str, dev: torch.device, *args):
+        """Launch ``entry`` on the current stream with ``slot``'s counter."""
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            rc = getattr(LoopControl._lib(), entry)(
+                *args, stream, launch_counts.pointer(dev, slot))
+        _check(rc, f"the loop's {slot} kernel")
+
+    @staticmethod
     def decide(c: core.Carry, inv_bn2: torch.Tensor, maxit: torch.Tensor,
                max_bound2: torch.Tensor, probe: torch.Tensor,
                handle: int = None):
@@ -126,17 +155,13 @@ class LoopControl(metaclass=launch_counts.CountedLaunches):
         _scalar(maxit, torch.int32, "maxit")
         _scalar(max_bound2, torch.float64, "max_bound2")
         _scalar(probe, torch.int32, "probe")
-        dev = c.tau.device
-        with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream(dev).cuda_stream
-            rc = LoopControl._lib().tfq_loop_decide(
-                c.tau.data_ptr(), inv_bn2.data_ptr(), c.status.data_ptr(),
-                c.tau.numel(), c.it.data_ptr(), maxit.data_ptr(),
-                c.target_bound2.data_ptr(), c.stop_code.data_ptr(),
-                max_bound2.data_ptr(), probe.data_ptr(), handle or 0,
-                int(handle is not None), stream,
-                launch_counts.pointer(dev, "loop_decide"))
-        _check(rc, "the loop's decide kernel")
+        LoopControl._run(
+            "tfq_loop_decide", "loop_decide", c.tau.device,
+            c.tau.data_ptr(), inv_bn2.data_ptr(), c.status.data_ptr(),
+            c.tau.numel(), c.it.data_ptr(), maxit.data_ptr(),
+            c.target_bound2.data_ptr(), c.stop_code.data_ptr(),
+            max_bound2.data_ptr(), probe.data_ptr(), handle or 0,
+            int(handle is not None))
 
     @staticmethod
     def settle(c: core.Carry, res2: torch.Tensor, max_bound2: torch.Tensor,
@@ -146,17 +171,73 @@ class LoopControl(metaclass=launch_counts.CountedLaunches):
         _field(res2, torch.float64, tuple(c.tau.shape), "res2")
         _scalar(max_bound2, torch.float64, "max_bound2")
         _scalar(tol2, torch.float64, "tol2")
-        dev = c.tau.device
-        with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream(dev).cuda_stream
-            rc = LoopControl._lib().tfq_loop_settle(
-                res2.data_ptr(), c.status.data_ptr(), c.tau.numel(),
-                tol2.data_ptr(), max_bound2.data_ptr(), c.it.data_ptr(),
-                c.residual2.data_ptr(), c.target_bound2.data_ptr(),
-                c.stop_code.data_ptr(), c.iters_needed.data_ptr(),
-                c.n_probes.data_ptr(), stream,
-                launch_counts.pointer(dev, "loop_settle"))
-        _check(rc, "the loop's settle kernel")
+        LoopControl._run(
+            "tfq_loop_settle", "loop_settle", c.tau.device,
+            res2.data_ptr(), c.status.data_ptr(), c.tau.numel(),
+            tol2.data_ptr(), max_bound2.data_ptr(), c.it.data_ptr(),
+            c.residual2.data_ptr(), c.target_bound2.data_ptr(),
+            c.stop_code.data_ptr(), c.iters_needed.data_ptr(),
+            c.n_probes.data_ptr())
+
+    @staticmethod
+    def decide_local(c: core.Carry, inv_bn2: torch.Tensor,
+                     part: torch.Tensor, keep_nan: bool):
+        """``core.decide_local`` into ``part`` (float64[2])."""
+        LoopControl._checks(c, inv_bn2)
+        _field(part, torch.float64, (2,), "part")
+        LoopControl._run(
+            "tfq_loop_decide_local", "loop_decide_local", c.tau.device,
+            c.tau.data_ptr(), inv_bn2.data_ptr(), c.status.data_ptr(),
+            c.tau.numel(), int(keep_nan), part.data_ptr())
+
+    @staticmethod
+    def decide_finish(c: core.Carry, part: torch.Tensor, maxit: torch.Tensor,
+                      max_bound2: torch.Tensor, probe: torch.Tensor,
+                      handle: int = None):
+        """``core.decide_finish`` from the reduced ``part``, into
+        c.stop_code, ``max_bound2`` and ``probe``; ``handle`` gets the probe
+        predicate."""
+        LoopControl._checks(c)
+        _field(part, torch.float64, (2,), "part")
+        _scalar(maxit, torch.int32, "maxit")
+        _scalar(max_bound2, torch.float64, "max_bound2")
+        _scalar(probe, torch.int32, "probe")
+        LoopControl._run(
+            "tfq_loop_decide_finish", "loop_decide_finish", c.tau.device,
+            part.data_ptr(), c.it.data_ptr(), maxit.data_ptr(),
+            c.target_bound2.data_ptr(), c.stop_code.data_ptr(),
+            max_bound2.data_ptr(), probe.data_ptr(), handle or 0,
+            int(handle is not None))
+
+    @staticmethod
+    def settle_local(c: core.Carry, res2: torch.Tensor, tol2: torch.Tensor,
+                     part: torch.Tensor, keep_nan: bool):
+        """``core.settle_local``: the status update in place, the partials
+        into ``part`` (float64[2])."""
+        LoopControl._checks(c)
+        _field(res2, torch.float64, tuple(c.tau.shape), "res2")
+        _scalar(tol2, torch.float64, "tol2")
+        _field(part, torch.float64, (2,), "part")
+        LoopControl._run(
+            "tfq_loop_settle_local", "loop_settle_local", c.tau.device,
+            res2.data_ptr(), c.status.data_ptr(), c.tau.numel(),
+            tol2.data_ptr(), int(keep_nan), part.data_ptr())
+
+    @staticmethod
+    def settle_finish(c: core.Carry, part: torch.Tensor,
+                      max_bound2: torch.Tensor, tol2: torch.Tensor):
+        """``core.settle_finish`` from the reduced ``part`` into the
+        carry's scalars."""
+        LoopControl._checks(c)
+        _field(part, torch.float64, (2,), "part")
+        _scalar(max_bound2, torch.float64, "max_bound2")
+        _scalar(tol2, torch.float64, "tol2")
+        LoopControl._run(
+            "tfq_loop_settle_finish", "loop_settle_finish", c.tau.device,
+            part.data_ptr(), tol2.data_ptr(), max_bound2.data_ptr(),
+            c.it.data_ptr(), c.residual2.data_ptr(),
+            c.target_bound2.data_ptr(), c.stop_code.data_ptr(),
+            c.iters_needed.data_ptr(), c.n_probes.data_ptr())
 
     @staticmethod
     def running(c: core.Carry, maxit: torch.Tensor) -> torch.Tensor:
@@ -172,15 +253,11 @@ class LoopControl(metaclass=launch_counts.CountedLaunches):
         _scalar(maxit, torch.int32, "maxit")
         if go is not None:
             _scalar(go, torch.int32, "go")
-        dev = c.tau.device
-        with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream(dev).cuda_stream
-            rc = LoopControl._lib().tfq_loop_continue(
-                c.it.data_ptr(), maxit.data_ptr(), c.stop_code.data_ptr(),
-                None if go is None else go.data_ptr(), handle or 0,
-                int(handle is not None), stream,
-                launch_counts.pointer(dev, "loop_continue"))
-        _check(rc, "the loop's continue kernel")
+        LoopControl._run(
+            "tfq_loop_continue", "loop_continue", c.tau.device,
+            c.it.data_ptr(), maxit.data_ptr(), c.stop_code.data_ptr(),
+            None if go is None else go.data_ptr(), handle or 0,
+            int(handle is not None))
 
 
 @dataclasses.dataclass
@@ -223,6 +300,7 @@ class GraphCapture:
                "the graph's capture")
         self.graph = g.value
         self.graphs = [g.value]          # the graph being captured, innermost
+        self.bodies = []                 # every conditional node's body
 
     def handle(self) -> int:
         h = _U()
@@ -238,6 +316,7 @@ class GraphCapture:
                                             ctypes.byref(body)),
                "a conditional node")
         self.graphs.append(body.value)
+        self.bodies.append(body.value)
         yield
         self.graphs.pop()
         _check(self.lib.tfq_loop_graph_close(self.stream, self.graphs[-1],
@@ -246,9 +325,15 @@ class GraphCapture:
 
     def end(self) -> int:
         ex = _P()
-        _check(self.lib.tfq_loop_graph_end(self.stream, self.graph,
-                                           ctypes.byref(ex)),
-               "the graph's instantiation")
+        why = (ctypes.c_int * 2)()
+        rc = self.lib.tfq_loop_graph_end(self.stream, self.graph,
+                                         ctypes.byref(ex), why)
+        # an event wait or record node in a body: NCCL's, under graph mixing
+        hint = ("; a conditional body holds no event node: NCCL adds them "
+                "unless NCCL_GRAPH_MIXING_SUPPORT=0 was set before its first "
+                "communicator" if why[1] in (6, 7) else "")
+        _check(rc, f"the graph's instantiation (cudaGraphInstantiateResult "
+                   f"{why[0]}, node type {why[1]} at fault{hint})")
         return ex.value
 
     def abort(self):
@@ -279,17 +364,47 @@ def record(prim: core.TfqmrPrimitives, ins: LoopInputs, dt,
             for mine, new in zip(*(_leaves(getattr(x, f)) for x in (c, n))):
                 mine.copy_(new)
         i = capture.handle()
-        LoopControl.decide(c, ins.inv_bn2, ins.maxit, max_bound2, probe,
-                           handle=i)
+        decide(prim, c, ins, max_bound2, probe, handle=i)
         with capture.node(i, IF):
             res2 = core.probe_residual(prim, c, ins.v2, ins.inv_bn2)
-            LoopControl.settle(c, res2, max_bound2, ins.tol2)
+            settle(prim, c, res2, max_bound2, ins.tol2)
         LoopControl.cont(c, ins.maxit, handle=w)
     state = torch.stack([c.stop_code.to(torch.float64),
                          c.iters_needed.to(torch.float64),
                          c.it.to(torch.float64),
                          c.n_probes.to(torch.float64), c.residual2])
     return c, state
+
+
+def decide(prim: core.TfqmrPrimitives, c: core.Carry, ins: LoopInputs,
+           max_bound2: torch.Tensor, probe: torch.Tensor, handle=None):
+    """The graph's decision after an iteration: ``LoopControl.decide``, or
+    on a mesh (``prim.mesh``) its local stage, the all_reduce of the
+    partials over every rank and its finish stage."""
+    mesh = prim.mesh
+    if mesh is None:
+        LoopControl.decide(c, ins.inv_bn2, ins.maxit, max_bound2, probe,
+                           handle=handle)
+        return
+    part = torch.empty(2, dtype=torch.float64, device=c.tau.device)
+    LoopControl.decide_local(c, ins.inv_bn2, part, mesh.ranks == 1)
+    mesh.reduce_max(part)
+    LoopControl.decide_finish(c, part, ins.maxit, max_bound2, probe,
+                              handle=handle)
+
+
+def settle(prim: core.TfqmrPrimitives, c: core.Carry, res2: torch.Tensor,
+           max_bound2: torch.Tensor, tol2: torch.Tensor):
+    """The graph's decision after a probe: ``LoopControl.settle``, or on a
+    mesh its two stages around the all_reduce of the partials."""
+    mesh = prim.mesh
+    if mesh is None:
+        LoopControl.settle(c, res2, max_bound2, tol2)
+        return
+    part = torch.empty(2, dtype=torch.float64, device=c.tau.device)
+    LoopControl.settle_local(c, res2, tol2, part, mesh.ranks == 1)
+    mesh.reduce_max(part)
+    LoopControl.settle_finish(c, part, max_bound2, tol2)
 
 
 def _leaves(v) -> tuple:
@@ -343,6 +458,8 @@ class LoopGraph:
         if self.device.index is None:
             self.device = torch.device("cuda", torch.cuda.current_device())
         self.prim, self.dt = prim, dt
+        if prim.mesh is not None:
+            _sharded.add(self)
         self.lib = load_kernels()
         self.inputs = ins.buffers()
         self.inputs.fill(ins)
@@ -379,9 +496,9 @@ class LoopGraph:
                 c = core.step(self.prim, c, ins.v3, self.dt)
                 scratch = (torch.zeros((), dtype=torch.float64, device=dev),
                            torch.zeros((), dtype=torch.int32, device=dev))
-                LoopControl.decide(c, ins.inv_bn2, ins.maxit, *scratch)
+                decide(self.prim, c, ins, *scratch)
                 res2 = core.probe_residual(self.prim, c, ins.v2, ins.inv_bn2)
-                LoopControl.settle(c, res2, scratch[0], ins.tol2)
+                settle(self.prim, c, res2, scratch[0], ins.tol2)
                 LoopControl.cont(c, ins.maxit, scratch[1])
                 del c, res2, scratch
             stream.synchronize()
@@ -402,7 +519,15 @@ class LoopGraph:
             if capture is not None and self.exec is None:
                 capture.abort()
             self.close()
+            if self.prim.mesh is not None:
+                self.prim.mesh.agree(False)
             raise
+        if self.prim.mesh is not None and not self.prim.mesh.agree(True):
+            # no rank launches a graph whose collectives another rank lacks
+            self.close()
+            raise TfqmrgpuError(encode_status(Status.LAUNCH_FAILED),
+                                "the loop graph's capture failed on another "
+                                "rank of the mesh")
         torch.cuda.current_stream(dev).wait_stream(stream)
         torch.cuda.synchronize(dev)
         t3 = time.perf_counter()
@@ -448,6 +573,19 @@ class LoopGraph:
             self.close()
         except Exception:       # interpreter shutdown: nothing to give back
             pass
+
+
+_sharded = weakref.WeakSet()        # the live loop graphs of sharded solves
+
+
+def close_sharded():
+    """Close every live loop graph of a sharded solve in this process
+    (``multihost.shutdown``: NCCL destroys no communicator whose captured
+    work a graph still holds; a graph still running is freed when it
+    ends).  Their solvers keep them closed: a later solve raises."""
+    for g in list(_sharded):
+        g.close()
+    _sharded.clear()
 
 
 class LoopGraphs:

@@ -7,7 +7,8 @@ also where no wrapper saw the launch: a replay of the loop's CUDA graph
 (``graphloop.py``) runs the captured kernels and their counters move with
 them.  The counters of a device are one int64 tensor there, made on the
 first launch and kept for the life of the process; a read synchronizes
-the device and copies it once.
+the device and copies it once.  The sharded layer's collectives have
+counters of their own in the same tensor, moved by ``tick``.
 
 A wrapper class names its counters in ``_counters`` (attribute -> slot, or
 a tuple of slots that the attribute sums) and takes ``CountedLaunches`` as
@@ -25,7 +26,10 @@ import contextlib
 import torch
 
 SLOTS = ("k1", "k2", "k2_split", "k3", "k3_split", "oz", "x_split",
-         "loop_decide", "loop_settle", "loop_continue")
+         "loop_decide", "loop_settle", "loop_continue", "loop_decide_local",
+         "loop_decide_finish", "loop_settle_local", "loop_settle_finish",
+         # collectives of the sharded layer, counted by ``tick``
+         "all_gather", "all_reduce", "neighbour_exchange")
 
 _counts: dict = {}       # device index -> int64[len(SLOTS)] on that device
 _uncounted = 0
@@ -46,6 +50,22 @@ def pointer(device: torch.device, slot: str):
                                          device=torch.device("cuda", index))
         torch.cuda.synchronize(index)
     return t.data_ptr() + t.element_size() * SLOTS.index(slot)
+
+
+def tick(device: torch.device, slot: str):
+    """Count one event of ``slot`` on ``device`` where the current stream
+    is at (csrc/loop_control.cu's ``tfq_count``): the sharded layer ticks
+    after each collective, so that a graph's replay counts its collectives
+    as its kernels count themselves.  Nothing under ``uncounted()``."""
+    count = pointer(device, slot)
+    if count is None:
+        return
+    from ._build import load_kernels
+
+    stream = torch.cuda.current_stream(device).cuda_stream
+    rc = load_kernels().tfq_count(stream, count)
+    if rc != 0:
+        raise RuntimeError(f"the count kernel of {slot!r} returned {rc}")
 
 
 @contextlib.contextmanager

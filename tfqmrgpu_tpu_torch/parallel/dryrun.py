@@ -6,7 +6,11 @@ to convergence with the block-list (K1), panel, packed-pairs (K2, the
 halo-overlap split; and a wide band that forces the ``all_gather``) and
 row-tile (K3) engines, and holds each against the single-device 'xla'
 solve of the same problem with the JAX package's gates: X within 1e-3 of
-the largest entry, iterations within 2.
+the largest entry, iterations within 2.  On cards each engine solves
+twice, through its loop graph (one CUDA graph a rank, the collectives
+inside) and through the plain driver (``core.plain_loop``), and the two
+must give the same X to the bit and the same iterations, probes and
+collectives of each kind.
 
     torchrun --nproc_per_node=N -m tfqmrgpu_tpu_torch.parallel.dryrun
     python -m tfqmrgpu_tpu_torch.parallel.dryrun           (a world of one)
@@ -16,6 +20,8 @@ On the CPU give ``--device cpu`` (gloo); on cards every rank takes its own
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import numpy as np
 
@@ -74,6 +80,56 @@ def banded_problem(mb, ncols, lm, ln, halfband=1):
                     7 + halfband)
 
 
+@contextlib.contextmanager
+def plain_driver():
+    """Solves inside run the plain driver (``core.plain_loop``) on their
+    own primitives: on the card the loop graph's plain version."""
+    from .. import core
+
+    loop = core.tfqmr_loop
+
+    def plain(prim, v2, v3, v5_init, tau0, inv_bn2, tolerance,
+              max_iterations, dt, **_):
+        return core.plain_loop(prim, v2, v3, v5_init, tau0, inv_bn2,
+                               float(tolerance) ** 2, int(max_iterations), dt)
+
+    core.tfqmr_loop = plain
+    try:
+        yield
+    finally:
+        core.tfqmr_loop = loop
+
+
+def both_drivers(mesh, solve) -> tuple:
+    """``solve()`` (returning (X, info)) through the loop graph and, on the
+    card, again through the plain driver: (X, info, the collectives of
+    the graph's solve by kind, the largest deviation of the plain
+    driver's X from the graph's: 0).  Raises where the drivers' X differs
+    by a bit, or their iterations, probes or collectives differ."""
+    kinds = ("all_gather", "all_reduce", "neighbour_exchange")
+    runs = []
+    for plain in ((False, True) if mesh.device.type == "cuda"
+                  else (False,)):
+        mesh.calls.clear()
+        with (plain_driver() if plain else contextlib.nullcontext()):
+            x, info = solve()
+        runs.append((np.asarray(x), info,
+                     {k: int(mesh.calls[k]) for k in kinds}))
+    (x, info, calls), *rest = runs
+    dev = 0.0
+    for xp, ip, cp in rest:
+        same = ((int(info["iterations"]), int(info["n_probes"]), calls)
+                == (int(ip["iterations"]), int(ip["n_probes"]), cp))
+        dev = max(dev, float(np.max(np.abs(xp - x))))
+        if not (same and np.array_equal(xp, x)):
+            raise AssertionError(
+                f"graph: {info['iterations']} iterations, "
+                f"{info['n_probes']} probes, {calls}; plain driver: "
+                f"{ip['iterations']}, {ip['n_probes']}, {cp}, X off by "
+                f"{dev:.3e}")
+    return x, info, calls, dev
+
+
 def dryrun_multichip(n_devices: int = 0, device=None) -> dict:
     """Solve with every sharded engine on ``n_devices`` ranks (by default
     the whole world) and check each against the single-device solve.
@@ -117,19 +173,27 @@ def dryrun_multichip(n_devices: int = 0, device=None) -> dict:
     def planes(m):
         return m.data.real, m.data.imag
 
+    def run(tag, ref, mesh, solve, **extra):
+        got, info, calls, dx = both_drivers(mesh, solve)
+        check(tag, ref, got, info, plain_dx=dx, **calls, **extra)
+
     a, x, b = tiny_problem(max(2 * pr, 8), max(2 * pc, 4), lm, ln)
     plan = create_plan(a, x, b, device=dev)
     plan.lm, plan.ln = lm, ln
     ref = reference(a, x, b)
     mesh = make_mesh(pr, pc, device=dev)
-    xr, xi, info = sharded_solve(plan, partition_plan(plan, pr, pc), mesh,
-                                 *planes(a), *planes(b), tolerance=TOLERANCE,
-                                 max_iterations=MAX_ITERATIONS)
-    check("block-list", ref, xr + 1j * xi, info, grid=(pr, pc))
-    got, info = ShardedPanelSolver(plan, mesh, precision="c").solve(
+
+    def block_list():
+        xr, xi, info = sharded_solve(
+            plan, partition_plan(plan, pr, pc), mesh, *planes(a), *planes(b),
+            tolerance=TOLERANCE, max_iterations=MAX_ITERATIONS)
+        return xr + 1j * xi, info
+
+    run("block-list", ref, mesh, block_list, grid=(pr, pc))
+    panel = ShardedPanelSolver(plan, mesh, precision="c")
+    run("panel", ref, mesh, lambda: panel.solve(
         *planes(a), *planes(b), tolerance=TOLERANCE,
-        max_iterations=MAX_ITERATIONS)
-    check("panel", ref, got, info, grid=(pr, pc))
+        max_iterations=MAX_ITERATIONS), grid=(pr, pc))
 
     mesh1 = make_mesh(n, 1, device=dev)
     mb = max(12 * n, 48)
@@ -141,16 +205,16 @@ def dryrun_multichip(n_devices: int = 0, device=None) -> dict:
         lay = sp.layout
         if tag == "pairs all_gather" and n > 1 and lay.halo:
             raise AssertionError("the wide band must force the all_gather")
-        got, info = sp.solve(*planes(a), *planes(b), tolerance=TOLERANCE,
-                             max_iterations=MAX_ITERATIONS)
         ref = reference(a, x, b)
-        check(tag, ref, got, info, overlap=lay.overlap, n_loc=lay.n_loc,
-              halo=lay.halo, h_lo=lay.h_lo, h_hi=lay.h_hi)
+        run(tag, ref, mesh1, lambda: sp.solve(
+            *planes(a), *planes(b), tolerance=TOLERANCE,
+            max_iterations=MAX_ITERATIONS), overlap=lay.overlap,
+            n_loc=lay.n_loc, halo=lay.halo, h_lo=lay.h_lo, h_hi=lay.h_hi)
         if halfband == 1:
-            got, info = ShardedRowTileSolver(plan, mesh1, r_tile=2).solve(
+            rt = ShardedRowTileSolver(plan, mesh1, r_tile=2)
+            run("rowtile", ref, mesh1, lambda: rt.solve(
                 *planes(a), *planes(b), tolerance=TOLERANCE,
-                max_iterations=MAX_ITERATIONS)
-            check("rowtile", ref, got, info)
+                max_iterations=MAX_ITERATIONS))
     if dist.get_rank() == 0:
         for tag, r in out.items():
             print(f"dryrun_multichip({n}): {tag} ok, " + ", ".join(
@@ -162,7 +226,7 @@ def dryrun_multichip(n_devices: int = 0, device=None) -> dict:
 def main(argv=None) -> int:
     import argparse
 
-    import torch.distributed as dist
+    from .multihost import shutdown
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("n", nargs="?", type=int, default=0,
@@ -171,7 +235,7 @@ def main(argv=None) -> int:
                     help="where each rank runs (default: its card)")
     args = ap.parse_args(argv)
     dryrun_multichip(args.n, device=args.device)
-    dist.destroy_process_group()
+    shutdown()
     return 0
 
 

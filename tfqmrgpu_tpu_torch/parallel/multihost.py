@@ -14,6 +14,7 @@ between CPU processes.
     mesh = mh.global_mesh(pr=dist.get_world_size())
     # ... ShardedRowTileSolver(plan, mesh) places its operands with
     # put_global and returns its result through gather_global.
+    mh.shutdown()                          # the loop graphs, then the group
 
 Run on N cards of one machine with ``torchrun --nproc_per_node=N``; on the
 CPU pass ``device="cpu"`` and a ``store`` (or ``init_method``), world size
@@ -28,7 +29,10 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from ..errors import Status, TfqmrgpuError, encode_status
 from ..plan import resolve_device
+
+GRAPH_MIXING = "NCCL_GRAPH_MIXING_SUPPORT"
 
 
 def local_device(device=None) -> torch.device:
@@ -47,8 +51,13 @@ def initialize(init_method: str = None, *, store=None, world_size: int = None,
     the device.
 
     The backend follows the device: NCCL for a card (which becomes the
-    current device), gloo for the CPU.  The group comes from ``store`` (a
-    ``torch.distributed.Store``, with ``world_size`` and ``rank``), from
+    current device), gloo for the CPU.  Where it creates an NCCL group it
+    first sets ``NCCL_GRAPH_MIXING_SUPPORT=0`` unless the environment says
+    otherwise (``require_graph_mixing_off``).  End with ``shutdown``, not
+    ``destroy_process_group``.
+
+    The group comes from ``store`` (a ``torch.distributed.Store``, with
+    ``world_size`` and ``rank``), from
     ``init_method`` (for example ``tcp://host:port`` or ``file://...``),
     under ``torchrun`` from its environment (``env://``), and otherwise it
     is a world of one."""
@@ -57,6 +66,8 @@ def initialize(init_method: str = None, *, store=None, world_size: int = None,
         torch.cuda.set_device(dev)
     if dist.is_initialized():
         return dev
+    if dev.type == "cuda":
+        os.environ.setdefault(GRAPH_MIXING, "0")
     kw = dict(backend="nccl" if dev.type == "cuda" else "gloo")
     if store is None and init_method is None:
         if "MASTER_ADDR" in os.environ and "WORLD_SIZE" in os.environ:
@@ -74,6 +85,41 @@ def initialize(init_method: str = None, *, store=None, world_size: int = None,
             kw.update(world_size=world_size, rank=rank)
     dist.init_process_group(**kw)
     return dev
+
+
+def require_graph_mixing_off():
+    """Raise unless ``NCCL_GRAPH_MIXING_SUPPORT=0``, which the sharded loop
+    graph needs on the card.  With graph mixing NCCL adds an event record
+    and an event wait node to every captured collective, and the WHILE
+    body of a loop graph refuses them: its instantiation fails
+    (``cudaGraphInstantiateResult`` 3 at a node of type 6;
+    ``tools/nccl_body_probe.py``).  NCCL reads the variable when it makes
+    its first communicator, so it must be set before the process group's
+    first collective: ``initialize`` sets it where it creates the group.
+    What the setting gives up, graph launches and uncaptured NCCL calls
+    outstanding together on one communicator, the port never does: a loop
+    graph's solve ends in a read of its state."""
+    if os.environ.get(GRAPH_MIXING) != "0":
+        raise TfqmrgpuError(
+            encode_status(Status.NO_IMPLEMENTATION),
+            f"the sharded loop graph needs {GRAPH_MIXING}=0 (it is "
+            f"{os.environ.get(GRAPH_MIXING)!r}): set it before the process "
+            "group's first collective, or let multihost.initialize create "
+            "the group")
+
+
+def shutdown():
+    """Close every sharded loop graph of this process and destroy the
+    process group.  A loop graph holds NCCL's captured work, and NCCL does
+    not destroy a communicator while a graph holds its work: whatever
+    solver still holds a graph, ``destroy_process_group`` alone would wait
+    on it.  The solvers' graphs are closed here, so no sharded solve runs
+    after it."""
+    from ..graphloop import close_sharded
+
+    close_sharded()
+    if dist.is_initialized():
+        dist.destroy_process_group()
 
 
 def is_multiprocess() -> bool:

@@ -213,7 +213,7 @@ def main(argv=None):
     import json
     import sys
 
-    from .multihost import initialize
+    from .multihost import initialize, shutdown
 
     argv = list(sys.argv[1:] if argv is None else argv)
     device = initialize(device=os.environ.get("TFQ_DEVICE") or None)
@@ -226,7 +226,7 @@ def main(argv=None):
     if dist.get_rank() == 0:
         for row in rep:
             print(json.dumps(row))
-    dist.destroy_process_group()
+    shutdown()
     return 0
 
 

@@ -17,15 +17,18 @@ returns the full result.  The loop body is the single-device one
   "rows" per call, on the float64 [ncmax, LN] partials (re and im of a
   dotp in one tensor).
 * **scalar recurrences**: replicated per column shard ([ncmax, LN] each).
-* **convergence control**: the decision scalars take ``all_reduce`` MAX
-  (and MIN for "all") over every rank of the mesh before the host reads
-  them (``TfqmrPrimitives.allmax`` / ``alland``), so probe timing and
-  stopping agree on every rank and with one device.  The loop runs on the
-  plain driver (``core.plain_loop``, ``TfqmrPrimitives.host_loop``), not
-  as a CUDA graph.
+* **convergence control**: each decision takes its scalars over every
+  rank of the mesh, in two stages around one ``all_reduce`` MAX of the
+  rank's partials (``Mesh.reduce_max``, ``core.decide_local`` /
+  ``decide_finish``, ``settle_local`` / ``settle_finish``), so probe
+  timing and stopping agree on every rank and with one device.
 
 The collectives follow the tensors' device: NCCL on the card, gloo on the
-CPU.  ``Mesh.calls`` counts them by kind.
+CPU.  On the card the loop is one CUDA graph on each rank
+(``graphloop.py``), its collectives captured in the WHILE body; on the CPU
+the plain driver runs it.  ``Mesh.calls`` counts the collectives by kind:
+on the card each is counted by a one-thread kernel after it
+(``launch_counts.tick``), so a graph's replay counts what it ran.
 """
 
 from __future__ import annotations
@@ -38,7 +41,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from .. import core
+from .. import core, launch_counts
 from ..core import TfqmrPrimitives
 from ..errors import Status, TfqmrgpuError, encode_status
 from ..ops import linalg
@@ -68,14 +71,28 @@ class Mesh:
     "cols" axis (this rank's row), and ``group``, every rank of the mesh
     (the convergence maxima and the gathers of the result).  A rank beyond
     pr*pc holds no shard: its ``row`` is None.  ``calls`` counts the
-    collectives this rank issued, by kind.
+    collectives this rank ran, by kind ('all_gather', 'all_reduce',
+    'neighbour_exchange'), and ``calls.clear()`` resets them: on the CPU in
+    Python, on the card from counters there that every mesh of the
+    process shares (``launch_counts``), graph replays included.  ``key``
+    tells this mesh from the others of the process (``make_mesh`` numbers
+    them alike on every rank); ``agree`` keys the store with it.
+
+    Every collective is issued on the current stream, so that the loop
+    graph's capture takes it into the WHILE body (NCCL under
+    ``NCCL_GRAPH_MIXING_SUPPORT=0``, which ``multihost.initialize`` sets
+    and ``make_mesh`` requires: NCCL otherwise adds an event record and an
+    event wait node to the captured graph, which a conditional node's body
+    refuses).
     """
 
     def __init__(self, pr: int, pc: int, row: Optional[int],
                  col: Optional[int], rows, cols, group,
-                 device: torch.device):
+                 device: torch.device, key: int = 0):
         self.pr, self.pc = int(pr), int(pc)
         self.row, self.col = row, col
+        self.key = int(key)
+        self._agreements = 0
         self.device = torch.device(device)
         self._groups = {("rows",): rows, ("cols",): cols, AXES: group}
         if self.member:
@@ -87,7 +104,18 @@ class Mesh:
                         f"a {backend} process group cannot run the "
                         f"collectives of {self.device} tensors: NCCL on "
                         "the card, gloo on the CPU")
-        self.calls = collections.Counter()
+        self.calls = (_CardCalls() if self.device.type == "cuda"
+                      else collections.Counter())
+
+    def _count(self, kind: str):
+        if self.device.type == "cuda":
+            launch_counts.tick(self.device, kind)
+        else:
+            self.calls[kind] += 1
+
+    @property
+    def ranks(self) -> int:
+        return self.pr * self.pc
 
     @property
     def member(self) -> bool:
@@ -114,7 +142,7 @@ class Mesh:
         # the concatenated form [n*inp.shape[0], ...], which gloo requires
         _all_gather(out.view((-1,) + tuple(inp.shape[1:])), inp,
                     group=self._groups[tuple(axes)])
-        self.calls["all_gather"] += 1
+        self._count("all_gather")
         return out
 
     def all_gather_async(self, out: torch.Tensor, inp: torch.Tensor,
@@ -126,7 +154,7 @@ class Mesh:
         collective).  ``inp`` must not change before then."""
         work = _all_gather(out, inp, group=self._groups[tuple(axes)],
                            async_op=True)
-        self.calls["all_gather"] += 1
+        self._count("all_gather")
         return work
 
     def neighbour_exchange(self, send_up: torch.Tensor,
@@ -153,8 +181,9 @@ class Mesh:
             if 0 <= r - to < pr:
                 ops.append(dist.P2POp(dist.irecv, recv, (r - to) * pc + col,
                                       group))
-        self.calls["neighbour_exchange"] += 1
-        return dist.batch_isend_irecv(ops) if ops else []
+        works = dist.batch_isend_irecv(ops) if ops else []
+        self._count("neighbour_exchange")
+        return works
 
     def gather(self, t: torch.Tensor, axes: tuple = AXES) -> torch.Tensor:
         """``t`` of every rank along ``axes``, stacked on new leading axes
@@ -168,22 +197,44 @@ class Mesh:
     def psum(self, t: torch.Tensor) -> torch.Tensor:
         """Sum ``t`` over the "rows" axis, in place."""
         dist.all_reduce(t, op=dist.ReduceOp.SUM, group=self._groups[("rows",)])
-        self.calls["all_reduce"] += 1
+        self._count("all_reduce")
         return t
 
-    def allmax(self, s: torch.Tensor) -> torch.Tensor:
-        """The max of a scalar over every rank of the mesh."""
-        t = s.reshape(1).clone()
+    def reduce_max(self, t: torch.Tensor) -> torch.Tensor:
+        """The elementwise max of ``t`` over every rank of the mesh, in
+        place: the decisions' partials (``core.decision_partials``), which
+        hold no NaN on a mesh of more than one rank."""
         dist.all_reduce(t, op=dist.ReduceOp.MAX, group=self._groups[AXES])
-        self.calls["all_reduce"] += 1
-        return t[0]
+        self._count("all_reduce")
+        return t
 
-    def alland(self, b: torch.Tensor) -> torch.Tensor:
-        """The "all" of a bool scalar over every rank of the mesh."""
-        t = b.reshape(1).to(torch.int32)
-        dist.all_reduce(t, op=dist.ReduceOp.MIN, group=self._groups[AXES])
-        self.calls["all_reduce"] += 1
-        return t[0].bool()
+    def agree(self, ok: bool) -> bool:
+        """Whether ``ok`` holds on every rank of the mesh, through the
+        process group's store (no collective: the loop graph asks it after
+        a capture, which may have left NCCL's state behind).  Every rank of
+        the mesh must call it as often as the others; the keys carry the
+        mesh's ``key`` and this mesh's count of agreements, so that meshes
+        of other ranks in between do not shift them."""
+        self._agreements += 1
+        store = dist.distributed_c10d._get_default_store()
+        key = f"tfqmrgpu/agree/{self.key}/{self._agreements}"
+        store.set(f"{key}/{dist.get_rank()}", "1" if ok else "0")
+        return all(store.get(f"{key}/{r}") == b"1"
+                   for r in range(self.ranks))
+
+
+class _CardCalls:
+    """``Mesh.calls`` on the card: the collectives counted there
+    (``launch_counts``)."""
+
+    KINDS = ("all_gather", "all_reduce", "neighbour_exchange")
+
+    def __getitem__(self, kind: str) -> int:
+        return launch_counts.read()[kind] if kind in self.KINDS else 0
+
+    def clear(self):
+        for kind in self.KINDS:
+            launch_counts.reset(kind)
 
 
 def make_mesh(pr: int, pc: int = 1, device=None) -> Mesh:
@@ -191,16 +242,22 @@ def make_mesh(pr: int, pc: int = 1, device=None) -> Mesh:
     this rank's device (``multihost.local_device``: the card
     cuda:LOCAL_RANK unless ``device`` is given).  Collective over every
     rank of the world, which must all call it with the same arguments (it
-    creates the groups with ``dist.new_group``, in one order).  Without an
+    creates the groups with ``dist.new_group``, in one order), so that it
+    numbers the meshes alike on every rank (``Mesh.key``).  On the card it
+    raises unless ``NCCL_GRAPH_MIXING_SUPPORT=0`` (``multihost``).  Without an
     initialized process group it initializes one (``multihost.initialize``:
     under ``torchrun`` from its environment, else a world of one)."""
-    from .multihost import initialize
+    from .multihost import initialize, require_graph_mixing_off
 
+    global _meshes
     dev = initialize(device=device)
+    if dev.type == "cuda":
+        require_graph_mixing_off()
     world, rank = dist.get_world_size(), dist.get_rank()
     n = int(pr) * int(pc)
     if n < 1 or world < n:
         raise ValueError(f"need {n} ranks, have {world}")
+    _meshes += 1
 
     def group(ranks):
         return (dist.group.WORLD if len(ranks) == world
@@ -210,9 +267,12 @@ def make_mesh(pr: int, pc: int = 1, device=None) -> Mesh:
     rows = [group([r * pc + c for r in range(pr)]) for c in range(pc)]
     cols = [group([r * pc + c for c in range(pc)]) for r in range(pr)]
     if rank >= n:
-        return Mesh(pr, pc, None, None, None, None, None, dev)
+        return Mesh(pr, pc, None, None, None, None, None, dev, _meshes)
     r, c = divmod(rank, pc)
-    return Mesh(pr, pc, r, c, rows[c], cols[r], everyone, dev)
+    return Mesh(pr, pc, r, c, rows[c], cols[r], everyone, dev, _meshes)
+
+
+_meshes = 0     # the meshes made in this process, the same on every rank
 
 
 class Halo:
@@ -331,9 +391,8 @@ class ShardedAction:
 
 def sharded_primitives(mesh: Mesh, prim: TfqmrPrimitives) -> TfqmrPrimitives:
     """``prim`` with its per-column reductions summed over the "rows" axis
-    (one ``all_reduce`` a call; re and im of a dotp in one tensor) and the
-    mesh's ``allmax`` / ``alland``, on the plain driver (``host_loop``):
-    the collectives run outside a CUDA graph."""
+    (one ``all_reduce`` a call; re and im of a dotp in one tensor) and its
+    decisions taken over the mesh (``TfqmrPrimitives.mesh``)."""
     def dotp(x, y):
         z = torch.stack(prim.dotp(x, y))
         mesh.psum(z)
@@ -341,8 +400,7 @@ def sharded_primitives(mesh: Mesh, prim: TfqmrPrimitives) -> TfqmrPrimitives:
 
     return dataclasses.replace(prim, dotp=dotp,
                                nrm2=lambda x: mesh.psum(prim.nrm2(x)),
-                               allmax=mesh.allmax, alland=mesh.alland,
-                               host_loop=True)
+                               mesh=mesh)
 
 
 def sharded_solve_core(mesh: Mesh, act: ShardedAction, v2, v3, colindx,

@@ -38,12 +38,14 @@ limits.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from .. import core
+from ..graphloop import LoopGraphs, refill
 from ..ops import pairpanel as pp
 from .multihost import gather_global, put_global
 from .sharded import Mesh
@@ -230,6 +232,48 @@ class ShardedPairsLayout:
         return re, im
 
 
+def pairs_multiply(mesh: Mesh, lay: ShardedPairsLayout, k2: tuple,
+                   xr: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """A rank's rows of ``A @ x`` (unmasked) with its K2s ``k2`` (local run,
+    prefix, suffix; None where empty) and its remote panel ``xr``: the halo
+    collective first, K2 on the local tiles over the rank's own rows while
+    it is in flight, then K2 on the remote tiles over the gathered or
+    extended panel.
+
+    In the loop graph the collective is a branch of the WHILE body on
+    NCCL's stream, forked from the capture stream and joined back by
+    ``wait()``, beside the local K2 on the capture stream; the body's
+    blocks come from one private pool that serves allocations in capture
+    order.  That order is sound across the fork: NCCL's branch reads only
+    ``x`` and the slices of it that it sends, which the caller holds past
+    the join, and writes only ``xr``, which lies outside the pool; no block
+    is allocated on NCCL's stream, and the blocks the local branch frees
+    (its own temporaries) are ones NCCL's branch never touches.  After the
+    join the body is one chain again."""
+    loc, pre, suf = k2
+    m = lay.r_tile * lay.lm
+    y = torch.empty_like(x)
+    works = []
+    if xr is not None:
+        if lay.halo:
+            hl, rows = lay.h_lo * lay.lm, lay.vrows_local
+            works = mesh.neighbour_exchange(
+                x[rows - hl:], xr[:hl], x[:lay.h_hi * lay.lm],
+                xr[hl + rows:])
+            xr[hl:hl + rows].copy_(x)
+        else:
+            works = [mesh.all_gather_async(xr, x)]
+    if loc is not None:
+        loc(x, y, lay.p * m)
+    for w in works:
+        w.wait()
+    if pre is not None:
+        pre(xr, y, 0)
+    if suf is not None:
+        suf(xr, y, (lay.tiles_local - lay.q) * m)
+    return y
+
+
 class ShardedPairsSolver:
     """This rank's part of a sharded packed-pairs solve over a (pr, 1)
     ``mesh``: the layout (``ShardedPairsLayout``) and, once A is set, K2
@@ -256,6 +300,8 @@ class ShardedPairsSolver:
                              f"{lay.lm}")
         self.tiles = lay.shards[mesh.row]
         self._k2 = None
+        self._prim = None
+        self.loop_graphs = LoopGraphs()
         rows, c2 = lay.vrows_local, 2 * lay.ln
         self._remote_x = None      # the gathered or the extended X panel
         if lay.p + lay.q:
@@ -266,7 +312,9 @@ class ShardedPairsSolver:
 
     def set_matrix_a(self, a_re: np.ndarray, a_im: np.ndarray):
         """Build K2 for the shard's tiles from the host planes of every A
-        block (the same on every rank)."""
+        block (the same on every rank); where the loop graphs captured K2s
+        of the same tables, the new panels go into them and the graphs
+        stay."""
         lay, t, p0 = self.layout, self.tiles, self.layout.pp_plan
         a = [torch.from_numpy(np.ascontiguousarray(v, np.float32)).to(
             self.mesh.device) for v in (a_re, a_im)]
@@ -279,39 +327,18 @@ class ShardedPairsSolver:
                 tiles=tiles, src_base=base, span=span,
                 precision=self.precision)
 
-        self._k2 = (k2(t.local, t.local_base, lay.blocks_local),
-                    k2(t.prefix, t.remote_base, t.remote_span),
-                    k2(t.suffix, t.remote_base, t.remote_span))
+        new = (k2(t.local, t.local_base, lay.blocks_local),
+               k2(t.prefix, t.remote_base, t.remote_span),
+               k2(t.suffix, t.remote_base, t.remote_span))
+        if not (self.loop_graphs and refill(self._k2, new)):
+            self.loop_graphs.clear()
+            self._k2, self._prim = new, None
 
     def multiply(self, x: torch.Tensor) -> torch.Tensor:
-        """This rank's rows of ``A @ x`` (unmasked): the halo collective
-        first, K2 on the local tiles over the rank's own rows while it is
-        in flight, then K2 on the remote tiles over the gathered or
-        extended panel."""
-        lay = self.layout
-        loc, pre, suf = self._k2
-        m = lay.r_tile * lay.lm
-        y = torch.empty_like(x)
-        works = []
-        xr = self._remote_x
-        if xr is not None:
-            if lay.halo:
-                hl, rows = lay.h_lo * lay.lm, lay.vrows_local
-                works = self.mesh.neighbour_exchange(
-                    x[rows - hl:], xr[:hl], x[:lay.h_hi * lay.lm],
-                    xr[hl + rows:])
-                xr[hl:hl + rows].copy_(x)
-            else:
-                works = [self.mesh.all_gather_async(xr, x)]
-        if loc is not None:
-            loc(x, y, lay.p * m)
-        for w in works:
-            w.wait()
-        if pre is not None:
-            pre(xr, y, 0)
-        if suf is not None:
-            suf(xr, y, (lay.tiles_local - lay.q) * m)
-        return y
+        """This rank's rows of ``A @ x`` (unmasked): ``pairs_multiply``
+        with the shard's K2 and remote panel."""
+        return pairs_multiply(self.mesh, self.layout, self._k2,
+                              self._remote_x, x)
 
     def solve(self, a_re, a_im, b_re, b_im, tolerance: float = 1e-5,
               max_iterations: int = 300, rhs_xshaped: bool = False,
@@ -337,14 +364,22 @@ class ShardedPairsSolver:
         v3 = put_global(lay.pack_vec(*(
             np.asarray(v.cpu() if torch.is_tensor(v) else v, np.float32)
             for v in v3)), mesh, ("rows",))
-        prim = pp.fused_primitives(
-            self.multiply, lay.pp_plan, lay.ncc, b, lay.gp,
-            slot_group=lay.slot_group(mesh.row),
-            lane_mask=lay.lane_mask(mesh.row), psum=mesh.psum)
-        prim = dataclasses.replace(prim, allmax=mesh.allmax,
-                                   alland=mesh.alland, host_loop=True)
-        res = core.solve_core_fused(prim, b, v3, lay.ncc, lay.ln0,
-                                    float(tolerance), int(max_iterations))
+        if self._prim is None:
+            # the loop's multiply holds the K2s and the panel, not the
+            # solver: the graphs the solver keeps hold the primitives, and
+            # through a bound method they would keep the solver, and so
+            # themselves, alive past its last use, and NCCL cannot destroy
+            # a communicator while a graph holds its captured work
+            mult = functools.partial(pairs_multiply, mesh, lay, self._k2,
+                                     self._remote_x)
+            self._prim = dataclasses.replace(pp.fused_primitives(
+                mult, lay.pp_plan, lay.ncc, b, lay.gp,
+                slot_group=lay.slot_group(mesh.row),
+                lane_mask=lay.lane_mask(mesh.row), psum=mesh.psum),
+                mesh=mesh)
+        res = core.solve_core_fused(self._prim, b, v3, lay.ncc, lay.ln0,
+                                    float(tolerance), int(max_iterations),
+                                    graphs=self.loop_graphs, key=("pairs",))
         re, im = lay.unpack_vec(gather_global(res.x, mesh, ("rows",)))
         info = dict(return_status=int(res.return_status),
                     iterations=int(res.iterations),

@@ -22,6 +22,11 @@ Sharding over a (rows, cols) grid of ranks:
 * dotp/nrm2: local panel column sums + one ``all_reduce`` over "rows";
   scalar recurrences replicate per column shard; convergence control uses
   maxima over every rank, so stopping agrees with a single device.
+
+On the card the loop is one CUDA graph a rank (``graphloop``);
+``ShardedPanelSolver`` keeps its graphs, and the A slab, halo and mask
+they read, across solves of one shape, and writes a new A into the same
+slab.
 """
 
 from __future__ import annotations
@@ -30,6 +35,7 @@ import numpy as np
 import torch
 
 from .. import core
+from ..graphloop import LoopGraphs
 from ..ops.panel import (PanelLayout, _refuse_tf32, apply_mask,
                          make_panel_primitives)
 from .multihost import gather_global, put_global
@@ -42,10 +48,14 @@ def _ceil_to(n: int, k: int) -> int:
 
 def panel_loop(mesh: Mesh, multiply, b, v3, tolerance: float,
                max_iterations: int, col_valid: torch.Tensor = None,
-               rhs_trivial: bool = False) -> core.SolveResult:
+               rhs_trivial: bool = False, graphs: LoopGraphs = None,
+               key: tuple = ()) -> core.SolveResult:
     """The loop over this rank's panel shards ``b`` and ``v3`` [NRl, nccl,
     LN] with the masked ``multiply``; ``col_valid`` bool [nccl] marks the
-    column chunk's real columns (all of them when None)."""
+    column chunk's real columns (all of them when None).  ``graphs`` and
+    ``key`` are ``core.tfqmr_loop``'s: on the card the graphs that
+    ``graphs`` keeps replay ``multiply`` as it was captured, so what it
+    reads must stay in place across the solves."""
     prim = sharded_primitives(mesh, make_panel_primitives(multiply))
     _, nccl, ln = b[0].shape
     colv = (torch.ones(nccl, dtype=torch.bool, device=b[0].device)
@@ -58,16 +68,14 @@ def panel_loop(mesh: Mesh, multiply, b, v3, tolerance: float,
         tau0 = prim.nrm2(v5)
         inv_bn2 = torch.where(colv, core.inverse_norms(tau0), 0.0)
     return core.tfqmr_loop(prim, b, v3, v5, tau0, inv_bn2, tolerance,
-                           max_iterations, b[0].dtype)
+                           max_iterations, b[0].dtype, graphs=graphs, key=key)
 
 
-def sharded_panel_solve_core(mesh: Mesh, a_re, a_im, b, v3, mask,
-                             col_valid, tolerance: float,
-                             max_iterations: int, *, lm: int, ln: int,
-                             rhs_trivial: bool = False) -> core.SolveResult:
-    """This rank's loop: ``a_re``, ``a_im`` its row slab [NRl, NR] of dense
-    A, ``b`` and ``v3`` its panel shards [NRl, nccl, LN], ``mask`` [mbl,
-    nccl] the X pattern of its shard, ``col_valid`` bool [nccl]."""
+def panel_multiply(mesh: Mesh, a_re, a_im, mask, *, lm: int, ln: int):
+    """This rank's masked ``y = A @ x`` on the panels: the halo
+    ``all_gather`` of X over "rows", then four ``torch.matmul`` calls
+    against the row slab ``a_re``, ``a_im`` [NRl, NR] of dense A; ``mask``
+    [mbl, nccl] is the X pattern of its shard."""
     dt = a_re.dtype
     nrl, nr = (int(s) for s in a_re.shape)
     mbl, nccl = (int(s) for s in mask.shape)
@@ -90,14 +98,15 @@ def sharded_panel_solve_core(mesh: Mesh, a_re, a_im, b, v3, mask,
                            yi.reshape(nrl, nccl, ln)), mask4, mbl, lm, nccl,
                           ln)
 
-    return panel_loop(mesh, multiply, b, v3, tolerance, max_iterations,
-                      col_valid, rhs_trivial)
+    return multiply
 
 
 class ShardedPanelSolver:
     """Host side: pads and partitions a plan's panel layout over the mesh.
     ``v3``: the shadow vector as host (re, im) [nnzbX, LM, LN], by default
-    ``core.make_shadow_vector``'s."""
+    ``core.make_shadow_vector``'s.  ``loop_graphs`` keeps the loop graphs
+    of its solves (on the card), which read the A slab, mask and halo the
+    first solve put on the device; a later solve writes its A there."""
 
     def __init__(self, plan, mesh: Mesh, precision: str = "c", v3=None):
         mesh.require_member()
@@ -127,6 +136,8 @@ class ShardedPanelSolver:
               for v in v3]
         self.v3 = (self._shard_panel(self.lay.pack_x(v3[0])),
                    self._shard_panel(self.lay.pack_x(v3[1])))
+        self.loop_graphs = LoopGraphs()
+        self._a = self._multiply = None
 
     def _pad_panel(self, p):
         nr, ncc = self.mb_pad * self.lm, self.ncc_pad
@@ -175,18 +186,24 @@ class ShardedPanelSolver:
         dr, di = self.lay.densify_a(
             self.plan, np.asarray(a_blocks_re).astype(self.npdt),
             np.asarray(a_blocks_im).astype(self.npdt))
-        a_re, a_im = (put_global(s, mesh, ("rows",))
-                      for s in self._shard_a(dr, di))
+        a = [put_global(s, mesh, ("rows",)) for s in self._shard_a(dr, di)]
+        if self._a is None:
+            self._a = a
+            self._multiply = panel_multiply(
+                mesh, *a, put_global(self.mask.astype(self.npdt), mesh),
+                lm=self.lm, ln=self.ln)
+        else:
+            for mine, new in zip(self._a, a):
+                mine.copy_(new)
         b = tuple(put_global(self._shard_panel(self.lay.pack_b(
             np.asarray(v).astype(self.npdt))), mesh) for v in
             (b_blocks_re, b_blocks_im))
         v3 = tuple(put_global(v, mesh) for v in self.v3)
-        res = sharded_panel_solve_core(
-            mesh, a_re, a_im, b, v3,
-            put_global(self.mask.astype(self.npdt), mesh),
-            put_global(self.col_valid, mesh, ("cols",)),
-            tolerance, max_iterations, lm=self.lm, ln=self.ln,
-            rhs_trivial=rhs_trivial)
+        res = panel_loop(mesh, self._multiply, b, v3, tolerance,
+                         max_iterations,
+                         put_global(self.col_valid, mesh, ("cols",)),
+                         rhs_trivial, graphs=self.loop_graphs,
+                         key=("panel", rhs_trivial))
         xs = gather_global(torch.stack(res.x), mesh)  # [pr, pc, 2, ...]
         xp = (self._unshard_panel(xs[:, :, 0])
               + 1j * self._unshard_panel(xs[:, :, 1]))

@@ -11,6 +11,12 @@ with one ``all_reduce`` a call.  Scalar recurrences replicate; the
 convergence control takes maxima over every rank, so stopping agrees with
 the single-device engine.
 
+On the card the loop is one CUDA graph a rank (``graphloop``); the solver
+keeps its graphs across solves of one shape (the correction solves of
+``parallel/mixed.py`` replay them) and across ``set_matrix_a``, whose new
+panels go into the captured K3 where the tables are the same
+(``graphloop.refill``).
+
 Compared to ``ShardedPanelSolver`` (dense slabs) this keeps A block-sparse:
 the per-multiply A traffic is nnzbA-proportional, not (mb*LM)^2.  float32
 only, as in the JAX package, in K3's exact FP32 or a bf16 split mode
@@ -24,6 +30,7 @@ import torch
 
 from .. import core
 from ..errors import Status, TfqmrgpuError, encode_status
+from ..graphloop import LoopGraphs, refill
 from ..ops import pallas_spmm as rt
 from ..ops.pairpanel import check_precision
 from ..ops.panel import PanelLayout
@@ -97,6 +104,7 @@ class ShardedRowTileSolver:
         self._k3 = None
         self._halo = Halo(mesh, self.nrl, self.nrl, (self.ncc, self.ln),
                           torch.float32)
+        self.loop_graphs = LoopGraphs()
 
     # ------------------------------------------------------------- helpers
 
@@ -109,7 +117,9 @@ class ShardedRowTileSolver:
             out.reshape(self.pr, self.nrl, self.ncc, self.ln))
 
     def set_matrix_a(self, a_re: np.ndarray, a_im: np.ndarray):
-        """Build this slab's fused panels on the device and its K3."""
+        """Build this slab's fused panels on the device and its K3; where
+        the loop graphs captured a K3 of the same tables, the new panels go
+        into it and the graphs stay."""
         rowptr = self.plan.rowptr_a
         lo = self.mesh.row * self.mb_local
         blk_lo = int(rowptr[min(lo, self.plan.nrows)])
@@ -117,9 +127,12 @@ class ShardedRowTileSolver:
         panels = [rt.build_a_panels_device(self.pack, torch.from_numpy(
             np.ascontiguousarray(v[blk_lo:blk_hi], np.float32)).to(
                 self.mesh.device)) for v in (a_re, a_im)]
-        self._k3 = rt.RowTileMultiply(
+        k3 = rt.RowTileMultiply(
             self.pack, *panels, self.mask_sh[self.mesh.row], self.ln,
             x_rows=(2 * self.pr - 1) * self.mb_local, precision=self.mm_prec)
+        if not (self.loop_graphs and refill(self._k3, k3)):
+            self.loop_graphs.clear()
+            self._k3 = k3
 
     def multiply(self, x) -> tuple:
         """The halo ``all_gather`` of the X panel, then K3 (masked)."""
@@ -136,8 +149,13 @@ class ShardedRowTileSolver:
         pack = self.lay.pack_x if rhs_xshaped else self.lay.pack_b
         b = tuple(put_global(self._shard_panel(pack(np.asarray(
             v, np.float32))), self.mesh, ("rows",)) for v in (b_re, b_im))
-        res = panel_loop(self.mesh, self.multiply, b, self.v3,
-                         float(tolerance), int(max_iterations))
+        # the loop's multiply holds K3 and the halo, not the solver (see
+        # ``ShardedPairsSolver.solve``); a new K3 that is not refilled
+        # drops the graphs, so the next capture takes it
+        k3, halo = self._k3, self._halo
+        res = panel_loop(self.mesh, lambda x: k3(halo(x)), b, self.v3,
+                         float(tolerance), int(max_iterations),
+                         graphs=self.loop_graphs, key=("rowtile",))
         xs = gather_global(torch.stack(res.x), self.mesh, ("rows",))
         xp = (xs[:, 0].reshape(self.nr, self.ncc, self.ln)
               + 1j * xs[:, 1].reshape(self.nr, self.ncc, self.ln))
