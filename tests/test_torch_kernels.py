@@ -1072,6 +1072,52 @@ def test_loop_graph_replays_after_a_new_a_on_card(case):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("case", ["k1", "k3"])
+def test_loop_graph_spans_on_card(case):
+    """Recording, a first solve keeps the capture's spans from the clock
+    readings that ``capture_parts`` gives, and each solve's fill, launch
+    (with the graph's device time from its event pair) and read; a new A
+    refills the graph (``hit``) and its solve captures nothing."""
+    _needs_card()
+    from tfqmrgpu_tpu_torch import profiling
+    from tfqmrgpu_tpu_torch.graphloop import LoopGraph
+
+    s, tol = _loop_solver(case)
+    a, _, _ = (golden_z_problem if case == "k1" else golden_c_problem)(
+        mb=24, ncols=4)
+    profiling.clear_spans()
+    with profiling.recording():
+        first = s.solve(tolerance=tol, max_iterations=300)
+        s.set_matrix("A", a.data * 1.01)
+        second = s.solve(tolerance=tol, max_iterations=300)
+    spans = profiling.spans()
+    profiling.clear_spans()
+    solves = [sp for sp in spans if sp.name == f"tfq.solve.{s.engine}"]
+    assert len(solves) == 2
+    kids = [[sp for sp in spans if sp.parent == top.id] for top in solves]
+    assert [sorted(sp.name for sp in k) for k in kids] == [
+        ["capture", "fill", "finish", "launch", "prepare", "read"],
+        ["fill", "finish", "launch", "prepare", "read"]]
+    capture = next(sp for sp in kids[0] if sp.name == "capture")
+    graph = next(iter(s.loop_graphs._graphs.values()))
+    assert (capture.end_ns - capture.start_ns) / 1e9 == graph.capture_s
+    parts = {sp.name: (sp.end_ns - sp.start_ns) / 1e9 for sp in spans
+             if sp.parent == capture.id}
+    assert parts == graph.capture_parts
+    for k, info in zip(kids, (first, second)):
+        launch = next(sp for sp in k if sp.name == "launch")
+        ms = launch.attrs["device_ms"]
+        top = solves[kids.index(k)]
+        assert 0 < ms < (top.end_ns - top.start_ns) / 1e6
+        assert info.return_status == 0
+    assert [sp.attrs for sp in spans if sp.name == "refill"] == [
+        {"hit": True}]
+    launches = LoopGraph.launches
+    s.solve(tolerance=tol, max_iterations=300)
+    assert LoopGraph.launches == launches + 1
+
+
+@pytest.mark.cuda
 def test_failed_capture_raises_on_card(monkeypatch):
     """A host read inside the captured loop makes the capture fail: the
     solve raises and never runs the plain driver; the next solve captures

@@ -4,6 +4,11 @@ the JAX package's ``tfqmrgpu_tpu.profiling`` on the CPU.
 * ``trace``: a no-op without TFQ_TRACE; with it, ``Solver.solve`` opens a
   ``record_function`` range ``tfq.solve.<engine>`` that the CPU profiler
   records, and never touches NVTX on a CPU device.
+* the span recorder: the tree of a point's spans on a CPU 'pairs' 'z'
+  Solver (``tfq.set_a``, ``tfq.solve.pairs``, ``tfq.get_x`` and their
+  children, one call id each, K1's schedule built once an A); nothing
+  kept with it off; under a CPU profiler without TFQ_TRACE the spans are
+  kept and the profiler sees none of them; the ring's bound.
 * ``solver_roofline``: flops per iteration equal to JAX's exactly, and the
   bytes, the ceilings and the fractions equal to JAX's where both models
   call the vectors resident ('xla' and 'dense' in 'z' and 'c', the JAX
@@ -15,6 +20,7 @@ the JAX package's ``tfqmrgpu_tpu.profiling`` on the CPU.
   is no device number).
 """
 
+import contextlib
 import json
 import os
 
@@ -110,6 +116,177 @@ def test_start_and_stop_trace_write_the_range(monkeypatch, tmp_path):
     assert any(e.get("name") == "tfq.solve.xla" for e in events)
     with pytest.raises(RuntimeError, match="no trace is running"):
         tprof.stop_trace()
+
+
+# ------------------------------------------------------------------ spans
+
+def _point(s, a):
+    """One point of a contour: set A, solve, read X."""
+    s.set_matrix("A", a.data)
+    info = s.solve(tolerance=1e-5, max_iterations=50)
+    s.get_matrix("X")
+    return info
+
+
+def _trees(spans) -> list:
+    """Each top-level call, in order: (its name, {parent name: sorted
+    child names})."""
+    by_id = {sp.id: sp for sp in spans}
+    out: dict = {sp.id: {} for sp in spans if sp.parent == 0}
+    for sp in spans:
+        if sp.parent:
+            out[sp.call].setdefault(by_id[sp.parent].name, []).append(
+                sp.name)
+    return [(by_id[c].name, {p: sorted(k) for p, k in d.items()})
+            for c, d in sorted(out.items(), key=lambda cd:
+                               by_id[cd[0]].start_ns)]
+
+
+def test_spans_of_a_point_on_the_pairs_engine():
+    a, x, b = _problem("z")
+    s = tt.Solver(*_port(a, x, b), precision="z", engine="pairs",
+                  device="cpu")
+    tprof.clear_spans()
+    with tprof.recording():
+        for _ in range(2):
+            assert _point(s, _port(a)[0]).return_status == 0
+    spans = tprof.spans()
+    tops = [sp for sp in spans if sp.parent == 0]
+    assert [sp.name for sp in tops] == [
+        "tfq.set_a", "tfq.solve.pairs", "tfq.get_x"] * 2
+    assert all(sp.call == sp.id for sp in tops)
+    assert _trees(spans) == [
+        ("tfq.set_a", {"tfq.set_a": ["multiply", "planes", "refill",
+                                     "upload"],
+                       "multiply": ["copies", "pair_table", "pair_y",
+                                    "schedule", "schedule_upload"]}),
+        ("tfq.solve.pairs", {"tfq.solve.pairs": ["finish", "prepare"]}),
+        ("tfq.get_x", {"tfq.get_x": ["copy", "unpack"]})] * 2
+    by_id = {sp.id: sp for sp in spans}
+    for sp in spans:
+        assert sp.start_ns <= sp.end_ns
+        if sp.parent:
+            up = by_id[sp.parent]
+            assert sp.call == up.call
+            assert up.start_ns <= sp.start_ns and sp.end_ns <= up.end_ns
+    for top in tops:
+        if top.name == "tfq.set_a":
+            assert [sp.name for sp in spans if sp.call == top.id].count(
+                "schedule") == 1
+    # the CPU keeps no loop graph, so no set A refills one
+    assert [sp.attrs for sp in spans if sp.name == "refill"] == [
+        {"hit": False}] * 2
+    tprof.clear_spans()
+    assert tprof.spans() == []
+
+
+def test_nothing_is_kept_with_the_recorder_off():
+    a, x, b = _problem("z")
+    s = tt.Solver(*_port(a, x, b), precision="z", engine="pairs",
+                  device="cpu")
+    tprof.clear_spans()
+    assert not tprof.is_recording()
+    assert _point(s, _port(a)[0]).return_status == 0
+    assert tprof.spans() == []
+    # off, a span is the one shared no-op context: nothing is made
+    assert tprof.trace("a") is tprof.trace("b", "cpu")
+    assert tprof.add_span("a", 0, 1) is None
+    with tprof.trace("a") as span:
+        assert span is None
+
+
+@pytest.mark.parametrize("engine,precision", [
+    ("pairs", "z"), ("dense", "z"), ("pallas", "c"), ("pairs", "c")])
+def test_a_profiler_session_keeps_spans_but_sees_none(engine, precision):
+    a, x, b = _problem(precision)
+    s = tt.Solver(*_port(a, x, b), precision=precision, engine=engine,
+                  device="cpu")
+    tprof.clear_spans()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        assert tprof.is_recording()
+        assert _point(s, _port(a)[0]).return_status == 0
+    assert not tprof.is_recording()
+    names = {sp.name for sp in tprof.spans()}
+    assert {"tfq.set_a", f"tfq.solve.{engine}", "tfq.get_x", "planes",
+            "upload", "multiply", "refill", "prepare", "finish", "copy",
+            "unpack"} <= names
+    seen = {e.name for e in prof.events()}
+    assert not [n for n in seen if n.startswith("tfq.")]
+    assert not names & seen
+    tprof.clear_spans()
+
+
+def test_the_ring_keeps_the_newest_spans():
+    tprof.clear_spans()
+    with tprof.recording():
+        for i in range(tprof.SPAN_RING + 10):
+            with tprof.trace(f"s{i}"):
+                pass
+        outer = tprof.add_span("outer", 5, 9)
+        inner = tprof.add_span("inner", 6, 7, parent=outer, device_ms=0.5)
+    spans = tprof.spans()
+    assert len(spans) == tprof.SPAN_RING
+    assert spans[0].name == "s12" and spans[-3].name == f"s{tprof.SPAN_RING + 9}"
+    assert (outer.parent, outer.call) == (0, outer.id)
+    assert (inner.parent, inner.call, inner.attrs) == (
+        outer.id, outer.id, {"device_ms": 0.5})
+    tprof.clear_spans()
+
+
+def test_threads_keep_their_own_trees():
+    """recording() holds for the thread that opens it, and each recording
+    thread nests its spans under its own; the ring and the ids are
+    shared."""
+    import sys
+    import threading
+
+    tprof.clear_spans()
+    switch = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        def work(k, record):
+            with tprof.recording() if record else contextlib.nullcontext():
+                for i in range(200):
+                    with tprof.trace(f"t{k}"):
+                        with tprof.trace(f"t{k}.child"):
+                            pass
+
+        threads = [threading.Thread(target=work, args=(k, k < 6))
+                   for k in range(8)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=60)
+        assert not any(th.is_alive() for th in threads)
+    finally:
+        sys.setswitchinterval(switch)
+    spans = tprof.spans()
+    assert len(spans) == 6 * 200 * 2 == len({sp.id for sp in spans})
+    by_id = {sp.id: sp for sp in spans}
+    for sp in spans:
+        if sp.name.endswith(".child"):
+            assert by_id[sp.parent].name == sp.name[:-len(".child")]
+        else:
+            assert sp.parent == 0 and sp.name in {f"t{k}" for k in range(6)}
+    tprof.clear_spans()
+
+
+def test_trace_keeps_the_tree_under_tfq_trace(monkeypatch):
+    """Under TFQ_TRACE each span is also a profiler range, children inside
+    their parent."""
+    monkeypatch.setenv("TFQ_TRACE", "1")
+    a, x, b = _problem("z")
+    s = tt.Solver(*_port(a, x, b), precision="z", engine="pairs",
+                  device="cpu")
+    tprof.clear_spans()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        _point(s, _port(a)[0])
+    kept = sorted(sp.name for sp in tprof.spans())
+    ranges = sorted(e.name for e in prof.events() if e.name in set(kept))
+    assert ranges == kept
+    tprof.clear_spans()
 
 
 # --------------------------------------------------------------- roofline

@@ -41,8 +41,8 @@ library's numerics.  The module names follow the JAX package's.
                       on the CPU): ``solve_sharded``, block lists on K1,
                       row tiles on K3, dense slabs, 'm', the scaling
                       harness.
-* ``profiling.py`` -- trace ranges (``TFQ_TRACE``), the HBM rate, the
-                      per-iteration roofline and timed solves.
+* ``profiling.py`` -- the span recorder (``trace``, ``spans``), the HBM
+                      rate, the per-iteration roofline and timed solves.
 * ``autotune.py``  -- ``autotune_solver``: engines and their knobs raced on
                       the caller's pattern, cached per pattern and card.
 

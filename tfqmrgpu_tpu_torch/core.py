@@ -47,6 +47,7 @@ import torch
 from .errors import Status
 from .ops import decisions, linalg
 from .ops.blocksparse import flops_spmm
+from .profiling import trace
 
 Pair = tuple
 
@@ -405,16 +406,20 @@ def solve_core(multiply: Callable[[Pair], Pair], v2: Pair, v3: Pair,
         xpay=lambda y, a, x: linalg.xpay(y, a, x, colindx),
         add_rhs=lambda v, b, s: linalg.add_rhs(v, b, s, subset),
     )
-    z = torch.zeros((int(colindx.shape[0]), lm, ln), dtype=dt, device=dev)
-    if rhs_trivial:
-        v2 = linalg.set_unit_blocks(int(subset.shape[0]), lm, ln, dt, dev)
-        v5 = prim.add_rhs((z, z), v2, 1.0)
-        tau0 = torch.ones((cols.ncols, ln), dtype=torch.float64, device=dev)
-        inv_bn2 = tau0
-    else:
-        v5 = prim.add_rhs((z, z), v2, 1.0)
-        tau0 = prim.nrm2(v5)                 # squared column norms of B
-        inv_bn2 = inverse_norms(tau0)
+    with trace("prepare"):
+        z = torch.zeros((int(colindx.shape[0]), lm, ln), dtype=dt,
+                        device=dev)
+        if rhs_trivial:
+            v2 = linalg.set_unit_blocks(int(subset.shape[0]), lm, ln, dt,
+                                        dev)
+            v5 = prim.add_rhs((z, z), v2, 1.0)
+            tau0 = torch.ones((cols.ncols, ln), dtype=torch.float64,
+                              device=dev)
+            inv_bn2 = tau0
+        else:
+            v5 = prim.add_rhs((z, z), v2, 1.0)
+            tau0 = prim.nrm2(v5)                 # squared column norms of B
+            inv_bn2 = inverse_norms(tau0)
     if inv_bn2_override is not None:
         inv_bn2 = inv_bn2_override
     return tfqmr_loop(prim, v2, v3, v5, tau0, inv_bn2, tolerance,
@@ -434,13 +439,14 @@ def solve_core_panel(multiply: Callable[[Pair], Pair], b_panel: Pair,
     prim = make_panel_primitives(multiply)
     v5 = (b_panel[0], b_panel[1])
     _, ncc, ln = b_panel[0].shape
-    if rhs_trivial:
-        tau0 = torch.ones((ncc, ln), dtype=torch.float64,
-                          device=b_panel[0].device)
-        inv_bn2 = tau0
-    else:
-        tau0 = prim.nrm2(v5)                 # squared column norms of B
-        inv_bn2 = inverse_norms(tau0)
+    with trace("prepare"):
+        if rhs_trivial:
+            tau0 = torch.ones((ncc, ln), dtype=torch.float64,
+                              device=b_panel[0].device)
+            inv_bn2 = tau0
+        else:
+            tau0 = prim.nrm2(v5)                 # squared column norms of B
+            inv_bn2 = inverse_norms(tau0)
     if inv_bn2_override is not None:
         inv_bn2 = inv_bn2_override
     return tfqmr_loop(prim, b_panel, v3_panel, v5, tau0, inv_bn2, tolerance,
@@ -458,14 +464,15 @@ def solve_core_fused(prim: TfqmrPrimitives, b_fused: torch.Tensor,
     (``ops/pairpanel.fused_primitives``); ``b_fused`` holds B, or the unit
     blocks when ``rhs_trivial``.  ``graphs`` and ``key`` are
     ``tfqmr_loop``'s."""
-    v5 = prim.add_rhs(torch.zeros_like(b_fused), b_fused, 1.0)
-    if rhs_trivial:
-        tau0 = torch.ones((ncols, ln), dtype=torch.float64,
-                          device=b_fused.device)
-        inv_bn2 = tau0
-    else:
-        tau0 = prim.nrm2(v5)                 # squared column norms of B
-        inv_bn2 = inverse_norms(tau0)
+    with trace("prepare"):
+        v5 = prim.add_rhs(torch.zeros_like(b_fused), b_fused, 1.0)
+        if rhs_trivial:
+            tau0 = torch.ones((ncols, ln), dtype=torch.float64,
+                              device=b_fused.device)
+            inv_bn2 = tau0
+        else:
+            tau0 = prim.nrm2(v5)                 # squared column norms of B
+            inv_bn2 = inverse_norms(tau0)
     if inv_bn2_override is not None:
         inv_bn2 = inv_bn2_override
     return tfqmr_loop(prim, b_fused, v3_fused, v5, tau0, inv_bn2, tolerance,

@@ -60,14 +60,13 @@ import ctypes
 import dataclasses
 import functools
 import gc
-import time
 import types
 import weakref
 
 import numpy as np
 import torch
 
-from . import core, launch_counts
+from . import core, launch_counts, profiling
 from .errors import Status, TfqmrgpuError, encode_status
 
 _P = ctypes.c_void_p
@@ -481,7 +480,7 @@ class LoopGraph:
 
     def _capture_graph(self):
         dev, ins = self.device, self.inputs
-        t0 = time.perf_counter()
+        t0 = profiling.clock()
         stream = _capture_stream(dev)
         stream.wait_stream(torch.cuda.current_stream(dev))
         capture = None
@@ -502,7 +501,7 @@ class LoopGraph:
                 LoopControl.cont(c, ins.maxit, scratch[1])
                 del c, res2, scratch
             stream.synchronize()
-            t1 = time.perf_counter()
+            t1 = profiling.clock()
             self.pool = torch.cuda.graph_pool_handle()
             with torch.cuda.device(dev), torch.cuda.stream(stream):
                 begin_pool(dev.index, self.pool)
@@ -510,7 +509,7 @@ class LoopGraph:
                     capture = GraphCapture(self.lib, stream)
                     self.carry, self.state = record(self.prim, ins, self.dt,
                                                     capture)
-                    t2 = time.perf_counter()
+                    t2 = profiling.clock()
                     self.exec = capture.end()
                     self.graph = capture.graph
                 finally:
@@ -530,30 +529,49 @@ class LoopGraph:
                                 "rank of the mesh")
         torch.cuda.current_stream(dev).wait_stream(stream)
         torch.cuda.synchronize(dev)
-        t3 = time.perf_counter()
-        self.capture_s = t3 - t0
-        self.capture_parts = dict(warmup=t1 - t0, record=t2 - t1,
-                                  instantiate=t3 - t2)
+        t3 = profiling.clock()
+        self.capture_s = (t3 - t0) / 1e9
+        parts = (("warmup", t0, t1), ("record", t1, t2),
+                 ("instantiate", t2, t3))
+        self.capture_parts = {k: (b - a) / 1e9 for k, a, b in parts}
+        span = profiling.add_span("capture", t0, t3)
+        if span is not None:
+            for k, a, b in parts:
+                profiling.add_span(k, a, b, parent=span)
         LoopGraph.captures += 1
         LoopGraph.capture_seconds += self.capture_s
 
     def run(self, ins: LoopInputs) -> core.SolveResult:
         """One solve: the inputs into the static buffers, one launch, one
-        read of the state."""
+        read of the state.  While spans are recorded, a CUDA event pair
+        around the launch gives its ``launch`` span the graph's device time
+        (``device_ms``), read after the state read has synchronized."""
         if self.exec is None:
             raise RuntimeError("the loop graph was closed")
-        self.inputs.fill(ins)
+        with profiling.trace("fill"):
+            self.inputs.fill(ins)
         with torch.cuda.device(self.device):
             stream = torch.cuda.current_stream(self.device).cuda_stream
-            _check(self.lib.tfq_loop_graph_launch(self.exec, stream),
-                   "the loop graph's launch")
+            with profiling.trace("launch") as launch:
+                if launch is not None:
+                    ev = [torch.cuda.Event(enable_timing=True)
+                          for _ in range(2)]
+                    ev[0].record()
+                _check(self.lib.tfq_loop_graph_launch(self.exec, stream),
+                       "the loop graph's launch")
+                if launch is not None:
+                    ev[1].record()
             LoopGraph.launches += 1
-            c = self.carry
-            out = dataclasses.replace(c, v1=core._tree(torch.clone, c.v1),
-                                      status=c.status.clone(),
-                                      tau=c.tau.clone())
-            stop, iters_needed, it, n_probes, residual2 = self.state.tolist()
+            with profiling.trace("read"):
+                c = self.carry
+                out = dataclasses.replace(
+                    c, v1=core._tree(torch.clone, c.v1),
+                    status=c.status.clone(), tau=c.tau.clone())
+                stop, iters_needed, it, n_probes, residual2 = \
+                    self.state.tolist()
         LoopGraph.reads += 1
+        if launch is not None:
+            launch.attrs["device_ms"] = ev[0].elapsed_time(ev[1])
         return core.solve_result(out, stop, iters_needed, n_probes, residual2)
 
     def close(self):

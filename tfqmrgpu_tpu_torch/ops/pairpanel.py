@@ -65,6 +65,7 @@ import torch
 
 from .. import launch_counts
 from ..errors import Status, TfqmrgpuError, encode_status
+from ..profiling import trace
 from . import ozaki, paneltiles
 from .blocksparse import spmm_pairs
 
@@ -517,7 +518,8 @@ class PairPlanMultiply(metaclass=launch_counts.CountedLaunches):
     def __init__(self, plan, a_re: torch.Tensor, a_im: torch.Tensor, ln: int,
                  grid: tuple = None):
         if not isinstance(plan, PairTable):
-            plan = PairTable.from_plan(plan)
+            with trace("pair_table"):
+                plan = PairTable.from_plan(plan)
         self.lm = int(a_re.shape[1])
         self.ln = int(ln)
         self.nnzb_x, self.nnzb_y = plan.nnzb_x, plan.nnzb_y
@@ -540,21 +542,25 @@ class PairPlanMultiply(metaclass=launch_counts.CountedLaunches):
                 f"(LM, LN) = ({self.lm}, {self.ln}) is not among the "
                 f"kernel's block sizes {KERNEL_BLOCK_SIZES}")
         self.a_re, self.a_im = a_re, a_im
-        self.starts = plan.starts.contiguous()
-        self.pair_a = plan.pairs[:, 0].contiguous()
-        self.pair_x = plan.pairs[:, 1].contiguous()
-        self.pair_y = plan.pair_y()
+        with trace("copies"):
+            self.starts = plan.starts.contiguous()
+            self.pair_a = plan.pairs[:, 0].contiguous()
+            self.pair_x = plan.pairs[:, 1].contiguous()
+        with trace("pair_y"):
+            self.pair_y = plan.pair_y()
         self.schedule = None
         if a_re.dtype == torch.float64:
             sm_count = (torch.cuda.get_device_properties(dev)
                         .multi_processor_count if dev.type == "cuda"
                         else SM_COUNT)
-            s = tile_schedule(plan, self.lm, self.ln, grid, sm_count)
+            with trace("schedule"):
+                s = tile_schedule(plan, self.lm, self.ln, grid, sm_count)
             self.schedule = s
-            self._tables = tuple(
-                torch.from_numpy(np.ascontiguousarray(t)).to(dev)
-                for t in (s.tile_steps, s.tile_y, s.step_a, s.step_x,
-                          s.step_mask.view(np.int64)))
+            with trace("schedule_upload", dev):
+                self._tables = tuple(
+                    torch.from_numpy(np.ascontiguousarray(t)).to(dev)
+                    for t in (s.tile_steps, s.tile_y, s.step_a, s.step_x,
+                              s.step_mask.view(np.int64)))
         elif grid is not None:
             raise ValueError("a warp grid applies to the 'z' kernel only")
 

@@ -5,10 +5,18 @@ its phases with NVTX PUSH_RANGE/POP_RANGE markers gated by -DUSE_NVTX
 (tfqmrgpu.hxx:8-27, used at tfqmrgpu_core.hxx:29,177,332) and counts
 analytic flops for getInfo (tfqmrgpu_core.hxx:133-138).  Here:
 
-* ``trace(name, device)`` -- a ``torch.profiler.record_function`` range,
-  and on a CUDA device also an NVTX range, when ``TFQ_TRACE`` is set (the
-  USE_NVTX analogue); a cheap no-op otherwise.  ``Solver.solve`` opens
-  ``tfq.solve.<engine>`` around its dispatch;
+* ``trace(name, device)`` -- the port's one span recorder.  A span (name,
+  start and end on ``time.time_ns()``'s clock, which ``torch.profiler``'s
+  events also use, its parent, the top-level call it belongs to) is kept
+  in a ring of ``SPAN_RING`` in memory while recording: with ``TFQ_TRACE``
+  set, inside ``recording()``, or while a ``torch.profiler`` session runs.
+  Only under ``TFQ_TRACE`` (the USE_NVTX analogue) does a span also open a
+  ``torch.profiler.record_function`` range and, on a CUDA device, an NVTX
+  range.  Off, a span is one check.  ``spans()`` / ``clear_spans()`` read
+  and empty the ring.  The spans of a point's path: ``tfq.set_a``,
+  ``tfq.solve.<engine>`` and ``tfq.get_x`` at the top, their children at
+  each layer below (``Solver``, ``core``, ``graphloop``,
+  ``ops/pairpanel``);
 * ``start_trace`` / ``stop_trace`` -- a ``torch.profiler`` run over the
   CPU and the card, written as a Chrome trace;
 * ``calibrate_hbm`` -- the sustained read+write rate of a chain of adds;
@@ -19,9 +27,12 @@ analytic flops for getInfo (tfqmrgpu_core.hxx:133-138).  Here:
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
+import itertools
 import os
+import threading
 import time
 from typing import Optional
 
@@ -80,29 +91,143 @@ def device_peaks(kind: str) -> dict:
             "profiling.DEVICE_PEAKS") from None
 
 
-# ------------------------------------------------------------------ ranges
+# ------------------------------------------------------------------ spans
+
+SPAN_RING = 4096        # spans kept: a point of the contour makes ~20
+
+clock = time.time_ns    # the spans' clock: Unix-epoch ns, as the profiler's
+
+
+@dataclasses.dataclass
+class Span:
+    """One recorded span.  ``parent`` is the enclosing span's ``id`` (0 at
+    the top); ``call`` is the ``id`` of the top-level span it belongs to,
+    one for every span of a ``set_matrix``, ``solve`` or ``get_matrix``;
+    ``attrs`` holds what a layer adds (``device_ms`` of the loop graph's
+    ``launch``, ``hit`` of a ``refill``)."""
+
+    name: str
+    start_ns: int
+    end_ns: int
+    id: int
+    parent: int
+    call: int
+    attrs: dict
+
+
+_ring: collections.deque = collections.deque(maxlen=SPAN_RING)
+_ids = itertools.count(1)
+_local = threading.local()      # each thread's open spans and recording()s
+_profiling = torch._C._autograd._profiler_enabled
+_OFF = contextlib.nullcontext()
+
 
 def _enabled() -> bool:
     return os.environ.get("TFQ_TRACE", "0") != "0"
 
 
+def is_recording() -> bool:
+    """Whether spans are kept now: ``TFQ_TRACE``, an open ``recording()``
+    or a running ``torch.profiler`` session."""
+    return (getattr(_local, "forced", 0) > 0 or _profiling()
+            or _enabled())
+
+
 @contextlib.contextmanager
-def trace(name: str, device=None):
-    """A trace range (NVTX PUSH/POP equivalent): a ``record_function``
-    range, which ``torch.profiler`` records, and on a CUDA ``device`` an
-    NVTX range.  A cheap no-op when TFQ_TRACE is unset."""
-    if not _enabled():
+def recording():
+    """Keep the spans this thread opens inside the block, whatever
+    ``TFQ_TRACE`` says."""
+    _local.forced = getattr(_local, "forced", 0) + 1
+    try:
         yield
-        return
-    nvtx = device is not None and torch.device(device).type == "cuda"
-    with torch.profiler.record_function(name):
-        if nvtx:
-            torch.cuda.nvtx.range_push(name)
-        try:
-            yield
-        finally:
-            if nvtx:
+    finally:
+        _local.forced -= 1
+
+
+def _open() -> list:
+    stack = getattr(_local, "stack", None)
+    if stack is None:
+        stack = _local.stack = []
+    return stack
+
+
+def _new(name: str, start_ns: int, end_ns: int, parent) -> Span:
+    sid = next(_ids)
+    if parent is None:
+        return Span(name, start_ns, end_ns, sid, 0, sid, {})
+    return Span(name, start_ns, end_ns, sid, parent.id, parent.call, {})
+
+
+class _Recorded:
+    """A span being recorded: opened by ``trace``, kept when it closes."""
+
+    __slots__ = ("name", "device", "span", "ranges")
+
+    def __init__(self, name: str, device):
+        self.name, self.device = name, device
+        self.span = self.ranges = None
+
+    def __enter__(self) -> Span:
+        if _enabled():
+            self.ranges = torch.profiler.record_function(self.name)
+            self.ranges.__enter__()
+            if (self.device is not None
+                    and torch.device(self.device).type == "cuda"):
+                torch.cuda.nvtx.range_push(self.name)
+            else:
+                self.device = None
+        stack = _open()
+        self.span = _new(self.name, clock(), 0, stack[-1] if stack else None)
+        stack.append(self.span)
+        return self.span
+
+    def __exit__(self, *exc):
+        s = self.span
+        s.end_ns = clock()
+        _open().remove(s)
+        if self.ranges is not None:
+            if self.device is not None:
                 torch.cuda.nvtx.range_pop()
+            self.ranges.__exit__(*exc)
+        _ring.append(s)
+        return False
+
+
+def trace(name: str, device=None):
+    """A span around a block (NVTX PUSH/POP equivalent), kept in memory
+    while recording (``is_recording``); under TFQ_TRACE also a
+    ``record_function`` range, which ``torch.profiler`` records, and on a
+    CUDA ``device`` an NVTX range.  ``with trace(...) as span`` gives the
+    ``Span``, or None when nothing is recorded."""
+    if not is_recording():
+        return _OFF
+    return _Recorded(name, device)
+
+
+def add_span(name: str, start_ns: int, end_ns: int, parent: Span = None,
+             **attrs) -> Optional[Span]:
+    """Keep a span that the caller timed itself on ``clock()``, under
+    ``parent`` (by default the innermost open span); None when nothing is
+    recorded."""
+    if not is_recording():
+        return None
+    if parent is None:
+        stack = _open()
+        parent = stack[-1] if stack else None
+    s = _new(name, start_ns, end_ns, parent)
+    s.attrs.update(attrs)
+    _ring.append(s)
+    return s
+
+
+def spans() -> list:
+    """The kept spans, oldest first, each when it closed (a parent after
+    its children)."""
+    return list(_ring)
+
+
+def clear_spans():
+    _ring.clear()
 
 
 _running: Optional[tuple] = None        # (profile, log_dir) of start_trace

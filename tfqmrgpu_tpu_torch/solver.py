@@ -575,12 +575,21 @@ class Solver:
     def _unpack_x(self, x_engine) -> tuple:
         """The engine's vector layout -> X-shaped host planes
         (re, im) [nnzbX, LM, LN]."""
+        return self._x_planes(self._x_host(x_engine))
+
+    def _x_host(self, x_engine):
+        """The engine's vector layout copied to the host, as it lies."""
         if self._packed:
-            return self._pairs_unpermute(x_engine.cpu().numpy())
-        re, im = (t.cpu().numpy() for t in x_engine)
+            return x_engine.cpu().numpy()
+        return tuple(t.cpu().numpy() for t in x_engine)
+
+    def _x_planes(self, host) -> tuple:
+        """``_x_host``'s arrays -> X-shaped host planes (re, im)."""
+        if self._packed:
+            return self._pairs_unpermute(host)
         if self._panel:
-            return self._layout.unpack_x(re), self._layout.unpack_x(im)
-        return re, im
+            return tuple(self._layout.unpack_x(v) for v in host)
+        return host
 
     def set_matrix(self, var: str, val, *, trans: str = "n",
                    layout: int = layout_ops.LAYOUT_RIRIRIRI,
@@ -598,19 +607,20 @@ class Solver:
             raise TfqmrgpuError(
                 encode_status(Status.VARIABLENAME_UNKNOWN, 0, var[:1] or "?"),
                 f"var={var!r}")
-        re, im = layout_ops.to_planes(np.asarray(val), *dims[var], trans=trans,
-                                      layout=layout, scale=scale,
-                                      conjugate=conjugate, dtype=npdt)
-        lay = self._layout
+        def planes():
+            return layout_ops.to_planes(
+                np.asarray(val), *dims[var], trans=trans, layout=layout,
+                scale=scale, conjugate=conjugate, dtype=npdt)
+
         if var == "A":
-            multiply = self._make_multiply(re, im)
-            # the graphs stay where the multiply they captured takes the
-            # new A in place: a capture once a plan, not once an A
-            if not (self.loop_graphs and refill(self._multiply, multiply)):
-                self.loop_graphs.clear()
-                self._prim = None
-                self._multiply = multiply
-        elif var == "B":
+            with trace("tfq.set_a", self.device):
+                with trace("planes"):
+                    re, im = planes()
+                self._set_a(re, im)
+            return
+        re, im = planes()
+        lay = self._layout
+        if var == "B":
             if self._packed:
                 self._b = self._pairs_b_panel(re, im)
             else:
@@ -630,20 +640,38 @@ class Solver:
             # (the reference always starts from zero, tfqmrgpu_core.hxx:125)
             self._x0 = self._upload_x(re, im)
 
-    def _make_multiply(self, re: np.ndarray, im: np.ndarray):
-        """The engine's y = A @ x over A's (re, im) block planes.  K2 runs
-        ``pairs_prec``; K3 runs TFQ_PALLAS_MM_PREC (default 'highest'), read
-        here as the JAX package's ``bsr_panel_multiply`` reads it when it
-        builds the multiply.  The float64 engines take the Ozaki opt-ins
-        TFQ_XLA_OZ and TFQ_Z_OZAKI (``ops/ozaki.py``)."""
+    def _set_a(self, re: np.ndarray, im: np.ndarray):
+        """A's host block planes onto the device and into the multiply."""
+        with trace("upload", self.device):
+            if self.engine == "dense":
+                re, im = self._layout.densify_a(self.plan, re, im)
+            a_re, a_im = self._upload(re, im)
+        with trace("multiply"):
+            multiply = self._make_multiply(a_re, a_im)
+        # the graphs stay where the multiply they captured takes the new A
+        # in place: a capture once a plan, not once an A
+        with trace("refill") as span:
+            kept = bool(self.loop_graphs) and refill(self._multiply, multiply)
+            if span is not None:
+                span.attrs["hit"] = kept
+        if not kept:
+            self.loop_graphs.clear()
+            self._prim = None
+            self._multiply = multiply
+
+    def _make_multiply(self, a_re: torch.Tensor, a_im: torch.Tensor):
+        """The engine's y = A @ x over A's (re, im) planes on the device:
+        blocks, or for 'dense' the dense panels.  K2 runs ``pairs_prec``;
+        K3 runs TFQ_PALLAS_MM_PREC (default 'highest'), read here as the
+        JAX package's ``bsr_panel_multiply`` reads it when it builds the
+        multiply.  The float64 engines take the Ozaki opt-ins TFQ_XLA_OZ
+        and TFQ_Z_OZAKI (``ops/ozaki.py``)."""
         if self.engine == "dense":
             lay = self._layout
-            a_re, a_im = self._upload(*lay.densify_a(self.plan, re, im))
             mask4 = torch.from_numpy(lay.mask[:, None, :, None]).to(
                 self.device, self.dtype)
             return panel_ops.dense_multiply(a_re, a_im, mask4, lay.mb,
                                             lay.lm, lay.ncc, lay.ln)
-        a_re, a_im = self._upload(re, im)
         if self._packed:
             if self._sup is not None:     # fine A blocks into merged cells
                 a_re = sb_ops.merge_a_blocks(self._sup, a_re)
@@ -676,14 +704,19 @@ class Solver:
         if self._x_result is None:
             raise TfqmrgpuError(encode_status(Status.NO_INFO_PASSED),
                                 "solve() has not been called")
-        re, im = self._unpack_x(self._x_result)
-        if layout is not None:
-            return layout_ops.from_planes(re, im, trans=trans, layout=layout,
-                                          conjugate=conjugate)
-        t, conj = layout_ops.resolve_transposition(trans, conjugate)
-        if t == "t":
-            re, im = np.swapaxes(re, 1, 2), np.swapaxes(im, 1, 2)
-        return layout_ops.planes_to_complex(re, -im if conj else im)
+        with trace("tfq.get_x", self.device):
+            with trace("copy", self.device):
+                host = self._x_host(self._x_result)
+            with trace("unpack"):
+                re, im = self._x_planes(host)
+                if layout is not None:
+                    return layout_ops.from_planes(re, im, trans=trans,
+                                                  layout=layout,
+                                                  conjugate=conjugate)
+                t, conj = layout_ops.resolve_transposition(trans, conjugate)
+                if t == "t":
+                    re, im = np.swapaxes(re, 1, 2), np.swapaxes(im, 1, 2)
+                return layout_ops.planes_to_complex(re, -im if conj else im)
 
     # ---------------------------------------------------------------- solve
 
@@ -709,7 +742,8 @@ class Solver:
             else:
                 result = self._solve_blocks(tolerance, max_iterations,
                                             rhs_trivial)
-        return self._finish_solve(result, max_iterations)
+            with trace("finish"):
+                return self._finish_solve(result, max_iterations)
 
     def _solve_blocks(self, tolerance, max_iterations, rhs_trivial):
         """The block-list engines ('pairs' in 'z', 'xla')."""
