@@ -257,6 +257,20 @@ two for each:
    table also holds the sharded stages (``decide_local`` /
    ``decide_finish``, ``settle_local`` / ``settle_finish``) against
    ``core``'s, with and without ``keep_nan``.
+23. the loop's vector passes (``csrc/vector_passes.cu``,
+   ``linalg.VectorPasses``) at the benchmark's FD cell (28,215 blocks of
+   8 x 8 in 27 columns): (a) each kernel against its plain version in
+   float64 and float32, axpy, xpay and add_rhs to the bit (and linalg's
+   bits), dotp and nrm2 to the bit and the same on a repeat, within the
+   stated tolerance of linalg's (4 (width + LM) eps, relative to the
+   column sums of |x| |y|); each kernel's device time, bound, plain and
+   library time, on operands taken in turn beyond the L2; (b) the cell's
+   first point through the graph: the recorded step writes v1, v4, v5, v6
+   and v7 in place (v8 the one X-shaped copy) and the card counts 18
+   vector pass launches an iteration, 3 a probe and 3 in prepare; (c) the
+   cell's 16 points with the kernels and with the torch passes on one
+   card: their iterations (equal, or one apart at a named point) and the
+   solve call's wall.
 
 Every single-device solve of phases 3-15 and 18-21 runs as one launch of
 its loop's CUDA graph (``core.tfqmr_loop``).  The kernels count their own
@@ -279,8 +293,9 @@ every split multiply; the oz kernel
 ``pairpanel_oz`` heads with 'xi8', its ``launches`` phase 21 (c)'s, every
 body under ``modes``; ``loop_control`` heads with the decide kernel's
 device time at FD's shape, its ``launches`` phase 3's, every entry under
-``entries`` and phase 22 (b)'s solves under ``loop``) and, last, one JSON
-line on the device.
+``entries`` and phase 22 (b)'s solves under ``loop``; ``vector_passes``
+heads with axpy's row, every pass under ``entries`` and phase 23 (c)'s
+points under ``contour``) and, last, one JSON line on the device.
 K1's times in phase 2 are CUDA events around 20 calls issued back to back
 (``burst_ms`` for K2 and K3); ``kernel_ms`` is the kernel's device time
 from ``torch.profiler``; phase 19's kernel times are CUDA events around 20
@@ -4566,6 +4581,341 @@ def pp_unpermute(pplan, gp, y: torch.Tensor) -> tuple:
     return torch.from_numpy(re), torch.from_numpy(im)
 
 
+# ------------------------------------------------ the loop's vector passes
+
+VECTOR_PASS_KERNELS = ("vecpass_axpay", "vecpass_add_rhs", "vecpass_partials",
+                       "vecpass_column_sums")
+# VectorPasses' launches in a solve on the block-list engines: an
+# iteration's 10 axpy / xpay and 4 reductions of two stages each, a probe's
+# add_rhs and nrm2, and the same two in the solve's prepare
+PASSES_PER_ITERATION, PASSES_PER_PROBE, PASSES_PER_PREPARE = 18, 3, 3
+# the sets of operands ``time_vector_passes`` takes in turn (four X-shaped
+# pairs of the FD cell hold 231 MB, the L2 50 MB)
+TURNS = 4
+
+
+def cell_problem(dev):
+    """The benchmark's cell fd8_z.contour: (its problem, its 16 contour
+    points as the host arrays of A a caller sets)."""
+    from benchmark import cells, pool, problems
+
+    cell = cells.load("fd8_z.contour")
+    prob = problems.build(cell.config, 0, dev)
+    return prob, pool.make_pool(prob, pool.shifts(cell.points))
+
+
+def cell_solver(prob, a: np.ndarray, dev):
+    """A 'z' Solver on the cell's patterns, as the benchmark makes it
+    ('auto', which takes 'pairs')."""
+    from tfqmrgpu_tpu_torch import Bsr, Solver
+
+    p = prob
+    return Solver(Bsr(p.nrows, p.nrows, p.a_rowptr, p.a_colind, a, "A"),
+                  Bsr(p.nrows, p.ncols, p.x_rowptr, p.x_colind, None, "X"),
+                  Bsr(p.nrows, p.ncols, p.b_rowptr, p.b_colind, p.b_data,
+                      "B"),
+                  precision="z", engine="auto", device=dev)
+
+
+class TorchPasses:
+    """``linalg``'s torch functions in ``VectorPasses``' place: the passes
+    the card ran before the kernels (new results, which the loop graph
+    copies into the carry)."""
+
+    def __init__(self, cols, subset):
+        from tfqmrgpu_tpu_torch.ops import linalg
+
+        ci = cols.colindx
+        self.dotp = lambda x, y: linalg.dotp(x, y, cols)
+        self.nrm2 = lambda x: linalg.nrm2(x, cols)
+        self.axpy = lambda y, x, a: linalg.axpy(y, x, a, ci)
+        self.xpay = lambda y, a, x: linalg.xpay(y, a, x, ci)
+        self.add_rhs = lambda v, b, s: linalg.add_rhs(v, b, s, subset)
+
+
+@contextlib.contextmanager
+def torch_passes():
+    """Solves inside run the torch passes (``TorchPasses``)."""
+    from tfqmrgpu_tpu_torch.ops import linalg
+
+    kept = linalg.VectorPasses
+    linalg.VectorPasses = TorchPasses
+    try:
+        yield
+    finally:
+        linalg.VectorPasses = kept
+
+
+def _column_magnitude(vp, x: tuple, y: tuple) -> torch.Tensor:
+    """The column sums of |x| |y| over the blocks, float64 [ncols, LN]."""
+    m = ((x[0].abs() + x[1].abs()).double()
+         * (y[0].abs() + y[1].abs()).double()).sum(1)
+    return torch.zeros((vp.cols.ncols, m.shape[1]), dtype=torch.float64,
+                       device=m.device).index_add_(0, vp.colindx.long(), m)
+
+
+def check_vector_passes(vp, lm: int, ln: int, dtype, dev, seed: int = 0):
+    """Each kernel of ``vp`` (``linalg.VectorPasses``) against its plain
+    version on the card: axpy, xpay and add_rhs to the bit, in place;
+    dotp (v3 float32 and the data type against the data) and nrm2 to the
+    bit as well, since the plain versions keep the kernels' order of sums,
+    the same bits on a repeat, and within the stated tolerance of
+    ``linalg.dotp`` / ``nrm2`` (4 (width + LM) eps of the data type,
+    relative to the column sums of |x| |y|).  Returns the largest
+    deviation from linalg's over that scale, in units of the tolerance."""
+    from tfqmrgpu_tpu_torch.ops import linalg
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    nnzb, ncols, nb = vp.colindx.shape[0], vp.cols.ncols, vp.subset.shape[0]
+
+    def vec(n, dt=dtype):
+        return tuple(torch.randn((n, lm, ln), generator=g, dtype=dt,
+                                 device=dev) for _ in range(2))
+
+    def same(u, w):
+        return all(torch.equal(p, q) for p, q in zip(u, w))
+
+    def clone(v):
+        return tuple(t.clone() for t in v)
+
+    x, y, b = vec(nnzb), vec(nnzb), vec(nb)
+    a = tuple(torch.randn((ncols, ln), generator=g, dtype=dtype, device=dev)
+              for _ in range(2))
+    for name, args in (("axpy", (x, a)), ("xpay", (a, x)),
+                       ("add_rhs", (b, 1.0)), ("add_rhs", (b, -1.0))):
+        mine = clone(y)
+        got = getattr(vp, name)(mine, *args)
+        want = getattr(vp, "plain_" + name)(clone(y), *args)
+        torch.cuda.synchronize()
+        require(got is mine and same(got, want),
+                f"the vector pass {name} ({dtype}) differs from its plain "
+                "version")
+        ref = getattr(linalg, name)(y, *args, *(
+            (vp.subset,) if name == "add_rhs" else (vp.colindx,)))
+        require(same(got, ref), f"{name} ({dtype}) differs from linalg's")
+    tol = 4 * (vp.cols.table.shape[1] + lm) * torch.finfo(dtype).eps
+    worst = 0.0
+    for xdt in (torch.float32, dtype):
+        xs = tuple(t.to(xdt) for t in vec(nnzb))
+        got = vp.dotp(xs, y)
+        require(same(got, vp.dotp(xs, y)) and same(got, vp.plain_dotp(xs, y)),
+                f"dotp ({xdt} x {dtype}) is not its plain version's bits on "
+                "every call")
+        scale = _column_magnitude(vp, xs, y)
+        for p, q in zip(got, linalg.dotp(xs, y, vp.cols)):
+            worst = max(worst, float(((p - q).abs() / scale).max()) / tol)
+    got = vp.nrm2(y)
+    require(torch.equal(got, vp.nrm2(y)) and torch.equal(got, vp.plain_nrm2(y)),
+            f"nrm2 ({dtype}) is not its plain version's bits on every call")
+    ref = linalg.nrm2(y, vp.cols)
+    worst = max(worst, float(((got - ref).abs() / ref).max()) / tol)
+    require(worst <= 1.0, f"the column sums ({dtype}) are {worst:.3f} "
+            "tolerances from linalg's")
+    return worst
+
+
+def time_vector_passes(vp, lm: int, ln: int, dev) -> dict:
+    """Each pass at ``vp``'s shape in float64, v3 float32 in dotp: the
+    kernels' device ms (``torch.profiler``), their bound (bytes, each read
+    and written once), the plain version's median ms and, where one torch
+    call computes the same, that call's (complex128 ``index_add_``).  The
+    calls take ``TURNS`` sets of operands in turn, more than the 50 MB L2
+    holds, so that each finds its vectors in device memory."""
+    g = torch.Generator(device=dev).manual_seed(1)
+    f64 = torch.float64
+    nnzb, ncols, nb = vp.colindx.shape[0], vp.cols.ncols, vp.subset.shape[0]
+    width = vp.cols.table.shape[1]
+    turn = iter(range(1 << 62))
+
+    def vec(n, dt=f64):
+        return tuple(torch.randn((n, lm, ln), generator=g, dtype=dt,
+                                 device=dev) for _ in range(2))
+
+    def turns(fn, *sets):
+        """``fn`` on the next set of operands at each call."""
+        def call():
+            k = next(turn) % TURNS
+            return fn(*(v[k] for v in sets))
+        return call
+
+    xs, ys = ([vec(nnzb) for _ in range(TURNS)] for _ in range(2))
+    v3s = [vec(nnzb, torch.float32) for _ in range(TURNS)]
+    b = vec(nb)
+    a = tuple(0.5 * torch.rand((ncols, ln), generator=g, dtype=f64,
+                               device=dev) for _ in range(2))
+    n = nnzb * lm * ln
+    rows = {}
+
+    def row(name, kernel, fn, plain, nbytes, library=None):
+        ms = _kernel_ms(fn, kernel)
+        b_ms, by = bound(nbytes, 0.0)
+        rows[name] = {"kernel": kernel, "ms": ms, "bound_ms": b_ms,
+                      "bound_by": by, "plain_ms": _time_ms(plain),
+                      "library_ms": None if library is None
+                      else _time_ms(library)}
+
+    row("axpy", "vecpass_axpay",
+        turns(lambda y, x: vp.axpy(y, x, a), ys, xs),
+        turns(lambda y, x: vp.plain_axpy(y, x, a), ys, xs), 6 * n * 8)
+    row("xpay", "vecpass_axpay",
+        turns(lambda y, x: vp.xpay(y, a, x), ys, xs),
+        turns(lambda y, x: vp.plain_xpay(y, a, x), ys, xs), 6 * n * 8)
+    yc, bc = torch.complex(*ys[0]), torch.complex(*b)
+    sub = vp.subset.long()
+    row("add_rhs", "vecpass_add_rhs", lambda: vp.add_rhs(ys[0], b, -1.0),
+        lambda: vp.plain_add_rhs(ys[0], b, -1.0), 6 * nb * lm * ln * 8,
+        lambda: yc.index_add_(0, sub, bc, alpha=-1.0))
+    part_bytes = nnzb * ln * 8
+    for name, fn, plain, planes, in_bytes in (
+            ("dotp", turns(vp.dotp, v3s, ys), turns(vp.plain_dotp, v3s, ys),
+             2, 2 * n * 4 + 2 * n * 8),
+            ("nrm2", turns(vp.nrm2, ys), turns(vp.plain_nrm2, ys), 1,
+             2 * n * 8)):
+        ms = _kernels_ms(fn, VECTOR_PASS_KERNELS[2:])
+        plain_ms = _time_ms(plain)
+        part = torch.randn((planes, nnzb, ln), generator=g, dtype=f64,
+                           device=dev)
+        ci = vp.colindx.long()
+        for kernel, nbytes, library in (
+                ("vecpass_partials", in_bytes + planes * part_bytes, None),
+                ("vecpass_column_sums",
+                 planes * (part_bytes + ncols * ln * 8) + ncols * width * 8,
+                 lambda: torch.zeros((ncols, ln), dtype=f64,
+                                     device=dev).index_add_(0, ci, part[0]))):
+            b_ms, by = bound(nbytes, 0.0)
+            rows[f"{name} {kernel}"] = {
+                "kernel": kernel, "ms": ms[kernel], "bound_ms": b_ms,
+                "bound_by": by, "plain_ms": plain_ms,
+                "library_ms": None if library is None
+                else _time_ms(library)}
+    return rows
+
+
+def _timed_solve(s) -> tuple:
+    """(info, the wall ms of ``s.solve``), the cell's tolerance."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    info = s.solve(tolerance=1e-9, max_iterations=999)
+    return info, (time.perf_counter() - t0) * 1e3
+
+
+def contour_solves(prob, work, dev) -> dict:
+    """The cell's 16 points in turn on one Solver (its loop graph captured
+    by a first solve): iterations, probes and the solve's wall ms a
+    point."""
+    s = cell_solver(prob, work[0], dev)
+    s.solve(tolerance=1e-9, max_iterations=999)
+    out = {"iterations": [], "probes": [], "solve_ms": []}
+    for a in work:
+        s.set_matrix("A", a)
+        info, ms = _timed_solve(s)
+        require(info.return_status == 0, f"a contour point ended with "
+                f"status {info.return_status}")
+        out["iterations"].append(info.iterations_needed)
+        out["probes"].append(info.n_probes)
+        out["solve_ms"].append(ms)
+    return out
+
+
+def phase_vector_passes(dev) -> dict:
+    """Phase 23: the loop's vector passes (``csrc/vector_passes.cu``,
+    ``linalg.VectorPasses``) at the benchmark's FD cell."""
+    from tfqmrgpu_tpu_torch.ops.linalg import VectorPasses
+
+    t_phase = time.perf_counter()
+    prob, work = cell_problem(dev)
+    s = cell_solver(prob, work[0], dev)
+    require(s.engine == "pairs", f"the cell's Solver took {s.engine}")
+    vp = VectorPasses(s._cols, s.plan.subset)
+    lm, ln = s.lm, s.ln
+    worst = {str(dt): check_vector_passes(vp, lm, ln, dt, dev)
+             for dt in (torch.float64, torch.float32)}
+    times = time_vector_passes(vp, lm, ln, dev)
+    print(f"phase 23 (a) the vector passes at the FD cell ({vp.colindx.shape[0]} "
+          f"blocks of {lm} x {ln}, {vp.cols.ncols} columns, widest "
+          f"{vp.cols.table.shape[1]}): axpy, xpay, add_rhs their plain "
+          f"versions' and linalg's bits, dotp and nrm2 their plain versions' "
+          f"bits on every call, within {worst} of the stated tolerance of "
+          f"linalg's; device / bound / plain / library ms: " + "; ".join(
+              f"{k} {_ms_or_not(r['ms'])} / {r['bound_ms']:.4f} / "
+              f"{r['plain_ms']:.4f} / {_ms_or_not(r['library_ms'])}"
+              for k, r in times.items()), flush=True)
+    info, counted = check_first_solve(s)
+    its, probes = info.iterations_needed, info.n_probes
+    print(f"phase 23 (b) the cell's first point through the graph: {its} "
+          f"iterations, {probes} probes, {counted} vector pass launches "
+          f"counted on the card ({PASSES_PER_ITERATION} an iteration, "
+          f"{PASSES_PER_PROBE} a probe, {PASSES_PER_PREPARE} in prepare); "
+          f"v1, v4, v5, v6, v7 written in place, v8 the one X-shaped copy",
+          flush=True)
+    del s, vp
+    # (c) the 16 points, the kernels against the torch passes
+    kernels, plain, differ = contour_against_torch(prob, work, dev)
+    ms = (sum(kernels["solve_ms"]) / 16, sum(plain["solve_ms"]) / 16)
+    print(f"phase 23 (c) the cell's 16 points: iterations with the kernels "
+          f"{kernels['iterations']}, with the torch passes "
+          f"{plain['iterations']} (points differing: {differ}); the solve "
+          f"call {ms[0]:.3f} ms a point against {ms[1]:.3f}; phase 23 took "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    return {"times": times, "worst": worst, "launches": counted,
+            "solves": {"kernels": kernels, "torch": plain}, "differ": differ}
+
+
+def check_first_solve(s) -> tuple:
+    """The first solve of ``s`` (a 'pairs' Solver) captures its graph: the
+    recorded step writes v1, v4, v5, v6 and v7 into the carry's planes
+    (``record``'s copies of them launch nothing; v8, K1's output, is the
+    one X-shaped copy), and the card counts ``PASSES_PER_ITERATION``
+    vector pass launches an iteration, ``PASSES_PER_PROBE`` a probe and
+    ``PASSES_PER_PREPARE`` in prepare.  Returns (info, launches)."""
+    from tfqmrgpu_tpu_torch import core
+    from tfqmrgpu_tpu_torch.ops.linalg import VectorPasses
+
+    step, seen = core.step, []
+
+    def spy(prim, c, v3, dt):
+        before = {f: [t.data_ptr() for t in getattr(c, f)]
+                  for f in ("v1", "v4", "v5", "v6", "v7", "v8")}
+        n = step(prim, c, v3, dt)
+        seen.append((before, n))
+        return n
+
+    core.step = spy
+    try:
+        VectorPasses.launches = 0
+        info = s.solve(tolerance=1e-9, max_iterations=999)
+    finally:
+        core.step = step
+    its, probes = info.iterations_needed, info.n_probes
+    counted = VectorPasses.launches
+    want = (PASSES_PER_ITERATION * its + PASSES_PER_PROBE * probes
+            + PASSES_PER_PREPARE)
+    require(info.return_status == 0 and counted == want,
+            f"{counted} vector pass launches for {its} iterations and "
+            f"{probes} probes (want {want})")
+    before, n = seen[-1]
+    in_place = [f for f in ("v1", "v4", "v5", "v6", "v7", "v8")
+                if [t.data_ptr() for t in getattr(n, f)] == before[f]]
+    require(in_place == ["v1", "v4", "v5", "v6", "v7"],
+            f"the recorded step wrote {in_place} in place")
+    return info, counted
+
+
+def contour_against_torch(prob, work, dev) -> tuple:
+    """``contour_solves`` with the kernels and with the torch passes: (the
+    kernels', the torch passes', the points whose iterations differ), none
+    by more than one."""
+    kernels = contour_solves(prob, work, dev)
+    with torch_passes():
+        plain = contour_solves(prob, work, dev)
+    differ = [k for k in range(len(work))
+              if kernels["iterations"][k] != plain["iterations"][k]]
+    require(all(abs(kernels["iterations"][k] - plain["iterations"][k]) <= 1
+                for k in differ), f"points {differ} differ by more than one "
+            "iteration")
+    return kernels, plain, differ
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device; none is available")
@@ -4619,6 +4969,8 @@ def main():
     oz["launches_by_path"].update(tuning.pop("oz"))
     loop = phase_loop(dev, fd)
     sharded_loop = phase_loop_sharded(dev, fd)
+    passes = phase_vector_passes(dev)
+    axpy = passes["times"]["axpy"]
     decide = loop["times"]["decide"]
     local = loop["times"]["decide_local"]
     fd_loop = loop["solves"]["FD rtb=12.75 'z' (K1)"]
@@ -4686,6 +5038,18 @@ def main():
              "settle_finish")},
          "launches_by_path": {k: sum(v.values()) for k, v in stages.items()},
          "stages_by_path": stages},
+        {"name": "vector_passes", "route": "cuda",
+         "source": "tfqmrgpu_tpu_torch/csrc/vector_passes.cu",
+         "replaces": "none: tfqmrgpu_tpu/ops/linalg.py, the vector passes "
+                     "left to XLA",
+         "launches": passes["launches"], "max_abs_err": 0.0,
+         "ms": axpy["ms"], "plain_ms": axpy["plain_ms"],
+         "bound_ms": axpy["bound_ms"], "bound_by": axpy["bound_by"],
+         "library_ms": None, "card": card, "entries": passes["times"],
+         "sums_in_tolerances": passes["worst"],
+         "contour": passes["solves"],
+         "launches_by_path": {"phase 23 (b) the cell's first point":
+                              passes["launches"]}},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -286,9 +286,10 @@ class Counted:
     launches = 0
 
 
-def _blocks_loop(seed=4, tol=1e-10, maxit=200):
+def _blocks_loop(seed=4, tol=1e-10, maxit=200, passes=False):
     """The block-list loop's inputs on the CPU with a multiply that counts
-    its calls in ``Counted.launches``."""
+    its calls in ``Counted.launches``; with ``passes`` the vector passes
+    are ``linalg.VectorPasses``' (their plain versions, in place)."""
     a, x, b = _problem(seed)
     ts = tt.Solver(*_port(a, x, b), precision="z", engine="xla",
                    device="cpu")
@@ -305,9 +306,16 @@ def _blocks_loop(seed=4, tol=1e-10, maxit=200):
         axpy=lambda y, p, s: linalg.axpy(y, p, s, cols.colindx),
         xpay=lambda y, s, p: linalg.xpay(y, s, p, cols.colindx),
         add_rhs=lambda v, bb, s: linalg.add_rhs(v, bb, s, subset))
+    if passes:
+        vp = linalg.VectorPasses(cols, subset)
+        prim = dataclasses.replace(prim, dotp=vp.dotp, nrm2=vp.nrm2,
+                                   axpy=vp.axpy, xpay=vp.xpay,
+                                   add_rhs=vp.add_rhs)
     v2 = ts._b
-    z = torch.zeros((ts.plan.nnzb_x, ts.lm, ts.ln), dtype=torch.float64)
-    v5 = prim.add_rhs((z, z), v2, 1.0)
+    shape = (ts.plan.nnzb_x, ts.lm, ts.ln)
+    z = (torch.zeros(shape, dtype=torch.float64),
+         torch.zeros(shape, dtype=torch.float64))
+    v5 = prim.add_rhs(z, v2, 1.0)
     tau0 = prim.nrm2(v5)
     ins = graphloop.LoopInputs(
         v2=v2, v3=ts._v3, v5_init=v5, tau0=tau0,
@@ -322,7 +330,9 @@ def _blocks_loop(seed=4, tol=1e-10, maxit=200):
     ("LoopControl", "launches", ("loop_decide", "loop_settle",
                                  "loop_continue", "loop_decide_local",
                                  "loop_decide_finish", "loop_settle_local",
-                                 "loop_settle_finish"))])
+                                 "loop_settle_finish")),
+    ("VectorPasses", "launches", ("vec_axpay", "vec_add_rhs", "vec_partials",
+                                  "vec_column_sums"))])
 def test_launch_counters_read_and_reset(cls, name, slots):
     """A wrapper's counter attribute reads and resets its slots of
     ``launch_counts``; without a card (the CPU) no counter is made and
@@ -331,7 +341,8 @@ def test_launch_counters_read_and_reset(cls, name, slots):
     from tfqmrgpu_tpu_torch.ops.pairpanel import PairPlanMultiply
 
     klass = {"PairPlanMultiply": PairPlanMultiply,
-             "LoopControl": graphloop.LoopControl}[cls]
+             "LoopControl": graphloop.LoopControl,
+             "VectorPasses": linalg.VectorPasses}[cls]
     assert launch_counts._counts == {}       # no card: nothing was made
     assert getattr(klass, name) == 0
     setattr(klass, name, 0)
@@ -343,7 +354,7 @@ def test_launch_counters_read_and_reset(cls, name, slots):
     with launch_counts.uncounted():
         assert launch_counts.pointer(torch.device("cuda", 0), slots[0]) \
             is None
-    prim, ins, tol, maxit = _blocks_loop()
+    prim, ins, tol, maxit = _blocks_loop(passes=True)
     core.plain_loop(prim, ins.v2, ins.v3, ins.v5_init, ins.tau0,
                     ins.inv_bn2, tol ** 2, maxit, torch.float64)
     assert getattr(klass, name) == 0 and launch_counts._counts == {}
@@ -404,6 +415,51 @@ def test_recorded_loop_is_one_iteration_of_the_plain_loop(monkeypatch):
                                                             want.x[1])
     assert torch.equal(got.rhs_status, want.rhs_status)
     assert torch.equal(ins.v5_init[0], v5_before)   # the inputs stay
+
+
+def test_in_place_passes_leave_one_vector_copy(monkeypatch):
+    """With ``VectorPasses`` (in place) the recorded step writes v1, v4,
+    v5, v6 and v7 into the carry's own planes, so ``record``'s copies of
+    them have the target as their source and launch nothing; v8, the
+    multiply's output, is the one X-shaped copy.  The loop is the plain
+    driver's to the bit, and the passes' plain driver takes the
+    iterations and probes of ``linalg``'s, X within 1e-10."""
+    monkeypatch.setattr(graphloop, "LoopControl", PlainControl)
+    prim, ins, tol, _ = _blocks_loop(maxit=1, passes=True)
+    step, seen = core.step, []
+
+    def spy(prim, c, v3, dt):
+        before = {f: [t.data_ptr() for t in getattr(c, f)]
+                  for f in ("v1", "v4", "v5", "v6", "v7", "v8")}
+        n = step(prim, c, v3, dt)
+        seen.append((before, c, n))
+        return n
+
+    monkeypatch.setattr(core, "step", spy)
+    c, state = graphloop.record(prim, ins, torch.float64, DryCapture())
+    before, carry, n = seen[-1]
+    assert carry is c
+    for f in ("v1", "v4", "v5", "v6", "v7"):
+        assert all(a is b for a, b in zip(getattr(n, f), getattr(c, f)))
+        assert [t.data_ptr() for t in getattr(n, f)] == before[f]
+    assert all(a.data_ptr() != p for a, p in zip(n.v8, before["v8"]))
+    monkeypatch.setattr(core, "step", step)
+    want = core.plain_loop(prim, ins.v2, ins.v3, ins.v5_init, ins.tau0,
+                           ins.inv_bn2, tol ** 2, 1, torch.float64)
+    assert torch.equal(c.v1[0], want.x[0]) and torch.equal(c.v1[1],
+                                                           want.x[1])
+    runs = []
+    for passes in (False, True):
+        prim, ins, tol, maxit = _blocks_loop(passes=passes)
+        runs.append(core.plain_loop(prim, ins.v2, ins.v3, ins.v5_init,
+                                    ins.tau0, ins.inv_bn2, tol ** 2, maxit,
+                                    torch.float64))
+    ref, got = runs
+    assert (got.return_status, got.iterations, got.n_probes) == (
+        ref.return_status, ref.iterations, ref.n_probes) and ref.iterations > 5
+    scale = max(float(t.abs().max()) for t in ref.x)
+    assert max(float((g - r).abs().max()) for g, r in zip(got.x, ref.x)) \
+        <= 1e-10 * scale
 
 
 def test_loop_inputs_buffers_and_fill():

@@ -1307,3 +1307,94 @@ def test_shutdown_closes_held_sharded_graphs_on_card():
         multihost.shutdown()
     assert graph.exec is None and graph.pool is None
     assert not dist.is_initialized()
+
+
+# ------------------------------------------------ the loop's vector passes
+
+# the cell's points (of 16) whose iterations differ by one between the
+# kernels and the torch passes on an H100 (PERF.md §6)
+CELL_POINTS_OFF_BY_ONE = ()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_vector_passes_match_plain_on_card(dtype):
+    """Each kernel of csrc/vector_passes.cu against its plain version at
+    the benchmark cell's shapes (28,215 blocks of 8 x 8 in 27 columns):
+    axpy, xpay and add_rhs to the bit (linalg's bits too), dotp and nrm2 to
+    the bit and the same on a repeat, within the stated tolerance of
+    linalg's (``check_vector_passes``); the card counts each launch."""
+    _needs_card()
+    from chip_smoke import cell_problem, cell_solver, check_vector_passes
+    from tfqmrgpu_tpu_torch.ops.linalg import VectorPasses
+
+    dev = torch.device("cuda")
+    prob, work = cell_problem(dev)
+    s = cell_solver(prob, work[0], dev)
+    vp = VectorPasses(s._cols, s.plan.subset)
+    assert (vp.colindx.shape[0], vp.cols.ncols, s.lm, s.ln) == (28215, 27,
+                                                                8, 8)
+    VectorPasses.launches = 0
+    assert check_vector_passes(vp, s.lm, s.ln, dtype, dev) <= 1.0
+    # axpy, xpay, two add_rhs; four dotp and two nrm2 of two stages each
+    assert (VectorPasses.axpays, VectorPasses.scatters, VectorPasses.partials,
+            VectorPasses.column_sums) == (2, 2, 6, 6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("lm,ln", [(3, 5), (4, 6), (16, 4)])
+def test_vector_passes_odd_lanes_match_plain_on_card(dtype, lm, ln):
+    """The kernels' one-element path, taken where a row's lanes are no
+    multiple of a 16-byte access (LN 5; LN 6 in float32), and the 16-byte
+    path at LN 4, on a ragged pattern with an empty column: the same
+    checks as at the cell's shapes."""
+    _needs_card()
+    from chip_smoke import check_vector_passes
+    from tfqmrgpu_tpu_torch.ops import linalg
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(lm * 10 + ln)
+    colindx = np.repeat(np.arange(6), (3, 150, 0, 40, 1, 9))
+    rng.shuffle(colindx)
+    cols = linalg.columns(torch.from_numpy(colindx.astype(np.int32)).to(dev),
+                          6)
+    subset = torch.from_numpy(rng.permutation(colindx.shape[0])[:11].astype(
+        np.int32)).to(dev)
+    vp = linalg.VectorPasses(cols, subset)
+    assert check_vector_passes(vp, lm, ln, dtype, dev) <= 1.0
+
+
+@pytest.mark.cuda
+def test_vector_passes_in_the_cell_solve_on_card():
+    """A 'pairs' 'z' solve of the cell's FD problem through the graph: the
+    recorded step writes v1, v4, v5, v6 and v7 in place, so the body holds
+    no X-shaped copy but v8's; the card counts 18 vector pass launches an
+    iteration, 3 a probe and 3 in prepare (``check_first_solve``); on the
+    cell's 16 energies the iterations are the torch passes' on the card,
+    but at the points PERF.md names, by one."""
+    _needs_card()
+    from chip_smoke import (cell_problem, cell_solver, check_first_solve,
+                            contour_against_torch)
+
+    dev = torch.device("cuda")
+    prob, work = cell_problem(dev)
+    info, _ = check_first_solve(cell_solver(prob, work[0], dev))
+    assert info.return_status == 0
+    kernels, plain, differ = contour_against_torch(prob, work, dev)
+    assert len(kernels["iterations"]) == 16
+    assert tuple(differ) == CELL_POINTS_OFF_BY_ONE
+
+
+def test_cpu_solve_runs_linalgs_passes(monkeypatch):
+    """On the CPU ``core.solve_core`` runs ``linalg``'s functions, as
+    before the kernels: no ``VectorPasses`` is made."""
+    from tfqmrgpu_tpu_torch.ops import linalg
+
+    def refuse(*args):
+        raise AssertionError("a CPU solve made VectorPasses")
+
+    monkeypatch.setattr(linalg, "VectorPasses", refuse)
+    s = Solver(*golden_z_problem(mb=24, ncols=4), precision="z",
+               engine="pairs", device="cpu")
+    assert s.solve(tolerance=1e-10, max_iterations=300).return_status == 0

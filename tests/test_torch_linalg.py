@@ -164,3 +164,135 @@ def test_decisions_match_with_breakdowns():
 
 def test_epsilon_is_the_references():
     assert tdec.EPSILON == jdec.EPSILON == 2.5e-308
+
+
+# ---------------------------------------- VectorPasses' plain versions
+
+def _ragged_case(dtype, lm, ln):
+    """Blocks of six columns with ragged widths (1, 40, 7, 0, 90, 3): an
+    empty column, and one wider than ``SUM_CHUNKS`` runs of one slot."""
+    rng = np.random.default_rng(lm * 100 + ln)
+    colindx = np.repeat(np.arange(6), (1, 40, 7, 0, 90, 3))
+    rng.shuffle(colindx)
+    nnzb, ncols = colindx.shape[0], 6
+    npdt = np.float32 if dtype == torch.float32 else np.float64
+    cols = tlin.columns(torch.from_numpy(colindx.astype(np.int32)), ncols)
+    subset = torch.from_numpy(rng.permutation(nnzb)[:30].astype(np.int32))
+    return rng, cols, subset, nnzb, ncols, npdt
+
+
+VECTOR_CASES = [(dt, lm, ln) for dt in (torch.float64, torch.float32)
+                for lm, ln in ((8, 8), (4, 16), (16, 4))]
+
+
+@pytest.mark.parametrize("dtype,lm,ln", VECTOR_CASES)
+def test_vector_passes_plain_elementwise_is_linalg_in_place(dtype, lm, ln):
+    """``VectorPasses.axpy`` / ``xpay`` / ``add_rhs`` on the CPU (their
+    plain versions) give ``linalg.axpy`` / ``xpay`` / ``add_rhs``'s bits,
+    written into the first vector's planes; the other operands stay."""
+    rng, cols, subset, nnzb, ncols, npdt = _ragged_case(dtype, lm, ln)
+    vp = tlin.VectorPasses(cols, subset)
+    x = _t(_planes(rng, (nnzb, lm, ln), npdt))
+    y = _t(_planes(rng, (nnzb, lm, ln), npdt))
+    a = _t(_planes(rng, (ncols, ln)))              # float64, as decisions
+    b = _t(_planes(rng, (30, lm, ln), npdt))
+    keep = [t.clone() for t in x + b]
+    cases = [(vp.axpy, (x, a), tlin.axpy(y, x, a, cols.colindx)),
+             (vp.xpay, (a, x), tlin.xpay(y, a, x, cols.colindx))]
+    cases += [(vp.add_rhs, (b, s), tlin.add_rhs(y, b, s, subset))
+              for s in (1.0, -1.0, 0.5)]
+    for fn, args, want in cases:
+        mine = tuple(t.clone() for t in y)
+        got = fn(mine, *args)
+        assert got is mine
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert all(torch.equal(t, k) for t, k in zip(x + b, keep))
+
+
+def _sum_tolerance(cols, lm, dtype) -> float:
+    """The stated tolerance of the kernels' column sums against ``dotp`` /
+    ``nrm2``: 4 (width + LM) eps of the data type, relative to the column
+    sums of |x| |y| (the sums' order differs; each stage's round-off is
+    bounded by its terms' count times eps)."""
+    return 4 * (cols.table.shape[1] + lm) * torch.finfo(dtype).eps
+
+
+@pytest.mark.parametrize("dtype,lm,ln", VECTOR_CASES)
+def test_vector_passes_plain_sums_match_linalg(dtype, lm, ln):
+    """The plain two-stage ``dotp`` (v3 float32 or the data type against the
+    data) and ``nrm2`` within the stated tolerance of ``linalg``'s, an
+    empty column exactly 0, and the same bits on every call."""
+    rng, cols, subset, nnzb, ncols, npdt = _ragged_case(dtype, lm, ln)
+    vp = tlin.VectorPasses(cols, subset)
+    y = _t(_planes(rng, (nnzb, lm, ln), npdt))
+    tol = _sum_tolerance(cols, lm, dtype)
+    ci = cols.colindx.numpy()
+
+    def mag(u, w):
+        m = np.zeros((ncols, ln))
+        np.add.at(m, ci, ((u[0].abs() + u[1].abs()).double()
+                          * (w[0].abs() + w[1].abs()).double()).sum(1).numpy())
+        return m
+
+    for xdt in (torch.float32, dtype):
+        x = tuple(t.to(xdt) for t in _t(_planes(rng, (nnzb, lm, ln))))
+        got, want = vp.dotp(x, y), tlin.dotp(x, y, cols)
+        scale = mag(x, y)
+        for g, w in zip(got, want):
+            assert g.dtype == torch.float64 and g.shape == (ncols, ln)
+            assert (np.abs((g - w).numpy()) <= tol * scale).all()
+            assert (g[3] == 0).all()
+        again = vp.dotp(x, y)
+        assert all(torch.equal(g, a) for g, a in zip(got, again))
+    got, want = vp.nrm2(y), tlin.nrm2(y, cols)
+    assert (np.abs((got - want).numpy()) <= tol * want.numpy()).all()
+    assert torch.equal(vp.nrm2(y), got)
+
+
+@pytest.mark.parametrize("width", [5, 64, 150])
+def test_vector_passes_column_sums_keep_their_order(width):
+    """``plain_column_sums`` adds in the order the kernel does: each of
+    ``SUM_CHUNKS`` runs of the table's slots in order from 0, then the
+    pairwise tree; checked to the bit against that order in Python floats
+    on partials whose sum depends on the order."""
+    rng = np.random.default_rng(width)
+    colindx = np.zeros(width, np.int32)
+    cols = tlin.columns(torch.from_numpy(colindx), 1)
+    vp = tlin.VectorPasses(cols, torch.zeros(1, dtype=torch.int32))
+    part = rng.standard_normal((1, width, 3)) * 10.0 ** rng.integers(
+        -8, 8, (1, width, 3))
+    got = vp.plain_column_sums(torch.from_numpy(part))
+    table = cols.table[0].tolist()
+    k = -(-width // tlin.SUM_CHUNKS)
+    for lane in range(3):
+        runs = []
+        for r in range(tlin.SUM_CHUNKS):
+            s = 0.0
+            for j in table[r * k:(r + 1) * k]:
+                s += float(part[0, j, lane])
+            runs.append(s)
+        while len(runs) > 1:
+            h = len(runs) // 2
+            runs = [runs[i] + runs[i + h] for i in range(h)]
+        assert float(got[0, 0, lane]) == runs[0]
+
+
+def test_vector_passes_on_the_cpu_launch_nothing(monkeypatch):
+    """On CPU tensors every ``VectorPasses`` method takes its plain
+    version: no kernel is built or launched."""
+    from tfqmrgpu_tpu_torch import _build
+
+    def refuse():
+        raise AssertionError("a CPU tensor must not reach a kernel")
+
+    monkeypatch.setattr(_build, "load_kernels", refuse)
+    rng, cols, subset, nnzb, ncols, npdt = _ragged_case(torch.float64, 4, 8)
+    vp = tlin.VectorPasses(cols, subset)
+    x = _t(_planes(rng, (nnzb, 4, 8)))
+    y = _t(_planes(rng, (nnzb, 4, 8)))
+    a = _t(_planes(rng, (ncols, 8)))
+    vp.axpy(y, x, a)
+    vp.xpay(y, a, x)
+    vp.add_rhs(y, _t(_planes(rng, (30, 4, 8))), -1.0)
+    vp.dotp(x, y)
+    vp.nrm2(y)

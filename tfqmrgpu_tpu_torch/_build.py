@@ -99,6 +99,16 @@ SIGNATURES = {
     # part, tol2, max_bound2, it, residual2, target_bound2, stop_code,
     # iters_needed, n_probes, stream, count
     "tfq_loop_settle_finish": [_P] * 11,
+    # the loop's vector passes (vector_passes.cu): y_re, y_im, x_re, x_im,
+    # a_re, a_im, colindx, nnzb, lm, ln, scale_x, f32, stream, count
+    "tfq_vec_axpay": [_P] * 7 + [_I] * 5 + [_P] * 2,
+    # v_re, v_im, b_re, b_im, subset, nnzb_b, lm, ln, s, f32, stream, count
+    "tfq_vec_add_rhs": [_P] * 5 + [_I] * 3 + [ctypes.c_double, _I] + [_P] * 2,
+    # x_re, x_im, y_re, y_im, part, nnzb, lm, ln, dot, x_f32, y_f32,
+    # stream, count
+    "tfq_vec_partials": [_P] * 5 + [_I] * 6 + [_P] * 2,
+    # part, planes, nnzb, ln, table, ncols, width, out, stream, count
+    "tfq_vec_column_sums": [_P] + [_I] * 3 + [_P] + [_I] * 2 + [_P] * 3,
     # stream, count: one collective counted on the card
     "tfq_count": [_P, _P],
     # and its graph: stream, graph (out)

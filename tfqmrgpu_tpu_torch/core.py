@@ -73,7 +73,11 @@ class TfqmrPrimitives:
     two stages around one ``mesh.reduce_max`` of the rank's partials
     (``decide_local`` / ``decide_finish``, ``settle_local`` /
     ``settle_finish``), and the graph driver agrees with the other ranks
-    on its capture (``mesh.agree``)."""
+    on its capture (``mesh.agree``).
+
+    ``axpy``, ``xpay`` and ``add_rhs`` may write their result into their
+    first vector and return it (``linalg.VectorPasses`` does on the card):
+    ``step`` never reads a vector again after the call that replaces it."""
 
     multiply: Callable[[Pair], Pair]          # y = A @ x
     dotp: Callable[[Pair, Pair], Pair]        # per-column <x, y>  (f64)
@@ -398,26 +402,34 @@ def solve_core(multiply: Callable[[Pair], Pair], v2: Pair, v3: Pair,
     dt = v2[0].dtype
     dev = v2[0].device
     colindx = cols.colindx
-    prim = TfqmrPrimitives(
-        multiply=multiply,
-        dotp=lambda x, y: linalg.dotp(x, y, cols),
-        nrm2=lambda x: linalg.nrm2(x, cols),
-        axpy=lambda y, x, a: linalg.axpy(y, x, a, colindx),
-        xpay=lambda y, a, x: linalg.xpay(y, a, x, colindx),
-        add_rhs=lambda v, b, s: linalg.add_rhs(v, b, s, subset),
-    )
+    if dev.type == "cuda":
+        # the kernels, in place: the loop graph copies none of their results
+        vp = linalg.VectorPasses(cols, subset)
+        prim = TfqmrPrimitives(multiply=multiply, dotp=vp.dotp,
+                               nrm2=vp.nrm2, axpy=vp.axpy, xpay=vp.xpay,
+                               add_rhs=vp.add_rhs)
+    else:
+        prim = TfqmrPrimitives(
+            multiply=multiply,
+            dotp=lambda x, y: linalg.dotp(x, y, cols),
+            nrm2=lambda x: linalg.nrm2(x, cols),
+            axpy=lambda y, x, a: linalg.axpy(y, x, a, colindx),
+            xpay=lambda y, a, x: linalg.xpay(y, a, x, colindx),
+            add_rhs=lambda v, b, s: linalg.add_rhs(v, b, s, subset),
+        )
     with trace("prepare"):
-        z = torch.zeros((int(colindx.shape[0]), lm, ln), dtype=dt,
-                        device=dev)
+        shape = (int(colindx.shape[0]), lm, ln)
+        z = (torch.zeros(shape, dtype=dt, device=dev),
+             torch.zeros(shape, dtype=dt, device=dev))
         if rhs_trivial:
             v2 = linalg.set_unit_blocks(int(subset.shape[0]), lm, ln, dt,
                                         dev)
-            v5 = prim.add_rhs((z, z), v2, 1.0)
+            v5 = prim.add_rhs(z, v2, 1.0)
             tau0 = torch.ones((cols.ncols, ln), dtype=torch.float64,
                               device=dev)
             inv_bn2 = tau0
         else:
-            v5 = prim.add_rhs((z, z), v2, 1.0)
+            v5 = prim.add_rhs(z, v2, 1.0)
             tau0 = prim.nrm2(v5)                 # squared column norms of B
             inv_bn2 = inverse_norms(tau0)
     if inv_bn2_override is not None:

@@ -8,7 +8,8 @@ once a solve:
     init_carry                        (the state from the static inputs)
     continue                          (sets the WHILE node)
     WHILE {
-        step                          (the half-steps, copied into the carry)
+        step                          (the half-steps, copied into the carry
+                                       where not written there in place)
         decide                        (sets the IF node)
         IF { probe_residual, settle }
         continue                      (sets the WHILE node)
@@ -358,6 +359,8 @@ def record(prim: core.TfqmrPrimitives, ins: LoopInputs, dt,
     LoopControl.cont(c, ins.maxit, handle=w)
     with capture.node(w, WHILE):
         n = core.step(prim, c, ins.v3, dt)
+        # a result written into the carry in place is its own source, and
+        # copy_ launches nothing for it
         for f in ("it", "v1", "v4", "v5", "v6", "v7", "v8", "rho", "eta",
                   "tau", "var", "status"):
             for mine, new in zip(*(_leaves(getattr(x, f)) for x in (c, n))):

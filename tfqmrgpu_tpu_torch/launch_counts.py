@@ -28,6 +28,7 @@ import torch
 SLOTS = ("k1", "k2", "k2_split", "k3", "k3_split", "oz", "x_split",
          "loop_decide", "loop_settle", "loop_continue", "loop_decide_local",
          "loop_decide_finish", "loop_settle_local", "loop_settle_finish",
+         "vec_axpay", "vec_add_rhs", "vec_partials", "vec_column_sums",
          # collectives of the sharded layer, counted by ``tick``
          "all_gather", "all_reduce", "neighbour_exchange")
 
