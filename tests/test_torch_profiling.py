@@ -180,6 +180,31 @@ def test_spans_of_a_point_on_the_pairs_engine():
     assert tprof.spans() == []
 
 
+@pytest.mark.parametrize("lm,ln", [(4, 8), (64, 64)])
+def test_the_schedule_span_carries_k1s_tile_figures(lm, ln):
+    """A set A records K1's schedule as the `schedule` span's attributes:
+    the warp grid, tiles, steps, staged bytes and the plan's pairs, equal
+    to the fields of the ``TileSchedule`` the multiply runs."""
+    a, x, b = _problem("z", mb=6 if lm == 64 else 10, lm=lm, ln=ln)
+    s = tt.Solver(*_port(a, x, b), precision="z", engine="pairs",
+                  device="cpu")
+    tprof.clear_spans()
+    with tprof.recording():
+        s.set_matrix("A", _port(a)[0].data)
+    (span,) = [sp for sp in tprof.spans() if sp.name == "schedule"]
+    sched = s._multiply.schedule
+    assert span.attrs == {
+        "grid": (sched.warps_m, sched.warps_n), "tiles": sched.ntiles,
+        "steps": sched.nsteps, "staged_bytes": sched.staged_bytes,
+        "pairs": int(s.plan.pairs.shape[0])}
+    assert sched.ntiles > 0 and sched.nsteps > 0
+    if lm == 64:                  # the one grid: a Y block a tile
+        assert span.attrs["grid"] == (2, 2)
+        assert span.attrs["staged_bytes"] == 2 * 16 * 64 * 64 * span.attrs[
+            "pairs"]
+    tprof.clear_spans()
+
+
 def test_nothing_is_kept_with_the_recorder_off():
     a, x, b = _problem("z")
     s = tt.Solver(*_port(a, x, b), precision="z", engine="pairs",

@@ -553,8 +553,13 @@ class PairPlanMultiply(metaclass=launch_counts.CountedLaunches):
             sm_count = (torch.cuda.get_device_properties(dev)
                         .multi_processor_count if dev.type == "cuda"
                         else SM_COUNT)
-            with trace("schedule"):
+            with trace("schedule") as span:
                 s = tile_schedule(plan, self.lm, self.ln, grid, sm_count)
+            if span is not None:      # what the trace shows of the tiles
+                span.attrs.update(
+                    grid=(s.warps_m, s.warps_n), tiles=s.ntiles,
+                    steps=s.nsteps, staged_bytes=s.staged_bytes,
+                    pairs=int(plan.pairs.shape[0]))
             self.schedule = s
             with trace("schedule_upload", dev):
                 self._tables = tuple(

@@ -104,7 +104,8 @@ class Span:
     the top); ``call`` is the ``id`` of the top-level span it belongs to,
     one for every span of a ``set_matrix``, ``solve`` or ``get_matrix``;
     ``attrs`` holds what a layer adds (``device_ms`` of the loop graph's
-    ``launch``, ``hit`` of a ``refill``)."""
+    ``launch``, ``hit`` of a ``refill``, K1's ``grid``, ``tiles``,
+    ``steps``, ``staged_bytes`` and ``pairs`` of a ``schedule``)."""
 
     name: str
     start_ns: int
